@@ -4,9 +4,10 @@ Each kernel library is a plain-C shared object compiled by ``nvcc`` from the
 sources under ``protstruc_tpu_torch/csrc/`` at first use, and bound with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The build lands in
 ``protstruc_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one is reused.  The
-compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
-beside the library as ``<name>.log``.
+and flags, so an edited source rebuilds and an unchanged one is reused.  Each
+library names its own flags (:data:`NVCC_FLAGS` or :data:`NVCC_FLAGS_FMA`).
+The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+kept beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 from typing import Dict, Optional, Sequence
 
-__all__ = ["NVCC_FLAGS", "CSRC", "BUILD_DIR", "find_nvcc", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "NVCC_FLAGS_FMA", "CSRC", "BUILD_DIR", "find_nvcc", "library_path", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
@@ -35,6 +36,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: The same without ``-fmad=false``: nvcc contracts ``a * b + c`` into one
+#: FMA.  For the matrix-product kernels (``csrc/tri_mul.cu``), whose FMA loops
+#: would otherwise take a multiply and an add per step; their plain versions
+#: are float32 matrix products, which round the same way.
+NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -49,16 +56,19 @@ def find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-def library_path(stem: str, sources: Sequence[str]) -> pathlib.Path:
-    """Where ``lib<stem>`` built from ``sources`` lives (keyed by their hash)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(stem: str, sources: Sequence[str],
+                 flags: Sequence[str] = NVCC_FLAGS) -> pathlib.Path:
+    """Where ``lib<stem>`` built from ``sources`` with ``flags`` lives (keyed
+    by their hash)."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         h.update((CSRC / s).read_bytes())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
-def load(stem: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile (once per source hash) and ``dlopen`` ``lib<stem>``.
+def load(stem: str, sources: Sequence[str],
+         flags: Sequence[str] = NVCC_FLAGS) -> ctypes.CDLL:
+    """Compile (once per source and flag hash) and ``dlopen`` ``lib<stem>``.
 
     Raises ``RuntimeError`` when ``nvcc`` is missing or the build fails: a
     kernel that cannot be built is an error, never a silent fallback.
@@ -66,7 +76,7 @@ def load(stem: str, sources: Sequence[str]) -> ctypes.CDLL:
     lib = _LIBS.get(stem)
     if lib is not None:
         return lib
-    out = library_path(stem, sources)
+    out = library_path(stem, sources, flags)
     if not out.is_file():
         nvcc = find_nvcc()
         if nvcc is None:
@@ -74,7 +84,7 @@ def load(stem: str, sources: Sequence[str]) -> ctypes.CDLL:
                 f"cannot build lib{stem}: no nvcc (set CUDA_HOME or put nvcc on PATH)")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in sources)]
+        cmd = [nvcc, *flags, "-o", str(tmp), *(str(CSRC / s) for s in sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
