@@ -4,6 +4,8 @@ Port of the featurization part of ``protstruc_tpu/batch.py``.  The batch is a
 frozen dataclass of tensors that all live on one explicit ``device``;
 manipulators (``to``) return a new batch, as in the JAX package.
 
+* constructors put the batch on ``"cuda"`` unless told otherwise (without a
+  card that raises, see :func:`resolve_device`);
 * ``chain_idx``/``residue_idx`` are int32 with ``-1`` padding; missing-atom
   coordinates are NaN with ``atom_mask`` False.
 * ``inter_residue_geometry`` computes each ``(B, L, L)`` map directly: by
@@ -115,7 +117,7 @@ class StructureBatch:
         chain_ids: Optional[List[List[str]]] = None,
         seq: Optional[List[Dict[str, str]]] = None,
         residue_idx=None,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = "cuda",
     ) -> "StructureBatch":
         """Build a batch from a raw coordinate array (numpy or tensor).
 
@@ -150,7 +152,7 @@ class StructureBatch:
 
     @classmethod
     def from_pdb(cls, pdb_path: Union[str, List[str]],
-                 device: DeviceLike = "cpu") -> "StructureBatch":
+                 device: DeviceLike = "cuda") -> "StructureBatch":
         """Parse one or more PDB/mmCIF files into a padded batch (A = 15).
 
         Parse and pad on the host, then one transfer to ``device``.
@@ -163,7 +165,7 @@ class StructureBatch:
 
     @classmethod
     def _from_parsed(cls, parsed, target_length=None,
-                     device: DeviceLike = "cpu") -> "StructureBatch":
+                     device: DeviceLike = "cuda") -> "StructureBatch":
         """Pad a list of parsed single structures into one batch.
 
         ``target_length`` pads to a fixed residue count instead of the batch max.
@@ -216,6 +218,39 @@ class StructureBatch:
             chain_idx=self.chain_idx.to(dev),
             residue_idx=self.residue_idx.to(dev),
         )
+
+    def random_crop(self, size: int, generator: Optional[torch.Generator] = None,
+                    extras=(), starts=None):
+        """A contiguous window of ``size`` residues per structure.
+
+        Each structure's window starts uniformly inside its valid span:
+        ``start = min(int(u * (max_start + 1)), max_start)`` with ``u`` drawn
+        from ``generator`` (on the CPU, then moved) and ``max_start =
+        max(length - size, 0)``, as the JAX package draws it from a key.
+        ``starts`` (``(B,)`` ints) replaces the draw.  ``seq`` is dropped (it
+        cannot follow the crop); pass ``get_seq_idx()`` through ``extras``
+        (``(B, L, ...)`` tensors cropped alike) to keep it.  Returns the
+        cropped batch, or ``(batch, cropped_extras)`` with ``extras``.
+        """
+        if size > self.n_residues:
+            raise ValueError(f"crop size {size} > padded length {self.n_residues}")
+        max_start = torch.clamp_min(self.get_total_lengths() - size, 0)
+        if starts is None:
+            u = torch.rand(self.batch_size, generator=generator).to(self.device)
+            starts = (u * (max_start + 1).to(u.dtype)).to(torch.int64)
+        starts = torch.minimum(torch.as_tensor(starts, device=self.device).long(), max_start)
+        idx = starts[:, None] + torch.arange(size, device=self.device)[None, :]
+        rows = torch.arange(self.batch_size, device=self.device)[:, None]
+
+        def crop(x):
+            return x[rows, idx]
+
+        cropped = dataclasses.replace(
+            self, xyz=crop(self.xyz), atom_mask=crop(self.atom_mask),
+            chain_idx=crop(self.chain_idx), residue_idx=crop(self.residue_idx), seq=None)
+        if extras:
+            return cropped, tuple(crop(torch.as_tensor(e, device=self.device)) for e in extras)
+        return cropped
 
     # ------------------------------------------------------------------
     # basic accessors

@@ -13,6 +13,12 @@
   ``pair_bias`` ``(P, h)``, ``out`` ``(h, dh, D)``), so a leaf is copied as
   it is and its path is joined with dots: ``block_0/attn/qkv/kernel`` ->
   ``block_0.attn.qkv.kernel``.
+* FoldModel parameters: :func:`foldmodel_params_from_flax` and back, the same
+  walk over the FoldModel tree: ``trunk`` (TrFold's tree), ``structure``
+  (``structure.ipa.q_point.kernel``, ``structure.backbone_update.update.kernel``,
+  ``structure.ipa.point_weight``, ...), ``recycle_node_ln``,
+  ``recycle_pair_ln``, ``recycle_dist_embed``, ``plddt_head`` and
+  ``pae_head``.
 """
 
 from __future__ import annotations
@@ -31,12 +37,12 @@ from protstruc_tpu_torch.batch import (
 )
 
 __all__ = ["structure_batch_from_numpy", "to_numpy", "trfold_params_from_flax",
-           "trfold_params_to_flax"]
+           "trfold_params_to_flax", "foldmodel_params_from_flax", "foldmodel_params_to_flax"]
 
 
 def structure_batch_from_numpy(xyz, atom_mask, chain_idx, residue_idx,
                                chain_ids=None, seq=None,
-                               device: DeviceLike = "cpu") -> StructureBatch:
+                               device: DeviceLike = "cuda") -> StructureBatch:
     """The port's batch holding exactly these arrays (no re-validation).
 
     ``xyz`` is cast to float32, ``atom_mask`` to bool and the index arrays to
@@ -90,3 +96,15 @@ def trfold_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(name, {})
         node[leaf] = t.detach().cpu().numpy()
     return tree
+
+
+def foldmodel_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax FoldModel parameter tree -> the ``state_dict`` of
+    ``protstruc_tpu_torch.models.ipa.FoldModel`` (leaves copied, paths
+    dotted: ``structure/ipa/q_point/kernel`` -> ``structure.ipa.q_point.kernel``)."""
+    return trfold_params_from_flax(tree)
+
+
+def foldmodel_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`foldmodel_params_from_flax`."""
+    return trfold_params_to_flax(state)

@@ -42,6 +42,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kTileJ = 32;           // threads along j: one warp per i-row
@@ -148,12 +150,13 @@ pair_maps_kernel(const float* __restrict__ xyz, int L, int A, int mask,
 // xyz: contiguous f32 (B, L, A, 3) with A >= 5, on `device`.  Each selected
 // map pointer is a contiguous f32 (B, L, L) buffer; unselected ones may be
 // null.  Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// The calling thread's current device is the same after the call.
 extern "C" int ps_pair_maps_f32(int device, const float* xyz, int B, int L, int A,
                                 int mask, float* d_ca, float* d_cb, float* d_no,
                                 float* omega, float* theta, float* phi,
                                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
   if (B <= 0 || L <= 0) return (int)cudaSuccess;
   dim3 block(kTileJ, kTileI);
   dim3 grid((L + kTileJ - 1) / kTileJ, (L + kTileI - 1) / kTileI, B);

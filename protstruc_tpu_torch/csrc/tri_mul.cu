@@ -54,6 +54,8 @@
 
 #include <type_traits>
 
+#include "device_scope.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -817,20 +819,6 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   reduce_kernel<T><<<(int)((mm + 255) / 256), 256, 0, st>>>(g.part, p.chunks, mm, dmat);
   return (int)cudaGetLastError();
 }
-
-// Makes `device` current for one call and gives the caller's device back on
-// return, so a launch on another card does not move the calling thread.
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t err;
-  explicit DeviceScope(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceScope() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, void* stream) {
   DeviceScope scope(device);

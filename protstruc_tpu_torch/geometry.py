@@ -14,17 +14,23 @@ sum of products into fused multiply-adds and rounds ``sqrt`` correctly.
 root taken in float64), because ``angle``'s arccos amplifies a one-ulp
 difference in the cosine to more than 1e-5 near ``|cos| = 1``.
 
-This slice ports what the featurization path needs: ``dot``, ``norm``,
-``unit``, ``angle``, ``dihedral`` and ``gram_schmidt``.
+Ported so far: what the featurization path needs (``dot``, ``norm``,
+``unit``, ``angle``, ``dihedral``, ``gram_schmidt``) and what the FoldModel
+trainer needs (``place_fourth_atom``, ``ideal_backbone_coordinates``,
+``ideal_carbonyl_oxygen``, ``kabsch``, ``masked_kabsch``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
-__all__ = ["dot", "norm", "unit", "angle", "dihedral", "gram_schmidt"]
+from protstruc_tpu_torch.constants import ideal
+
+__all__ = ["dot", "norm", "unit", "angle", "dihedral", "gram_schmidt", "place_fourth_atom",
+           "ideal_backbone_coordinates", "ideal_carbonyl_oxygen", "kabsch", "masked_kabsch"]
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -130,3 +136,82 @@ def gram_schmidt(a, b, c) -> torch.Tensor:
 
     e3 = _cross(e1, e2)
     return torch.stack([e1, e2, e3], dim=-1)
+
+
+def place_fourth_atom(a, b, c, length, planar, dihedral_angle) -> torch.Tensor:
+    """NeRF placement of X from A, B, C: bond ``|CX| = length``, angle
+    X-C-B ``planar`` and dihedral X-C-B-A ``dihedral_angle`` (Python floats)."""
+    bc = unit(b - c)
+    n = unit(_cross(b - a, bc))
+    d1, d2, d3 = bc, _cross(n, bc), n
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=a.device)  # noqa: E731
+    cos_p, sin_p = torch.cos(f32(planar)), torch.sin(f32(planar))
+    cos_d, sin_d = torch.cos(f32(dihedral_angle)), torch.sin(f32(dihedral_angle))
+    m1 = length * cos_p
+    m2 = length * sin_p * cos_d
+    m3 = -length * sin_p * sin_d
+    return c + m1 * d1 + m2 * d2 + m3 * d3
+
+
+def ideal_backbone_coordinates(size, include_cb: bool = False, device="cuda") -> torch.Tensor:
+    """Ideal N, CA, C (and CB) with CA at the origin, C on +x and N in the
+    xy-plane, so that ``gram_schmidt(N, CA, C)`` is the identity frame.
+    Shape ``(*size, 3|4, 3)``, float32, on ``device``."""
+    from protstruc_tpu_torch.batch import resolve_device
+
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
+    ca = torch.zeros(3, **f32)
+    c = torch.tensor([ideal.AC, 0.0, 0.0], **f32)
+    n = torch.tensor([ideal.NA * math.cos(ideal.NAC), ideal.NA * math.sin(ideal.NAC), 0.0], **f32)
+    if include_cb:
+        _b, _c = ca - n, c - ca
+        _a = torch.linalg.cross(_b, _c)
+        # AlphaFold's CB-from-backbone combination
+        cb = -0.58273431 * _a + 0.56802827 * _b - 0.54067466 * _c + ca
+        xyz = torch.stack([n, ca, c, cb])
+    else:
+        xyz = torch.stack([n, ca, c])
+    return xyz.expand(tuple(size) + xyz.shape)
+
+
+def ideal_carbonyl_oxygen(n, ca, c, chain_idx=None) -> torch.Tensor:
+    """Backbone O placed ideally from (N_{i+1}, CA_i, C_i); residues without
+    a next N in their chain (the array's last one, and with ``chain_idx
+    (..., L)`` each chain's last one) take the extended ideal-psi placement,
+    dih(N, CA, C, O) = 135 deg - pi.  Residue axis second to last."""
+    n_next = torch.roll(n, shifts=-1, dims=-2)
+    L = n.shape[-2]
+    is_last = torch.arange(L, device=n.device) == L - 1
+    if chain_idx is not None:
+        is_last = is_last | (chain_idx != torch.roll(chain_idx, shifts=-1, dims=-1))
+    o_mid = place_fourth_atom(n_next, ca, c, ideal.CO, ideal.ACO, ideal.NACO)
+    o_term = place_fourth_atom(n, ca, c, ideal.CO, ideal.ACO, math.radians(135.0) - math.pi)
+    return torch.where(is_last[..., None], o_term, o_mid)
+
+
+def masked_kabsch(a, b, weights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Kabsch superposition ``R a + t ~ b`` of ``(..., n, 3)`` point
+    sets; zero-weight points (NaN allowed there) take no part.  Returns
+    ``R (..., 3, 3)``, ``t (..., 3)``."""
+    w = weights.to(a.dtype)[..., None]
+    a = torch.where(w > 0, a, 0.0)
+    b = torch.where(w > 0, b, 0.0)
+    wsum = w.sum(-2, keepdim=True)
+    centroid_a = (a * w).sum(-2, keepdim=True) / wsum
+    centroid_b = (b * w).sum(-2, keepdim=True) / wsum
+    a_c = (a - centroid_a) * w
+    b_c = b - centroid_b
+    h = torch.einsum("...ki,...kj->...ij", a_c, b_c)
+    u, _, vt = torch.linalg.svd(h, full_matrices=False)
+    v = vt.transpose(-2, -1)
+    d = torch.sign(torch.linalg.det(v @ u.transpose(-2, -1)))
+    diag = torch.ones(h.shape[:-2] + (3,), dtype=a.dtype, device=a.device)
+    diag = torch.cat([diag[..., :2], d[..., None]], dim=-1)
+    r = torch.einsum("...ij,...j,...kj->...ik", v, diag, u)
+    t = centroid_b.squeeze(-2) - torch.einsum("...ij,...j->...i", r, centroid_a.squeeze(-2))
+    return r, t
+
+
+def kabsch(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unweighted :func:`masked_kabsch`."""
+    return masked_kabsch(a, b, torch.ones(a.shape[:-1], dtype=a.dtype, device=a.device))

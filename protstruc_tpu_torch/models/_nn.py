@@ -16,6 +16,9 @@ compute what flax computes and store what flax stores:
   ``eps = 1e-6``, ``(x - mu) * (rsqrt(var + eps) * scale) + bias``, and casts
   the result to ``dtype``.  ``torch.nn.functional.layer_norm`` (eps 1e-5, the
   two-pass variance) and ``torch.nn.Linear`` are not these;
+* parameters are created on an explicit ``device``, ``"cuda"`` unless the
+  caller names another (without a card that default raises, as
+  ``batch.resolve_device`` does);
 * initializers are flax's: ``lecun_normal`` kernels (a normal truncated at
   two standard deviations, scaled to variance ``1 / fan_in``), zero biases,
   LayerNorm ones and zeros, Embed ``N(0, 1 / features)``.  They draw from an
@@ -31,6 +34,8 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from protstruc_tpu_torch.batch import resolve_device
 
 __all__ = ["Dense", "LayerNorm", "Embed", "gelu", "layer_norm", "lecun_normal_", "LN_EPS"]
 
@@ -65,8 +70,9 @@ class Dense(nn.Module):
     """
 
     def __init__(self, in_shape: Shape, out_shape: Shape, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.in_shape, self.out_shape = _tuple(in_shape), _tuple(out_shape)
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape, device=device))
@@ -97,8 +103,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=dtype)`` over the last axis, ``features`` wide."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -123,8 +130,10 @@ class Embed(nn.Module):
     an H100).
     """
 
-    def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty((num, features), device=device))
 

@@ -22,11 +22,15 @@ tensors; the unfused module computes the same update from the same params in
 plain PyTorch.  ``remat=True`` checkpoints each block
 (``torch.utils.checkpoint``, non-reentrant).
 
+``use_flash_attn=True`` runs the node attention through the K8/K9 kernels
+(``ops/flash_attn.py``), and ``featurize_for_model(fused=True)`` the
+featurization through K3 (``ops/model_features.py``).
+
 Not ported yet (constructing a model that needs them raises
 ``NotImplementedError``): ``remat_policy`` other than ``"none"``, MoE blocks,
-flash and ring attention, the fused ``featurize_for_model(fused=True)``
-(kernel K3), chi features, ``DiffusionDenoiser``, ``predict_structure``,
-``pipeline_apply`` and the sharding rules.
+ring attention, chi features, ``extra_mask``/``kv`` attention,
+``DiffusionDenoiser``, ``predict_structure``, ``pipeline_apply`` and the
+sharding rules.
 """
 
 from __future__ import annotations
@@ -39,14 +43,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from protstruc_tpu_torch.batch import resolve_device
 from protstruc_tpu_torch.models._nn import Dense, Embed, LayerNorm, gelu, lecun_normal_
+from protstruc_tpu_torch.ops.flash_attn import flash_pair_bias_attention
 from protstruc_tpu_torch.ops.histogram import distogram_bins
+from protstruc_tpu_torch.ops.model_features import model_inputs
 from protstruc_tpu_torch.ops.tri_mul import fused_triangle_multiplication
 
 __all__ = [
     "TrFoldConfig",
     "TrFold",
     "make_train_state",
+    "adamw",
     "train_step",
     "loss_fn",
     "featurize_for_model",
@@ -87,8 +95,6 @@ def _check_ported(cfg: TrFoldConfig) -> None:
         raise ValueError(f"remat_policy must be 'none', 'tri_dots' or 'dots', got {cfg.remat_policy!r}")
     if cfg.moe_experts > 0:
         raise NotImplementedError("MoE blocks (moe_experts > 0) are not yet ported")
-    if cfg.use_flash_attn:
-        raise NotImplementedError("flash attention (use_flash_attn=True) is not yet ported")
     if cfg.ring_mesh is not None:
         raise NotImplementedError("ring attention (ring_mesh) is not yet ported")
     if cfg.pair_update not in ("gated_mix", "triangle"):
@@ -110,11 +116,11 @@ def featurize_for_model(batch, use_kernel: bool = False, fused: bool = False,
     0, as in the JAX package.  ``use_kernel`` is the JAX ``use_pallas``: True
     takes the K1 pair-map kernel on a CUDA batch (its plain version on a CPU
     batch), False (the default, as in JAX) the arccos-form path.
-    ``fused=True`` (kernel K3) and ``include_chi`` are not ported yet.
+    ``fused=True`` is the training ingest's path: the K3 kernel
+    (``ops/model_features.py``; its plain version on a CPU batch) emits
+    ``d_cb_bins`` and ``ang_sincos (B, L, L, 6)`` in ``ang_dtype`` in place of
+    the raw maps.  ``include_chi`` is not ported yet.
     """
-    if fused:
-        raise NotImplementedError(
-            "featurize_for_model(fused=True) (the K3 model-feature kernel) is not yet ported")
     if include_chi:
         raise NotImplementedError("featurize_for_model(include_chi=True) is not yet ported")
     torsions, torsion_mask = batch.backbone_dihedrals()
@@ -124,13 +130,19 @@ def featurize_for_model(batch, use_kernel: bool = False, fused: bool = False,
         seq_idx = batch.get_seq_idx()
     else:
         seq_idx = torch.zeros(batch.chain_idx.shape, dtype=torch.int32, device=batch.device)
-    g = batch.inter_residue_geometry(use_kernel=use_kernel)
-    return {
+    common = {
         "seq_idx": seq_idx,
         "torsions": torsions,
         "torsion_mask": torsion_mask,
         "residue_mask": batch.residue_mask,
         "chain_idx": batch.chain_idx,
+    }
+    if fused:
+        return {**common, **model_inputs(batch.xyz, batch.atom_mask, n_dist_bins, max_dist,
+                                         ang_dtype)}
+    g = batch.inter_residue_geometry(use_kernel=use_kernel)
+    return {
+        **common,
         "d_cb": g["d_cb"],
         "omega": g["omega"],
         "theta": g["theta"],
@@ -143,8 +155,13 @@ def featurize_from_sequence(seq_idx, chain_idx=None, n_dist_bins: int = 36,
                             device=None) -> Dict[str, torch.Tensor]:
     """Sequence-only model inputs: zero torsions under an all-False mask, the
     distogram's last bin everywhere and an all-False pair mask, so the trunk
-    sees sequence and relative position only."""
-    seq_idx = torch.as_tensor(seq_idx, dtype=torch.int32, device=device)
+    sees sequence and relative position only.
+
+    ``device`` defaults to ``seq_idx``'s own for a tensor and to ``"cuda"``
+    for anything else (numpy, lists)."""
+    if device is None:
+        device = seq_idx.device if isinstance(seq_idx, torch.Tensor) else "cuda"
+    seq_idx = torch.as_tensor(seq_idx, dtype=torch.int32, device=resolve_device(device))
     dev = seq_idx.device
     B, L = seq_idx.shape
     if chain_idx is None:
@@ -167,10 +184,16 @@ def featurize_from_sequence(seq_idx, chain_idx=None, n_dist_bins: int = 36,
 
 
 class PairBiasAttention(nn.Module):
-    """Multi-head node self-attention with an additive pair-derived bias
-    (the JAX module's einsum path)."""
+    """Multi-head node self-attention with an additive pair-derived bias.
 
-    def __init__(self, cfg: TrFoldConfig, device=None):
+    ``cfg.use_flash_attn`` takes the K8/K9 flash kernels
+    (``ops/flash_attn.py``; their plain versions on CPU tensors), reading q,
+    k, v as views of the ``qkv`` projection and the bias as the permuted view
+    of the pair-bias Dense output, with no copy; otherwise the einsum path.
+    Both give zeros on a query row with no allowed key.
+    """
+
+    def __init__(self, cfg: TrFoldConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         h, dh = cfg.n_heads, cfg.node_dim // cfg.n_heads
@@ -184,6 +207,8 @@ class PairBiasAttention(nn.Module):
         qkv = self.qkv(node)
         q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         bias = self.pair_bias(pair).permute(0, 3, 1, 2)  # (B, h, L, L)
+        if self.cfg.use_flash_attn:
+            return self.out(flash_pair_bias_attention(q, k, v, bias, mask))
         scale = torch.tensor(math.sqrt(dh), dtype=dt, device=node.device)
         logits = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + bias
         allowed = mask[:, None, None, :]
@@ -199,7 +224,7 @@ class _SplitDense(nn.Module):
     """Dense over ``concat([a, b], -1)`` without building it:
     ``a @ K[:Ca] + b @ K[Ca:] + bias``, one ``(Ca + Cb, F)`` kernel."""
 
-    def __init__(self, ca: int, cb: int, features: int, dtype, device=None):
+    def __init__(self, ca: int, cb: int, features: int, dtype, device="cuda"):
         super().__init__()
         self.ca, self.dtype = ca, dtype
         self.kernel = nn.Parameter(torch.empty((ca + cb, features), device=device))
@@ -218,7 +243,7 @@ class _SplitDense(nn.Module):
 class PairUpdate(nn.Module):
     """Outer-product node -> pair update plus gated row/column mixing."""
 
-    def __init__(self, cfg: TrFoldConfig, device=None):
+    def __init__(self, cfg: TrFoldConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
@@ -260,7 +285,7 @@ class TriangleMultiplication(nn.Module):
     unfused path is flax's LayerNorm and Dense layers in plain PyTorch.
     """
 
-    def __init__(self, cfg: TrFoldConfig, outgoing: bool = True, device=None):
+    def __init__(self, cfg: TrFoldConfig, outgoing: bool = True, device="cuda"):
         super().__init__()
         self.cfg, self.outgoing = cfg, outgoing
         C, dt = cfg.pair_dim, cfg.dtype
@@ -290,7 +315,7 @@ class TriangleMultiplication(nn.Module):
 class TrFoldBlock(nn.Module):
     """Attention + MLP on the node stream, then the pair update."""
 
-    def __init__(self, cfg: TrFoldConfig, device=None):
+    def __init__(self, cfg: TrFoldConfig, device="cuda"):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
@@ -329,9 +354,10 @@ class TrFold(nn.Module):
     an explicit generator.
     """
 
-    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device=None):
+    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda"):
         super().__init__()
         _check_ported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
         self.seq_embed = Embed(cfg.vocab, D, dt, device)
@@ -412,14 +438,19 @@ class TrFold(nn.Module):
             "phi_sincos": self.phi_head(pair),
         }
 
-    def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        mask = feats["residue_mask"]
-        node, pair = self.embed(feats)
+    def run_blocks(self, node, pair, mask):
+        """The blocks in order, each checkpointed under ``cfg.remat`` while
+        gradients are on."""
         for block in self.blocks:
             if self.cfg.remat and torch.is_grad_enabled():
                 node, pair = checkpoint(block, node, pair, mask, use_reentrant=False)
             else:
                 node, pair = block(node, pair, mask)
+        return node, pair
+
+    def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        mask = feats["residue_mask"]
+        node, pair = self.run_blocks(*self.embed(feats), mask)
         out = self.heads(node, pair)
         out["moe_aux_loss"] = torch.zeros((), dtype=torch.float32, device=node.device)
         return out
@@ -480,23 +511,31 @@ def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
 
 
 def make_train_state(model: TrFold, feats: Dict[str, torch.Tensor], generator: torch.Generator,
-                     learning_rate: float = 1e-3
+                     learning_rate: float = 1e-3, device="cuda"
                      ) -> Tuple[Dict[str, torch.Tensor], dict, torch.optim.AdamW]:
-    """Initialise ``model`` from ``generator`` and build its optimizer.
+    """Move ``model`` to ``device``, initialise it from ``generator`` and
+    build its optimizer.
 
     Returns ``(params, opt_state, tx)``: the model's parameters by flax path
     (``block_0.attn.qkv.kernel``), the optimizer's state, and
-    ``torch.optim.AdamW`` with optax ``adamw``'s defaults (betas (0.9,
-    0.999), eps 1e-8, weight decay 1e-4; torch's default decay is 1e-2).
+    ``torch.optim.AdamW`` with optax ``adamw``'s defaults (:func:`adamw`).
     ``feats`` is taken for the JAX signature; the shapes come from the config.
     """
     if "chi" in feats:
         raise NotImplementedError("chi features (include_chi=True) are not yet ported")
+    model.to(resolve_device(device))
     model.reset_parameters(generator)
     params = dict(model.named_parameters())
-    tx = torch.optim.AdamW(params.values(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=1e-4)
+    tx = adamw(params.values(), learning_rate)
     return params, tx.state, tx
+
+
+def adamw(params, learning_rate: float) -> torch.optim.AdamW:
+    """``torch.optim.AdamW`` over ``params`` with optax ``adamw``'s defaults:
+    betas (0.9, 0.999), eps 1e-8, weight decay 1e-4 (torch's default decay
+    is 1e-2)."""
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
 
 
 def train_step(params, opt_state, feats, model: TrFold, tx: torch.optim.Optimizer):

@@ -59,10 +59,10 @@ def find_nvcc() -> Optional[str]:
 def library_path(stem: str, sources: Sequence[str],
                  flags: Sequence[str] = NVCC_FLAGS) -> pathlib.Path:
     """Where ``lib<stem>`` built from ``sources`` with ``flags`` lives (keyed
-    by their hash)."""
+    by their hash and that of the shared headers, ``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for s in sources:
-        h.update((CSRC / s).read_bytes())
+    for path in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -18,7 +18,7 @@ from protstruc_tpu.batch import _inter_residue_geometry as jax_inter_residue_geo
 from protstruc_tpu_torch import StructureBatch
 from protstruc_tpu_torch.convert import structure_batch_from_numpy, to_numpy
 from tests.conftest import pdb_path
-from tests.test_torch_parity import as_numpy, assert_parity
+from tests.test_torch_parity import DEVICE, as_numpy, assert_parity
 
 torch.set_num_threads(1)
 
@@ -31,7 +31,7 @@ PDBS = {
 
 def _pair(name):
     paths = [pdb_path(p) for p in PDBS[name]]
-    return JaxBatch.from_pdb(paths), StructureBatch.from_pdb(paths)
+    return JaxBatch.from_pdb(paths), StructureBatch.from_pdb(paths, device=DEVICE)
 
 
 @pytest.mark.parametrize("name", sorted(PDBS))
@@ -65,7 +65,7 @@ def test_inter_residue_geometry_jnp_twin_matches_jax(name):
         xyz = (rng.randn(2, 48, 15, 3) * 5).astype(np.float32)
         am = rng.rand(2, 48, 15) > 0.05
         xyz[~am] = np.nan
-        sbt = StructureBatch.from_xyz(xyz, am)
+        sbt = StructureBatch.from_xyz(xyz, am, device=DEVICE)
     else:
         sbj, sbt = _pair(name)
         xyz, am = np.asarray(sbj.xyz), np.asarray(sbj.atom_mask)
@@ -79,27 +79,29 @@ def test_inter_residue_geometry_jnp_twin_matches_jax(name):
 def test_from_xyz_defaults_and_validation():
     xyz = np.random.RandomState(5).randn(2, 6, 15, 3)
     sbj = JaxBatch.from_xyz(xyz)
-    sbt = StructureBatch.from_xyz(torch.from_numpy(xyz))
+    sbt = StructureBatch.from_xyz(torch.from_numpy(xyz), device=DEVICE)
     for field in ("xyz", "atom_mask", "chain_idx", "residue_idx"):
         np.testing.assert_array_equal(as_numpy(getattr(sbj, field)),
                                       as_numpy(getattr(sbt, field)), err_msg=field)
     with pytest.raises(ValueError, match="should be provided"):
-        StructureBatch.from_xyz(xyz, chain_idx=np.zeros((2, 6)))
+        StructureBatch.from_xyz(xyz, chain_idx=np.zeros((2, 6)), device=DEVICE)
     with pytest.raises(ValueError, match="start from zero"):
-        StructureBatch.from_xyz(xyz, chain_idx=np.ones((2, 6)), chain_ids=[["A"]] * 2)
+        StructureBatch.from_xyz(xyz, chain_idx=np.ones((2, 6)), chain_ids=[["A"]] * 2,
+                                device=DEVICE)
 
 
 def test_convert_round_trip():
     sbj, _ = _pair("mixed")
     arrays = {k: np.asarray(getattr(sbj, k))
               for k in ("xyz", "atom_mask", "chain_idx", "residue_idx")}
-    sbt = structure_batch_from_numpy(**arrays, chain_ids=sbj.chain_ids, seq=sbj.seq)
+    sbt = structure_batch_from_numpy(**arrays, chain_ids=sbj.chain_ids, seq=sbj.seq,
+                                     device=DEVICE)
     back = to_numpy(sbt)
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
         assert back[k].dtype == v.dtype, k
     assert back["chain_ids"] == sbj.chain_ids and back["seq"] == sbj.seq
-    again = to_numpy(structure_batch_from_numpy(**back))
+    again = to_numpy(structure_batch_from_numpy(**back, device=DEVICE))
     np.testing.assert_array_equal(again["xyz"], arrays["xyz"])
 
 

@@ -21,7 +21,7 @@ from protstruc_tpu.batch import _backbone_dihedrals as jax_backbone_dihedrals
 from protstruc_tpu_torch import StructureBatch, geometry
 from protstruc_tpu_torch.batch import _backbone_dihedrals
 from tests.conftest import pdb_path
-from tests.test_torch_parity import assert_parity
+from tests.test_torch_parity import DEVICE, assert_parity
 
 torch.set_num_threads(1)
 
@@ -100,7 +100,7 @@ def test_backbone_dihedrals_match_jax(name):
 
 def test_backbone_orientations_match_jax():
     sbj = JaxBatch.from_pdb(pdb_path("1ad0_DC.pdb"))
-    sbt = StructureBatch.from_pdb(pdb_path("1ad0_DC.pdb"))
+    sbt = StructureBatch.from_pdb(pdb_path("1ad0_DC.pdb"), device=DEVICE)
     assert_parity(sbj.backbone_orientations(), sbt.backbone_orientations(), ATOL)
     assert_parity(sbj.backbone_translations(), sbt.backbone_translations(), 0)
 

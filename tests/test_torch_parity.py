@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+#: The port's entry points run on "cuda" unless told otherwise; its CPU
+#: tests name the CPU explicitly.
+DEVICE = "cpu"
+
 
 def as_numpy(x):
     if isinstance(x, torch.Tensor):

@@ -23,7 +23,7 @@ from protstruc_tpu_torch.__main__ import main, serve_loop
 from protstruc_tpu_torch.ops import pair_maps
 from protstruc_tpu_torch.utils.aot import precompile_featurizer
 from tests.conftest import pdb_path
-from tests.test_torch_parity import assert_parity
+from tests.test_torch_parity import DEVICE, assert_parity
 
 torch.set_num_threads(1)
 
@@ -79,7 +79,7 @@ def test_featurizer_matches_jax_on_mixed_batch():
     ref = jax_precompile(batch_sizes=(4,), buckets=(512,))(JaxBatch.from_pdb(paths))
     feat = precompile_featurizer(batch_sizes=(4,), buckets=(512,), device="cpu")
     assert feat.shapes == [(4, 512)] and feat.device == torch.device("cpu")
-    got = feat(StructureBatch.from_pdb(paths))
+    got = feat(StructureBatch.from_pdb(paths, device=DEVICE))
     for k in ref[0]:
         assert_parity(ref[0][k], got[0][k], _atol(k), k)
     for name, r, g in zip(("dihedrals", "dihedral_mask", "frames"), ref[1:], got[1:]):
@@ -89,7 +89,7 @@ def test_featurizer_matches_jax_on_mixed_batch():
 def test_featurizer_rejects_unwarmed_shape_and_foreign_device():
     feat = precompile_featurizer(batch_sizes=(1,), buckets=(64,), device="cpu")
     with pytest.raises(KeyError, match="no warmed featurizer"):
-        feat(StructureBatch.from_pdb(pdb_path("1REX.pdb")))
+        feat(StructureBatch.from_pdb(pdb_path("1REX.pdb"), device=DEVICE))
     with pytest.raises(ValueError, match="batch is on meta"):
         feat(StructureBatch.from_pdb(pdb_path("1REX.pdb"), device="meta"))
 

@@ -35,7 +35,7 @@ from protstruc_tpu_torch.models import trfold
 from protstruc_tpu_torch.ops import cuda_lib, pair_maps, tri_mul
 from protstruc_tpu_torch.ops.histogram import distogram_bins
 from tests.conftest import pdb_path
-from tests.test_torch_parity import as_numpy, assert_parity
+from tests.test_torch_parity import DEVICE, as_numpy, assert_parity
 
 torch.set_num_threads(1)
 
@@ -67,7 +67,7 @@ HEADS = ("distogram_logits", "torsion_sincos", "omega_sincos", "theta_sincos", "
 def featurized():
     path = pdb_path("1ad0_DC.pdb")
     ref = jtrfold.featurize_for_model(JaxBatch.from_pdb(path))
-    out = trfold.featurize_for_model(StructureBatch.from_pdb(path))
+    out = trfold.featurize_for_model(StructureBatch.from_pdb(path, device=DEVICE))
     return {k: np.asarray(v) for k, v in ref.items()}, out
 
 
@@ -131,7 +131,7 @@ def _jax_reference(name, feats_np):
 
 def _port_model(name, params_tree, **extra):
     cfg = trfold.TrFoldConfig(**WIDTHS, **{**CONFIGS[name], **extra})
-    model = trfold.TrFold(cfg)
+    model = trfold.TrFold(cfg, device=DEVICE)
     return model, trfold_params_from_flax(params_tree)
 
 
@@ -150,7 +150,8 @@ def run(request, feats_np, jax_ref):
     ref = jax_ref(name)
     model, sd = _port_model(name, ref["params"])
     feats = _torch_feats(feats_np)
-    params, opt_state, tx = trfold.make_train_state(model, feats, torch.Generator().manual_seed(0))
+    params, opt_state, tx = trfold.make_train_state(model, feats, torch.Generator().manual_seed(0),
+                                                     device=DEVICE)
     model.load_state_dict(sd)
     with torch.no_grad():
         out = {k: v.clone() for k, v in model(feats).items()}
@@ -252,7 +253,7 @@ def test_init_follows_flax():
     """flax's initializers from an explicit generator: reproducible, zero
     biases, LayerNorm ones, lecun-normal kernels truncated at 2 sigma."""
     cfg = trfold.TrFoldConfig(**WIDTHS, pair_update="triangle")
-    a, b = trfold.TrFold(cfg), trfold.TrFold(cfg)
+    a, b = trfold.TrFold(cfg, device=DEVICE), trfold.TrFold(cfg, device=DEVICE)
     a.reset_parameters(torch.Generator().manual_seed(3))
     b.reset_parameters(torch.Generator().manual_seed(3))
     sa, sb = a.state_dict(), b.state_dict()
@@ -270,25 +271,27 @@ def test_init_follows_flax():
 @pytest.mark.parametrize("opt,err", [
     (dict(remat=True, remat_policy="tri_dots"), NotImplementedError),
     (dict(moe_experts=2), NotImplementedError),
-    (dict(use_flash_attn=True), NotImplementedError),
+    (dict(remat=True, remat_policy="dots"), NotImplementedError),
     (dict(ring_mesh=object()), NotImplementedError),
     (dict(remat_policy="bogus"), ValueError),
 ])
 def test_unported_options_raise(opt, err):
     with pytest.raises(err, match="not yet ported|remat_policy must be"):
-        trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, **opt))
+        trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, **opt), device=DEVICE)
 
 
 def test_fused_featurization_is_not_yet_ported():
-    sb = StructureBatch.from_xyz(np.random.RandomState(0).randn(1, 5, 15, 3))
+    """The fused featurization (K3) is ported; its chi features are not."""
+    sb = StructureBatch.from_xyz(np.random.RandomState(0).randn(1, 5, 15, 3), device=DEVICE)
+    assert trfold.featurize_for_model(sb, fused=True)["d_cb_bins"].shape == (1, 5, 5)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        trfold.featurize_for_model(sb, fused=True)
+        trfold.featurize_for_model(sb, fused=True, include_chi=True)
 
 
 def test_featurize_from_sequence_matches_jax():
     seq = np.random.RandomState(1).randint(0, 21, size=(2, 9))
     ref = jtrfold.featurize_from_sequence(seq, n_dist_bins=36)
-    out = trfold.featurize_from_sequence(seq, n_dist_bins=36)
+    out = trfold.featurize_from_sequence(seq, n_dist_bins=36, device=DEVICE)
     assert sorted(out) == sorted(ref)
     for k in ref:
         assert as_numpy(out[k]).dtype == np.asarray(ref[k]).dtype, k
@@ -312,13 +315,15 @@ def test_distogram_bins_matches_jax(case):
 
 
 def test_nvcc_flags_are_per_library():
-    """K1 keeps -fmad=false and the library hash it had (sha256 of the joined
-    flags, then the sources); the triangle kernels build with FMA contraction."""
+    """K1 keeps -fmad=false and its library hash (sha256 of the joined flags,
+    then the sources, then the shared header); the triangle kernels build with
+    FMA contraction."""
     k1_flags = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
     assert cuda_lib.NVCC_FLAGS == k1_flags
     h = hashlib.sha256(" ".join(k1_flags).encode())
     h.update((cuda_lib.CSRC / "pair_maps.cu").read_bytes())
+    h.update((cuda_lib.CSRC / "device_scope.cuh").read_bytes())
     expected = cuda_lib.BUILD_DIR / f"libpair_maps-{h.hexdigest()[:16]}.so"
     assert cuda_lib.library_path("pair_maps", pair_maps._SOURCES) == expected
     assert "-fmad=false" not in cuda_lib.NVCC_FLAGS_FMA
