@@ -8,9 +8,10 @@ card in phases, prints one line per phase, and exits non-zero at the first
 failure (no CUDA, a kernel that does not build or launch, a disagreement):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: K1 (csrc/pair_maps.cu), K3 (csrc/model_features.cu), K4-K7
-   (csrc/tri_mul.cu) and K8/K9 (csrc/flash_attn.cu) with nvcc, from the
-   checkout's sources, the four builds started together;
+2. build: K1 (csrc/pair_maps.cu), K2 (csrc/pair_maps_bwd.cu), the K1
+   probes P1-P3 (csrc/pair_maps_probe.cu), K3 (csrc/model_features.cu),
+   K4-K7 (csrc/tri_mul.cu) and K8/K9 (csrc/flash_attn.cu) with nvcc, from
+   the checkout's sources, the six builds started together;
 3. parity at small sizes: K1 vs its plain PyTorch version on the card, on
    ragged L = 37 and 300 and on degenerate probes;
 4. parity at full size: B=256, L=512 on ``randn * 10`` (numpy seed 0);
@@ -61,7 +62,27 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     parameters); K3 at B=256, L=512; K8 and K9 at the train and ``[attn]``
     shapes, each beside its plain version and
     ``torch.nn.functional.scaled_dot_product_attention`` with the additive
-    mask (its forward, and its backward over a kept graph).
+    mask (its forward, and its backward over a kept graph);
+14. K2 vs its plain version on card tensors: ragged L = 37 and 300, the
+    degenerate probes, bench.py's degenerate batch (CB = CA on every third
+    residue, residue 7 = residue 3; must be finite), a NaN residue, a map
+    subset with a ``None`` cotangent, and B=256, L=512 (cotangents ``randn``
+    from a card generator seeded 1);
+15. main path of the gradient through features: ``from_pdb`` on bundled
+    PDBs, ``inter_residue_geometry(use_kernel=True)`` on a leaf ``xyz`` (as
+    parsed, and with missing atoms at 0), a loss over the six maps under
+    their masks with seeded weights, ``backward``; then the same through
+    ``featurize_for_model(use_kernel=True)`` at B=4, L=512.  The K1 and K2
+    counters are reset just before and must grow; each ``xyz.grad`` is held
+    against the plain backward of the same cotangents;
+16. timing at B=256, L=512: K2 vs its plain version (as 4 calls of 64
+    structures), and ``pairwise_maps`` forward + backward through autograd
+    with its peak memory;
+17. the K1 probes (experiments/kernel_probe.py): every variant, layout and
+    block shape vs its plain version at L = 37 and 300, then P1 (the
+    variant grid), P2 (packed outputs) and P3 (the block sweep) at B=256,
+    L=512, the probe counter reset before each and read after; full
+    against write-only splits K1's time into stores and the rest.
 
 Parity tolerances on the card: distance maps atol 1e-5 + rtol 1e-5; omega,
 theta, phi atol 1e-4 (the largest error and the count above 1e-5 are
@@ -76,12 +97,15 @@ planes within 1e-5, bf16 planes within one bf16 ulp.  K8/K9: f32 out and lse
 (tests/test_flash_attn.py, BASELINE.md:31-37); bf16 2e-2 times each
 output's own max|ref|, with no floor (the ratio is printed); lse held on the
 rows that have keys, fully-masked rows exact zeros and their lse pinned.
+K2: ``max|d| <= 1e-5 max(1, max|ref|)`` (tests/test_pallas_pairwise.py:
+94-141), NaN patterns equal.  Probes: K1's tolerances.
 FoldModel kernel vs plain path: loss within
 1e-4 relative, each gradient leaf within 1e-3 of its largest entry.
 
 The line before the last is one JSON object describing each kernel: its
 launches on its slice's main path (K1 phase 5, K4-K7 phase 8, K3 and K8/K9
-phase 12), largest error, card and plain times, its bound (the larger of the
+phase 12, K2 phase 15, each probe site its phase 17 run, with its fastest
+variant and the write-only time), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
 over the H100 SXM peak for
@@ -339,10 +363,13 @@ def ptxas_lines(log_path):
     return out
 
 
-def build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn):
-    """Build K1, K3, K4-K7 and K8/K9 at once (one nvcc each, started
-    together); returns {library: (path, built or loaded, seconds)}."""
+def build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn, kernel_probe):
+    """Build K1, K2, K3, K4-K7, K8/K9 and the K1 probes at once (one nvcc
+    each, started together); returns {library: (path, built or loaded,
+    seconds)}."""
     libs = {"pair_maps": (pair_maps.load_library, cuda_lib.library_path("pair_maps", pair_maps._SOURCES)),
+            "pair_maps_bwd": (pair_maps.load_bwd_library, pair_maps.bwd_library_path()),
+            "pair_maps_probe": (kernel_probe.load_library, kernel_probe.library_path()),
             "tri_mul": (tri_mul.load_library, tri_mul.library_path()),
             "model_features": (model_features.load_library, model_features.library_path()),
             "flash_attn": (flash_attn.load_library, flash_attn.library_path())}
@@ -810,6 +837,67 @@ def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
     return {"fwd": (fwd_ms, fwd_plain, lib_fwd, *fwd_bound),
             "bwd": (bwd_ms, bwd_plain, lib_bwd, *bwd_bound)}
 
+# -- K2 and the K1 probes ------------------------------------------------------
+K2_TOL = 1e-5   # max|d| <= 1e-5 max(1, max|ref|): the JAX gate, tests/test_pallas_pairwise.py:94-141
+# float32 operations per (b, i, j) pair, counted from csrc/pair_maps_bwd.cu as
+# K1_OPS_PER_PAIR is (arithmetic only, no compares or selects): the three
+# distance adjoints 24 each, the two dihedral adjoints 176 each, the angle's
+# 86, and 18 adds to sum each side over the other index
+K2_OPS_PER_PAIR = 528
+K2_SLOTS = 4    # N, CA, O, CB read; dxyz written in full
+# a probe's atan2 in operations: atan2f counted as 15, as in K1; the
+# polynomial one by its terms (abs, max, min, ratio, Horner steps, the folds).
+# A probe that computes the six maps does K1's operations with three of these
+PROBE_ATAN2_OPS = {"full": 15, **{f"opt-d{d}{s}": 10 + 2 * ((d + 1) // 2 - 1) + (2 if s else 0)
+                                  for d in (9, 11, 13, 15) for s in ("", "-fdiv")}}
+
+
+def k2_check(torch, ref, got, label):
+    """K2's dxyz against the plain version's: NaN patterns equal, the rest
+    within K2_TOL * max(1, max|ref|); returns (max error, max|ref|)."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{label}: {tuple(got.shape)} {got.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+    nan_r, nan_g = torch.isnan(ref), torch.isnan(got)
+    check(torch.equal(nan_r, nan_g), f"{label}: NaN patterns differ at {int((nan_r != nan_g).sum())} entries")
+    r, g = ref.masked_fill(nan_r, 0), got.masked_fill(nan_g, 0)
+    check(bool(torch.isfinite(g).all()), f"{label}: infinite gradient entries")
+    err = float((r - g).abs().max()) if r.numel() else 0.0
+    top = float(r.abs().max()) if r.numel() else 0.0
+    check(err <= K2_TOL * max(1.0, top), f"{label}: max err {err:.3e} > {K2_TOL} * max(1, {top:.3e})")
+    return err, top
+
+
+def k2_case(torch, pm, x, grads, label, finite=False):
+    """K2 (``maps_bwd`` on card tensors) against ``_maps_bwd_plain`` on the
+    same tensors; returns the largest error."""
+    got = pm.maps_bwd(x, grads)
+    torch.cuda.synchronize()
+    err, top = k2_check(torch, pm._maps_bwd_plain(x, grads), got, f"K2 {label}")
+    if finite:
+        check(bool(torch.isfinite(got).all()), f"K2 {label}: non-finite gradient")
+    say(f"  K2 {label} B={x.shape[0]} L={x.shape[1]} maps {sorted(k for k, v in grads.items() if v is not None)}: "
+        f"max err {err:.3e} (max|ref| {top:.3e}); NaN entries {int(torch.isnan(got).sum())}")
+    return err
+
+
+def cotangents(torch, x, seed, maps):
+    """``(B, L, L)`` randn cotangents of ``maps`` for ``x``, drawn on its card."""
+    gen = torch.Generator(x.device).manual_seed(seed)
+    B, L = x.shape[:2]
+    return {k: torch.randn((B, L, L), generator=gen, device=x.device) for k in maps}
+
+
+def masked_map_loss(torch, g, weights):
+    """Sum over the six maps of ``w_k * map_k`` under its mask (the distance
+    maps' own, d_cb's for the angles) and finite; returns (loss, the
+    cotangent each map receives)."""
+    loss, cots = 0.0, {}
+    for k, w in weights.items():
+        mask = g.get(f"{k}_mask", g.get("d_cb_mask", g.get("pair_mask"))) & torch.isfinite(g[k])
+        loss = loss + w * torch.where(mask, g[k], 0.0).sum()
+        cots[k] = w * mask.float()
+    return loss, cots
+
 
 def main():
     import numpy as np
@@ -822,10 +910,11 @@ def main():
     sys.path.insert(0, str(REPO))
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.__main__ import serve_loop
-    from protstruc_tpu_torch.models.trfold import loss_fn, train_step
+    from protstruc_tpu_torch.models.trfold import featurize_for_model, loss_fn, train_step
     from protstruc_tpu_torch.models.ipa import fold_loss_fn
+    from protstruc_tpu_torch.experiments import kernel_probe
     from protstruc_tpu_torch.ops import cuda_lib, flash_attn, model_features, pair_maps, tri_mul
-    from protstruc_tpu_torch.ops.pair_maps import _pair_maps_plain, pairwise_maps
+    from protstruc_tpu_torch.ops.pair_maps import MAP_NAMES, _pair_maps_plain, pairwise_maps
     from protstruc_tpu_torch.train import TrainOptimizer
     from protstruc_tpu_torch.train import train_step as fold_train_step
     from protstruc_tpu_torch.utils.aot import _featurize, precompile_featurizer
@@ -846,12 +935,12 @@ def main():
     check(cap == (9, 0), f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
 
     # -- 2. build -------------------------------------------------------------
-    builds = build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn)
-    for name, kernels in (("pair_maps", "K1"), ("model_features", "K3"), ("tri_mul", "K4-K7"),
-                          ("flash_attn", "K8/K9")):
+    builds = build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn, kernel_probe)
+    for name, kernels in (("pair_maps", "K1"), ("pair_maps_bwd", "K2"), ("pair_maps_probe", "P1-P3"),
+                          ("model_features", "K3"), ("tri_mul", "K4-K7"), ("flash_attn", "K8/K9")):
         lib_path, how, build_s = builds[name]
         say(f"phase 2 build: {how} {lib_path.name} ({kernels}) in {build_s:.2f} s "
-            f"({cuda_lib.find_nvcc()}, the four started together)")
+            f"({cuda_lib.find_nvcc()}, the {len(builds)} started together)")
         for ln in ptxas_lines(lib_path.with_suffix(".log")):
             say(f"  ptxas: {ln}")
 
@@ -893,7 +982,7 @@ def main():
     # -- 5. main path ---------------------------------------------------------
     paths = [str(DATA / p) for p in PDBS]
     cpu_sb = pt.StructureBatch.from_pdb(paths, device="cpu")
-    cpu_g = cpu_sb.inter_residue_geometry()
+    cpu_g = cpu_sb.inter_residue_geometry(use_kernel=True)
     cpu_d, cpu_m = cpu_sb.backbone_dihedrals()
     cpu_f = cpu_sb.backbone_orientations()
     singles = {p: pt.StructureBatch.from_pdb(str(DATA / p), device="cpu") for p in PDBS[:2]}
@@ -911,7 +1000,7 @@ def main():
         pair_maps.LAUNCHES = 0
         t0 = time.perf_counter()
         sb = pt.StructureBatch.from_pdb(paths, device="cuda")
-        g = sb.inter_residue_geometry()
+        g = sb.inter_residue_geometry(use_kernel=True)
         d, m = sb.backbone_dihedrals()
         frames = sb.backbone_orientations()
         torch.cuda.synchronize()
@@ -940,7 +1029,7 @@ def main():
             check(reply.get("ok") and reply["n_residues"] == single.n_residues,
                   f"featurize {p}: {reply}")
             npz = np.load(reply["out"])
-            ref = dict(single.inter_residue_geometry())
+            ref = dict(single.inter_residue_geometry(use_kernel=True))
             ref["dihedrals"], ref["dihedral_mask"] = single.backbone_dihedrals()
             ref["frames"] = single.backbone_orientations()
             check(sorted(npz.files) == sorted(ref), f"npz keys {sorted(npz.files)}")
@@ -1195,6 +1284,185 @@ def main():
                 f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
                 f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
 
+    # -- 14. K2 parity ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    k2_worst = 0.0
+    for seed, label in ((2, "B2 L37"), (2, "B2 L300"), (4, "probes")):
+        k2_worst = max(k2_worst, k2_case(torch, pair_maps, small[label], cotangents(
+            torch, small[label], seed, MAP_NAMES), label))
+    deg_np = np.random.RandomState(0).randn(2, 192, 15, 3).astype(np.float32) * 5  # bench.py:445-453
+    deg_np[:, ::3, 4] = deg_np[:, ::3, 1]     # CB == CA on every third residue
+    deg_np[:, 7] = deg_np[:, 3]               # residue 7 = residue 3
+    deg = torch.from_numpy(deg_np).to(dev)
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, deg, cotangents(torch, deg, 3, MAP_NAMES),
+                                     "degenerate", finite=True))
+    nan_np = np.random.RandomState(3).randn(1, 16, 15, 3).astype(np.float32) * 5
+    nan_np[:, 5, :4] = np.nan                 # residue 5's backbone missing
+    nan_x = torch.from_numpy(nan_np).to(dev)
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, nan_x, cotangents(torch, nan_x, 5, MAP_NAMES),
+                                     "NaN residue"))
+    sub_g = cotangents(torch, small["B2 L300"], 2, ("d_cb", "phi"))
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, small["B2 L300"], dict(sub_g, d_ca=None),
+                                     "subset, d_ca None"))
+    g_full = cotangents(torch, xyz, 1, MAP_NAMES)
+    got = pair_maps.maps_bwd(xyz, g_full)
+    torch.cuda.synchronize()
+    ref = torch.cat([pair_maps._maps_bwd_plain(xyz[b0:b0 + 32], {k: v[b0:b0 + 32] for k, v in g_full.items()})
+                     for b0 in range(0, B_FULL, 32)])
+    err, top = k2_check(torch, ref, got, "K2 full")
+    check(bool(torch.isfinite(got).all()), "K2 full: non-finite gradient")
+    k2_worst = max(k2_worst, err)
+    del got, ref
+    say(f"phase 14 parity K2 ok in {time.perf_counter() - t0:.2f} s: full B={B_FULL} L={L_FULL} max err "
+        f"{err:.3e} (max|ref| {top:.3e}; the plain version in batch chunks of 32); largest over all "
+        f"cases {k2_worst:.3e}")
+
+    # -- 15. main path: gradient through features ------------------------------------
+    weights = dict(zip(MAP_NAMES, np.random.RandomState(4).randn(6).tolist()))
+    pair_maps.LAUNCHES = pair_maps.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    sb = pt.StructureBatch.from_pdb(paths, device="cuda")
+    grad_runs = {}
+    for label, leaf in (("raw", sb.xyz.detach().clone()),
+                        ("missing atoms at 0", torch.nan_to_num(sb.xyz.detach()))):
+        leaf.requires_grad_()
+        g = dataclasses.replace(sb, xyz=leaf).inter_residue_geometry(use_kernel=True)
+        loss, cots = masked_map_loss(torch, g, weights)
+        loss.backward()
+        grad_runs[label] = (leaf, cots, float(loss))
+    sbt = pt.StructureBatch.from_xyz(np.random.RandomState(0).randn(4, L_FULL, 15, 3).astype(np.float32) * 5,
+                                     device=dev)
+    sbt.xyz.requires_grad_()
+    feats = featurize_for_model(sbt, use_kernel=True)
+    loss, cots = masked_map_loss(torch, feats, {k: weights[k] for k in ("d_cb", "omega", "theta", "phi")})
+    loss.backward()
+    grad_runs["featurize_for_model B=4 L=512"] = (sbt.xyz, cots, float(loss))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_launches = {"pair_maps": pair_maps.LAUNCHES, "pair_maps_bwd": pair_maps.BWD_LAUNCHES}
+    for k, n in grad_launches.items():
+        check(n > 0, f"the gradient-through-features path launched {k} no time")
+    for label, (leaf, cots, loss_v) in grad_runs.items():
+        check(math.isfinite(loss_v) and leaf.grad is not None and leaf.grad.is_cuda,
+              f"{label}: loss {loss_v}, no gradient on the card")
+        err, top = k2_check(torch, pair_maps._maps_bwd_plain(leaf.detach(), cots), leaf.grad,
+                            f"gradient {label}")
+        if label != "raw":
+            check(bool(torch.isfinite(leaf.grad).all()), f"gradient {label}: non-finite entries")
+        k2_worst = max(k2_worst, err)
+        say(f"  phase 15 {label}: loss {loss_v:.6e}; xyz.grad vs the plain backward of the same "
+            f"cotangents max err {err:.3e} (max|ref| {top:.3e}); finite entries "
+            f"{int(torch.isfinite(leaf.grad).sum())} of {leaf.grad.numel()}")
+    say(f"phase 15 main path gradient through features: ok in {grad_s:.2f} s (from_pdb {PDBS} -> "
+        f"inter_residue_geometry(use_kernel=True) -> masked loss -> backward, raw and with missing atoms "
+        f"at 0; featurize_for_model(use_kernel=True) B=4 L={L_FULL}); launches {grad_launches}")
+    del grad_runs, feats, sbt, sb
+
+    # -- 16. timing: K2, the forward and backward ---------------------------------------
+    k2_plain_chunks = [(xyz[b0:b0 + 64], {k: v[b0:b0 + 64] for k, v in g_full.items()})
+                       for b0 in range(0, B_FULL, 64)]
+    k2_plain_ms, k2_ms, rounds = alternate(
+        lambda: [pair_maps._maps_bwd_plain(*c) for c in k2_plain_chunks],
+        lambda: pair_maps.maps_bwd(xyz, g_full))
+    got = pair_maps.maps_bwd(xyz, g_full)
+    k2_bound = bound(slot_bytes(xyz, K2_SLOTS) + nbytes(*g_full.values(), got),
+                     K2_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
+    del got
+    say(f"phase 16 timing K2 B={B_FULL} L={L_FULL} six maps [{smi}]: kernel {k2_ms:.4f} ms, plain "
+        f"{k2_plain_ms:.4f} ms (the plain version as 4 calls of 64 structures; plain/kernel/kernel/plain "
+        f"{', '.join(f'{r:.4f}' for r in rounds)}); bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    leaf = xyz.detach().clone().requires_grad_()
+
+    def fwd_bwd():
+        maps = pairwise_maps(leaf)
+        torch.autograd.backward([maps[k] for k in MAP_NAMES], [g_full[k] for k in MAP_NAMES])
+        leaf.grad = None
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    fwd_bwd()
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() / 2**30
+    fb_ms = cuda_time_ms(fwd_bwd)
+    say(f"phase 16 timing pairwise_maps forward + backward through autograd B={B_FULL} L={L_FULL} [{smi}]: "
+        f"{fb_ms:.4f} ms (K1 {kernel_ms:.4f} + K2 {k2_ms:.4f} alone); peak {fb_peak:.2f} GiB "
+        f"({base_gib:.2f} GiB held before: xyz, the six cotangents and earlier phases' tensors)")
+    del leaf, k2_plain_chunks
+    torch.cuda.empty_cache()
+
+    # -- 17. the K1 probes -------------------------------------------------------------
+    t0 = time.perf_counter()
+    probe_err = {"run_variant": 0.0, "run_packed_variant": 0.0, "tile_sweep": 0.0}
+    kp = kernel_probe
+    for label in ("B2 L37", "B2 L300"):
+        x = small[label]
+        for variant in kp.VARIANTS:
+            probe_err["run_variant"] = max(probe_err["run_variant"], compare_maps(
+                kp.probe_plain(x, variant), kp.probe(x, variant), f"probe {variant} {label}"))
+        dist3 = ("d_ca", "d_cb", "d_no")
+        probe_err["run_variant"] = max(probe_err["run_variant"], compare_maps(
+            kp.probe_plain(x, "full", dist3), kp.probe(x, "full", dist3), f"probe dist3 {label}"))
+        for name, (variant, block) in kp.packed_variants().items():
+            ref = kp.probe_plain(x, variant, packed=True)
+            got = kp.probe(x, variant, block=block, packed=True)
+            probe_err["run_packed_variant"] = max(probe_err["run_packed_variant"], compare_maps(
+                dict(zip(MAP_NAMES, ref.unbind(1))), dict(zip(MAP_NAMES, got.unbind(1))),
+                f"probe {name} {label}"))
+        for variant in ("full", "write-only"):
+            for block in kp.SWEEP_BLOCKS:
+                probe_err["tile_sweep"] = max(probe_err["tile_sweep"], compare_maps(
+                    kp.probe_plain(x, variant), kp.probe(x, variant, block=block),
+                    f"probe {variant} {block} {label}"))
+    torch.cuda.synchronize()
+    say(f"phase 17 parity probes: ok in {time.perf_counter() - t0:.2f} s, max abs err {probe_err}")
+
+    def log17(line):
+        say(f"  phase 17 [{smi}] {line}")
+
+    probe_ms, probe_launches = {}, {}
+    kp.LAUNCHES = 0
+    p1 = {"full": kp.run_variant("full", xyz, "full", log=log17),
+          "write-only": kp.run_variant("write-only", xyz, "write-only", log=log17),
+          "dist3": kp.run_variant("dist3", xyz, "full", maps=("d_ca", "d_cb", "d_no"), log=log17)}
+    for rep_ in range(2):
+        for variant in [v for v in kp.VARIANTS if v.startswith("opt")] + ["full"]:
+            p1[variant] = min(p1.get(variant, float("inf")),
+                              kp.run_variant(f"{variant}#{rep_}", xyz, variant, log=log17))
+    probe_launches["run_variant"] = kp.LAUNCHES
+    kp.LAUNCHES = 0
+    p2 = {name: kp.run_packed_variant(name, xyz, variant, block, log=log17)
+          for name, (variant, block) in kp.packed_variants().items()}
+    probe_launches["run_packed_variant"] = kp.LAUNCHES
+    kp.LAUNCHES = 0
+    p3 = kp.tile_sweep(xyz, log=log17)
+    probe_launches["tile_sweep"] = kp.LAUNCHES
+    for k, n in probe_launches.items():
+        check(n > 0, f"the probe path launched {k} no time")
+    for name, ms in sorted(p1.items(), key=lambda kv: kv[1]):
+        say(f"  phase 17 BEST {name:>14}: {ms:.4f} ms ({B_FULL / ms * 1e3:.0f} structures/s)")
+    maps_bytes = 6 * B_FULL * L_FULL ** 2 * 4
+    for site, table, wo in (("run_variant", p1, p1["write-only"]),
+                            ("run_packed_variant", p2, p2["write-only-packed"]),
+                            ("tile_sweep", {f"full {b}": ms for (v, b), ms in p3.items() if v == "full"},
+                             min(ms for (v, _), ms in p3.items() if v == "write-only"))):
+        best = min((n for n in table if "write-only" not in n and n != "dist3"), key=table.get)
+        variant = "full" if best.startswith("full") else best
+        packed = site == "run_packed_variant"
+        plain_ms_p = cuda_time_ms(lambda: kp.probe_plain(xyz, variant, packed=packed))
+        b = bound(slot_bytes(xyz, K1_SLOTS) + maps_bytes,
+                  (K1_OPS_PER_PAIR - 3 * 15 + 3 * PROBE_ATAN2_OPS[variant]) * B_FULL * L_FULL ** 2,
+                  torch.float32)
+        probe_ms[site] = (best, table[best], wo, plain_ms_p, *b)
+        say(f"phase 17 probes {site} [{smi}]: fastest {best} {table[best]:.4f} ms (plain {plain_ms_p:.4f} ms), "
+            f"write-only {wo:.4f} ms: stores {100 * wo / table[best]:.1f}% of the fastest's time; "
+            f"bound {b[0]:.4f} ms ({b[1]}); launches {probe_launches[site]}")
+    say(f"phase 17 K1 split: full {p1['full']:.4f} ms, write-only {p1['write-only']:.4f} ms "
+        f"(the stores alone), dist3 {p1['dist3']:.4f} ms (half the stores, a seventh of the arithmetic); "
+        f"arithmetic and atan2f beyond the stores {p1['full'] - p1['write-only']:.4f} ms")
+    del g_full
+    torch.cuda.empty_cache()
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -1215,6 +1483,14 @@ def main():
                       *train_flash[part][3:], train_flash[part][2])
                 for part, replaces in (("fwd", "protstruc_tpu/ops/flash_attn.py:79"),
                                        ("bwd", "protstruc_tpu/ops/flash_attn.py:184"))]
+    kernels.append(entry("pair_maps_bwd", "pair_maps_bwd.cu", "protstruc_tpu/ops/pallas_pairwise.py:453",
+                         grad_launches["pair_maps_bwd"], k2_worst, k2_ms, k2_plain_ms, *k2_bound, None))
+    for site, line in (("run_variant", 51), ("run_packed_variant", 227), ("tile_sweep", 329)):
+        best, ms, wo, plain, b_ms, b_by = probe_ms[site]
+        kernels.append(dict(entry(f"kernel_probe_{site}", "pair_maps_probe.cu",
+                                  f"experiments/kernel_probe.py:{line}", probe_launches[site],
+                                  probe_err[site], ms, plain, b_ms, b_by, None),
+                            variant=best, write_only_ms=wo))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -38,8 +38,8 @@ def cmd_featurize(args) -> int:
     import protstruc_tpu_torch as ps
 
     sb = ps.StructureBatch.from_pdb(list(args.inputs), device=args.device)
-    out = _features_to_numpy(sb.inter_residue_geometry(), *sb.backbone_dihedrals(),
-                             sb.backbone_orientations())
+    out = _features_to_numpy(sb.inter_residue_geometry(use_kernel=args.pallas),
+                             *sb.backbone_dihedrals(), sb.backbone_orientations())
     np.savez_compressed(args.out, **out)
     print(f"wrote {args.out}: "
           f"{', '.join(f'{k}{v.shape}' for k, v in sorted(out.items()))}")
@@ -199,6 +199,9 @@ def main(argv=None) -> int:
     f = sub.add_parser("featurize", help="6D maps + dihedrals + frames -> npz")
     f.add_argument("inputs", nargs="+")
     f.add_argument("--out", default="features.npz")
+    f.add_argument("--pallas", action="store_true",
+                   help="the pair maps through the K1 kernel (the JAX CLI's switch for its "
+                        "Pallas kernel); default: the arccos-form path")
     device_arg(f)
     f.set_defaults(fn=cmd_featurize)
 

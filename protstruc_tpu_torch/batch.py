@@ -9,9 +9,11 @@ manipulators (``to``) return a new batch, as in the JAX package.
 * ``chain_idx``/``residue_idx`` are int32 with ``-1`` padding; missing-atom
   coordinates are NaN with ``atom_mask`` False.
 * ``inter_residue_geometry`` computes each ``(B, L, L)`` map directly: by
-  default through the K1 pair-map kernel (its plain version on the CPU), or
-  with ``use_kernel=False`` through the arccos-form broadcast path
-  (``ops/pairwise.py``), the port of the JAX package's jnp path.
+  default through the arccos-form broadcast path (``ops/pairwise.py``), the
+  port of the JAX package's jnp path and its default, or with
+  ``use_kernel=True`` (the JAX ``use_pallas=True``) through the K1 pair-map
+  kernel (its plain version on the CPU), differentiable in ``xyz`` through
+  K2.
 """
 
 from __future__ import annotations
@@ -364,14 +366,16 @@ class StructureBatch:
         """Coordinates of a backbone atom per residue ``(B, L, 3)``."""
         return self.xyz[:, :, int(ATOM[atom])]
 
-    def inter_residue_geometry(self, use_kernel: bool = True) -> Dict[str, torch.Tensor]:
+    def inter_residue_geometry(self, use_kernel: bool = False) -> Dict[str, torch.Tensor]:
         """trRosetta 6D inter-residue geometry, each map ``(B, L, L)``.
 
         d_ca/d_cb/d_no distance maps (+ masks), omega/theta pair dihedrals and
-        phi planar angles.  ``use_kernel=True`` takes the K1 pair-map kernel
-        on a CUDA batch and its plain version on a CPU batch
-        (``ops/pair_maps.py``, atan2 form for phi); ``use_kernel=False`` takes
-        the arccos-form broadcast path (``ops/pairwise.py``).
+        phi planar angles.  ``use_kernel=False`` (the default, as the JAX
+        ``use_pallas=False``) takes the arccos-form broadcast path
+        (``ops/pairwise.py``); ``use_kernel=True`` takes the K1 pair-map
+        kernel on a CUDA batch and its plain version on a CPU batch
+        (``ops/pair_maps.py``, atan2 form for phi), with K2 (or its plain
+        version) as the backward.
         """
         if use_kernel:
             from protstruc_tpu_torch.ops.pair_maps import trrosetta_features

@@ -39,59 +39,23 @@
 // per-block cost dominates (PERF.md has the times).
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 #include "device_scope.cuh"
+#include "pair_maps.cuh"
 
 namespace {
 
 constexpr int kTileJ = 32;           // threads along j: one warp per i-row
 constexpr int kTileI = 8;            // i-rows per block
-constexpr int kSlotFloats = 5 * 3;   // atom slots 0-4, xyz each
 
-// atom slots on the residue's atom axis (vocab.py ATOM)
-constexpr int kN = 0, kCA = 1, kO = 3, kCB = 4;
-
-// bit k selects map k in this order: d_ca, d_cb, d_no, omega, theta, phi
-constexpr int kDCa = 1, kDCb = 2, kDNo = 4, kOmega = 8, kTheta = 16, kPhi = 32;
-
-struct V3 {
-  float x, y, z;
+// the six maps' (B, L, L) planes (null where unselected); store(k, v) writes
+// map k at offset o
+struct PlaneStore {
+  float* planes[6];
+  int64_t o;
+  __device__ __forceinline__ void operator()(int k, float v) const { planes[k][o] = v; }
 };
-
-__device__ __forceinline__ V3 load3(const float* s, int slot) {
-  return V3{s[3 * slot], s[3 * slot + 1], s[3 * slot + 2]};
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return V3{a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ bool eq(V3 a, V3 b) { return a.x == b.x && a.y == b.y && a.z == b.z; }
-__device__ __forceinline__ float dist(V3 a, V3 b) {
-  V3 d = sub(a, b);
-  return sqrtf(dot(d, d));
-}
-
-// signed dihedral a-b-c-d through the scalar-triple-product identity
-// ((b0 x b1) x (b2 x b1)) . b1 = -(b1 . b1) ((b0 x b1) . b2)
-__device__ __forceinline__ float dihedral(V3 a, V3 b, V3 c, V3 d) {
-  V3 b0 = sub(a, b), b1 = sub(c, b), b2 = sub(d, c);
-  V3 n0 = cross(b0, b1), n1 = cross(b2, b1);
-  float x = dot(n0, n1) + 0.0f;
-  float y = -sqrtf(dot(b1, b1)) * dot(n0, b2) + 0.0f;
-  return atan2f(y, x);
-}
-
-// planar angle at b; NaN on a zero-length arm (the phi-map diagonal)
-__device__ __forceinline__ float planar_angle(V3 a, V3 b, V3 c) {
-  V3 ba = sub(a, b), bc = sub(c, b);
-  V3 cr = cross(ba, bc);
-  float ang = atan2f(sqrtf(dot(cr, cr)), dot(ba, bc));
-  bool zero = dot(bc, bc) == 0.0f || dot(ba, ba) == 0.0f;
-  return zero ? __int_as_float(0x7fc00000) : ang;
-}
 
 __global__ void __launch_bounds__(kTileJ * kTileI)
 pair_maps_kernel(const float* __restrict__ xyz, int L, int A, int mask,
@@ -108,41 +72,16 @@ pair_maps_kernel(const float* __restrict__ xyz, int L, int A, int mask,
   const int64_t res_stride = (int64_t)A * 3;
   const float* base = xyz + (int64_t)b * L * res_stride;
 
-  // stage slots 0-4 of the block's residues; rows past L read as 0 and are
-  // never written out
-  for (int k = tid; k < kTileJ * kSlotFloats; k += kTileJ * kTileI) {
-    int r = j0 + k / kSlotFloats;
-    sj[k] = r < L ? base[r * res_stride + k % kSlotFloats] : 0.0f;
-  }
-  for (int k = tid; k < kTileI * kSlotFloats; k += kTileJ * kTileI) {
-    int r = i0 + k / kSlotFloats;
-    si[k] = r < L ? base[r * res_stride + k % kSlotFloats] : 0.0f;
-  }
+  stage_slots(sj, base, j0, kTileJ, L, res_stride, tid, kTileJ * kTileI);
+  stage_slots(si, base, i0, kTileI, L, res_stride, tid, kTileJ * kTileI);
   __syncthreads();
 
   const int i = i0 + threadIdx.y;
   const int j = j0 + threadIdx.x;
   if (i >= L || j >= L) return;
 
-  const float* ri = si + threadIdx.y * kSlotFloats;
-  const float* rj = sj + threadIdx.x * kSlotFloats;
-  const V3 n_i = load3(ri, kN), ca_i = load3(ri, kCA), cb_i = load3(ri, kCB);
-  const V3 ca_j = load3(rj, kCA), cb_j = load3(rj, kCB), o_j = load3(rj, kO);
-
-  const int64_t o = ((int64_t)b * L + i) * L + j;
-
-  if (mask & kDCa) d_ca[o] = dist(ca_i, ca_j);
-  if (mask & kDCb) d_cb[o] = dist(cb_i, cb_j);
-  if (mask & kDNo) d_no[o] = dist(n_i, o_j);
-  if (mask & kOmega) {
-    bool deg = (eq(ca_i, ca_j) && eq(cb_i, cb_j)) || eq(ca_j, cb_j) || eq(ca_i, cb_i);
-    omega[o] = deg ? 0.0f : dihedral(ca_i, cb_i, ca_j, cb_j);
-  }
-  if (mask & kTheta) {
-    bool deg = (eq(n_i, cb_i) && eq(ca_i, cb_j)) || eq(cb_i, cb_j) || eq(n_i, ca_i);
-    theta[o] = deg ? 0.0f : dihedral(n_i, ca_i, cb_i, cb_j);
-  }
-  if (mask & kPhi) phi[o] = planar_angle(ca_i, cb_i, cb_j);
+  pair_maps_at(si + threadIdx.y * kSlotFloats, sj + threadIdx.x * kSlotFloats, mask, Atan2f{},
+               PlaneStore{{d_ca, d_cb, d_no, omega, theta, phi}, ((int64_t)b * L + i) * L + j});
 }
 
 }  // namespace

@@ -106,8 +106,10 @@ def test_backbone_orientations_match_jax():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, protstruc_tpu_torch, protstruc_tpu_torch.__main__, "
-            "protstruc_tpu_torch.utils.aot, protstruc_tpu_torch.convert; "
+    # every module of the package, and the card's smoke script
+    code = ("import importlib, pkgutil, sys, chip_smoke, protstruc_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "protstruc_tpu_torch.__path__, 'protstruc_tpu_torch.')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'protstruc_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -2,10 +2,11 @@
 
 Tiny widths (node 32, pair 16, 2 heads, 1 trunk block, 2 IPA iterations, one
 recycle), float32, on ``B=2`` 40-residue windows of bundled PDBs featurized by
-the JAX package (``fused=True``, float32 angle planes).  The flax parameters
-are initialised by JAX, the backbone update and point weights then set to
-small random values (their zero init would leave every residue at the origin)
-and carried across with ``convert.foldmodel_params_from_flax``.
+the JAX package (``fused=True``, float32 angle planes).  The parameters are
+the port's flax-style init (their tree's paths and shapes held to the flax
+init's, ``jax.eval_shape``), the backbone update and point weights then set
+to small random values (their zero init would leave every residue at the
+origin), carried to the JAX model with ``convert.foldmodel_params_to_flax``.
 
 Tolerances: rigid ops, geometry and metrics 1e-5 (coordinates 1e-4 A); the
 IPA and structure-module outputs 1e-4; the FoldModel outputs 1e-4 (logits)
@@ -16,6 +17,8 @@ row: the trunk's pair-bias bias and ``qkv`` key bias, the IPA's pair-bias
 bias and ``k_scalar`` bias) are held to rounding noise instead, as in
 tests/test_torch_trfold.py.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -110,16 +113,20 @@ def test_kabsch_and_metrics_match_jax():
     w = rng.rand(2, 30) > 0.2
     a_nan = a.copy()
     a_nan[~w] = np.nan
-    for name, x, y in zip(("R", "t"), jgeom.masked_kabsch(a_nan, b, w), geom.masked_kabsch(_t(a_nan), _t(b), _t(w))):
+    # the JAX side jitted: one compile per function, not one per eager op
+    for name, x, y in zip(("R", "t"), jax.jit(jgeom.masked_kabsch)(a_nan, b, w),
+                          geom.masked_kabsch(_t(a_nan), _t(b), _t(w))):
         assert_parity(np.asarray(x), y, 1e-4, f"masked_kabsch {name}")
-    for name, x, y in zip(("R", "t"), jgeom.kabsch(a, b), geom.kabsch(_t(a), _t(b))):
+    for name, x, y in zip(("R", "t"), jax.jit(jgeom.kabsch)(a, b), geom.kabsch(_t(a), _t(b))):
         assert_parity(np.asarray(x), y, 1e-4, f"kabsch {name}")
     for align in (True, False):
-        assert_parity(np.asarray(jmetrics.rmsd(a, b, mask=w, align=align)),
-                      metrics.rmsd(_t(a), _t(b), mask=_t(w), align=align), 1e-4, f"rmsd {align}")
+        ref = jax.jit(functools.partial(jmetrics.rmsd, align=align))(a, b, mask=w)
+        assert_parity(np.asarray(ref), metrics.rmsd(_t(a), _t(b), mask=_t(w), align=align), 1e-4,
+                      f"rmsd {align}")
     for per_res in (False, True):
-        assert_parity(np.asarray(jmetrics.lddt(a, b, mask=w, per_residue=per_res)),
-                      metrics.lddt(_t(a), _t(b), mask=_t(w), per_residue=per_res), 1e-5, "lddt")
+        ref = jax.jit(functools.partial(jmetrics.lddt, per_residue=per_res))(a, b, mask=w)
+        assert_parity(np.asarray(ref), metrics.lddt(_t(a), _t(b), mask=_t(w), per_residue=per_res),
+                      1e-5, "lddt")
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +159,9 @@ def test_invariant_point_attention_matches_jax():
     _, r, t = _rng_frames(rng, 2, 24)
     jcfg, tcfg = _ipa_cfgs()
     mod = jipa.InvariantPointAttention(jcfg)
-    params = mod.init(jax.random.PRNGKey(0), node, pair, (r, t), mask)["params"]
+    params = jax.jit(mod.init)(jax.random.PRNGKey(0), node, pair, (r, t), mask)["params"]
     params = dict(params, point_weight=jnp.asarray(rng.randn(2).astype(np.float32)))
-    ref = mod.apply({"params": params}, node, pair, (r, t), mask)
+    ref = jax.jit(mod.apply)({"params": params}, node, pair, (r, t), mask)
     port = ipa.InvariantPointAttention(tcfg, device=DEVICE)
     port.load_state_dict(trfold_params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
@@ -166,9 +173,9 @@ def test_structure_module_matches_jax():
     rng, node, pair, mask = _module_inputs(seed=1)
     jcfg, tcfg = _ipa_cfgs()
     mod = jipa.StructureModule(jcfg)
-    params = mod.init(jax.random.PRNGKey(1), node, pair, mask)["params"]
+    params = jax.jit(mod.init)(jax.random.PRNGKey(1), node, pair, mask)["params"]
     params = dict(params, backbone_update=_randomise(params["backbone_update"], rng))
-    ref = mod.apply({"params": params}, node, pair, mask)
+    ref = jax.jit(mod.apply)({"params": params}, node, pair, mask)
     port = ipa.StructureModule(tcfg, device=DEVICE)
     port.load_state_dict(trfold_params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
@@ -209,12 +216,25 @@ def _port_model():
                          n_recycle=1, device=DEVICE)
 
 
+def port_init_params(model, seed=0):
+    """The port model's flax-style init from a seeded generator, as the flax
+    tree of jnp arrays (a jitted flax init would be one more compile)."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return jax.tree_util.tree_map(jnp.asarray, foldmodel_params_to_flax(model.state_dict()))
+
+
+def flat_shapes(tree):
+    """A flax tree's leaves as {dotted path: shape}."""
+    return {".".join(str(k.key) for k in path): tuple(v.shape)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
 @pytest.fixture(scope="module")
 def jax_fold(data):
     feats_np, xyz = data
     model = _jax_model()
     feats = {k: jnp.asarray(v) for k, v in feats_np.items()}
-    params = jax.jit(model.init)(jax.random.PRNGKey(0), feats)["params"]
+    params = port_init_params(_port_model())
     rng = np.random.RandomState(5)
     st = dict(params["structure"])
     st["backbone_update"] = _randomise(st["backbone_update"], rng)
@@ -226,6 +246,8 @@ def jax_fold(data):
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: jipa.fold_loss_fn(p, model, feats, jnp.asarray(xyz))))(params)
     return {"params": jax.tree_util.tree_map(np.asarray, params), "out": outs,
+            "flax_shapes": flat_shapes(jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                                      feats)["params"]),
             "loss": float(loss), "grads": trfold_params_from_flax(
                 jax.tree_util.tree_map(np.asarray, grads))}
 
@@ -239,8 +261,7 @@ def _loaded(jax_fold):
 def test_param_tree_matches_flax_and_round_trips(jax_fold):
     model = _port_model()
     sd = foldmodel_params_from_flax(jax_fold["params"])
-    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
-        k: tuple(v.shape) for k, v in sd.items()}
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == jax_fold["flax_shapes"]
     back = foldmodel_params_to_flax(sd)
     jax.tree_util.tree_map(np.testing.assert_array_equal, back, jax_fold["params"])
 
@@ -292,16 +313,16 @@ def test_fape_and_confidence_losses_match_jax(jax_fold, data):
     out = jax_fold["out"][0]
     bb = np.nan_to_num(xyz[:, :, :3])
     ok = np.isfinite(xyz[:, :, :3]).all((-2, -1)) & feats_np["residue_mask"]
-    tr, tt = jipa.frames_from_backbone(bb)
+    tr, tt = jax.jit(jipa.frames_from_backbone)(bb)
     pr, pt = out["frames"]
     pxyz = out["xyz"][:, :, :3]
-    ref = jipa.fape_loss((pr, pt), pxyz, (tr, tt), bb, ok)
+    ref = jax.jit(jipa.fape_loss)((pr, pt), pxyz, (tr, tt), bb, ok)
     got = ipa.fape_loss((_t(pr), _t(pt)), _t(pxyz), (_t(np.asarray(tr)), _t(np.asarray(tt))),
                         _t(bb), _t(ok))
     assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
     jout = {k: jnp.asarray(out[k]) for k in ("xyz", "plddt_logits", "pae_logits")}
     jout["frames"] = (jnp.asarray(pr), jnp.asarray(pt))
-    ref = jipa.confidence_losses(jout, (tr, tt), bb[:, :, 1], ok)
+    ref = jax.jit(jipa.confidence_losses)(jout, (tr, tt), bb[:, :, 1], ok)
     tout = {k: _t(out[k]) for k in ("xyz", "plddt_logits", "pae_logits")}
     tout["frames"] = (_t(pr), _t(pt))
     got = ipa.confidence_losses(tout, (_t(np.asarray(tr)), _t(np.asarray(tt))), _t(bb[:, :, 1]),
@@ -309,7 +330,7 @@ def test_fape_and_confidence_losses_match_jax(jax_fold, data):
     assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
     for a, b, f in ((out["plddt_logits"], jipa.plddt_from_logits, ipa.plddt_from_logits),
                     (out["pae_logits"], jipa.pae_from_logits, ipa.pae_from_logits)):
-        assert_parity(np.asarray(b(jnp.asarray(a))), f(_t(a)), 1e-4, f.__name__)
+        assert_parity(np.asarray(jax.jit(b)(jnp.asarray(a))), f(_t(a)), 1e-4, f.__name__)
 
 
 def test_fold_model_without_recycle_embedders_refuses_recycling():

@@ -51,7 +51,7 @@ from protstruc_tpu_torch.pdbio.parser import parse_pdb_files
 from protstruc_tpu_torch.pdbio.writer import to_pdb
 from protstruc_tpu_torch.utils import buckets
 from tests.conftest import pdb_path
-from tests.test_torch_ipa import _zero_grad_entries
+from tests.test_torch_ipa import _zero_grad_entries, port_init_params
 from tests.test_torch_parity import DEVICE, as_numpy, assert_parity
 
 torch.set_num_threads(1)
@@ -122,15 +122,16 @@ def test_learning_rate_schedule_matches_optax():
 @pytest.fixture(scope="module")
 def step_case():
     """A 36-residue window of two PDBs featurized by the JAX trainer's
-    ``_featurize``, a JAX FoldModel init with a random backbone update, and
-    the JAX step (value_and_grad of fold_loss_fn, the optax chain)."""
+    ``_featurize``, the port's FoldModel init (tests/test_torch_ipa.py holds
+    its tree to flax's) with a random backbone update, and the JAX step
+    (value_and_grad of fold_loss_fn, the optax chain)."""
     cfg = jtrain.TrainConfig(**TINY, learning_rate=1e-3, grad_clip=0.1)
     model = jtrain._build_model(cfg)
     sb = JaxBatch.from_pdb([pdb_path(p) for p in PDBS[:2]])
     sb = sb.replace(xyz=sb.xyz[:, 4:40], atom_mask=sb.atom_mask[:, 4:40],
                     chain_idx=sb.chain_idx[:, 4:40], residue_idx=sb.residue_idx[:, 4:40], seq=None)
     feats, target, _ = jtrain._featurize(sb, cfg, model.trunk_cfg)
-    params = jax.jit(model.init)(jax.random.PRNGKey(0), feats)["params"]
+    params = port_init_params(train._build_model(train.TrainConfig(**TINY), DEVICE))
     rng = np.random.RandomState(3)
     st = dict(params["structure"])
     st["backbone_update"] = jax.tree_util.tree_map(

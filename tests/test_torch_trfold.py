@@ -7,8 +7,10 @@ as padding.  Model: TrFold with ``node_dim=32, pair_dim=16, n_heads=2,
 n_blocks=2`` in float32, in three configurations: ``gated_mix``;
 ``triangle`` unfused; ``triangle`` with ``fused_tri=True`` (the JAX side runs
 the Pallas kernels in interpret mode, the port the plain versions of K4-K7
-through its autograd functions) and ``remat=True``.  Weights are carried
-across with ``convert.trfold_params_from_flax``.
+through its autograd functions) and ``remat=True``.  Both packages run one
+set of weights: the port's flax-style init, carried to the JAX model with
+``convert.trfold_params_to_flax``; the tree's paths and shapes are held to
+the flax init's (``jax.eval_shape``).
 
 Compared: ``featurize_for_model`` outputs (masks bitwise, floats 1e-5);
 forward outputs (1e-5); the loss (1e-5 relative); gradients per leaf (1e-4
@@ -109,11 +111,15 @@ def jax_ref(feats_np):
 
 
 def _jax_reference(name, feats_np):
-    # jitted (eager flax costs ~4x the time here): make_train_state's init and
-    # adamw, value_and_grad of loss_fn, and train_step's update
+    # jitted (eager flax, and eager optax over ~50 leaves, cost far more
+    # here): the forward, value_and_grad of loss_fn, and train_step's update.
+    # The params are the port's init (a jitted flax init would be one more
+    # compile per config); eval_shape gives the flax init's tree
     model = jtrfold.TrFold(jtrfold.TrFoldConfig(**WIDTHS, **CONFIGS[name]))
     feats = {k: jnp.asarray(v) for k, v in feats_np.items()}
-    params = jax.jit(model.init)(jax.random.PRNGKey(0), feats)["params"]
+    port = trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, **CONFIGS[name]), device=DEVICE)
+    port.reset_parameters(torch.Generator().manual_seed(0))
+    params = jax.tree_util.tree_map(jnp.asarray, trfold_params_to_flax(port.state_dict()))
     tx = optax.adamw(1e-3)
     out = jax.jit(lambda p, f: model.apply({"params": p}, f))(params, feats)
     loss, grads = jax.jit(jax.value_and_grad(lambda p, f: jtrfold.loss_fn(p, model, f)))(
@@ -121,12 +127,19 @@ def _jax_reference(name, feats_np):
     new_params = jax.jit(lambda p, g, s: optax.apply_updates(p, tx.update(g, s, p)[0]))(
         params, grads, tx.init(params))
     return {
+        "flax_shapes": _flat_shapes(jax.eval_shape(model.init, jax.random.PRNGKey(0), feats)["params"]),
         "params": jax.tree_util.tree_map(np.asarray, params),
         "out": {k: np.asarray(out[k]) for k in HEADS},
         "loss": float(loss),
         "grads": _flat(grads),
         "new_params": _flat(new_params),
     }
+
+
+def _flat_shapes(tree):
+    """A flax tree's leaves as {dotted path: shape}."""
+    return {".".join(str(k.key) for k in path): tuple(v.shape)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
 def _port_model(name, params_tree, **extra):
@@ -201,7 +214,7 @@ def test_train_step_matches_optax(run):
 
 
 def test_param_tree_matches_flax_and_round_trips(jax_ref):
-    """Every config's state_dict has the flax tree's paths and shapes, the
+    """Every config's state_dict has the flax init's paths and shapes, the
     fused and unfused triangle paths share one tree, and the converter
     round-trips exactly."""
     trees = {}
@@ -209,8 +222,7 @@ def test_param_tree_matches_flax_and_round_trips(jax_ref):
         ref = jax_ref(name)
         model, sd = _port_model(name, ref["params"])
         own = model.state_dict()
-        assert {k: tuple(v.shape) for k, v in own.items()} == {
-            k: tuple(v.shape) for k, v in sd.items()}, name
+        assert {k: tuple(v.shape) for k, v in own.items()} == ref["flax_shapes"], name
         assert all(v.dtype == torch.float32 for v in own.values())
         back = trfold_params_to_flax(trfold_params_from_flax(ref["params"]))
         jax.tree_util.tree_map(np.testing.assert_array_equal, back, ref["params"])
@@ -316,14 +328,15 @@ def test_distogram_bins_matches_jax(case):
 
 def test_nvcc_flags_are_per_library():
     """K1 keeps -fmad=false and its library hash (sha256 of the joined flags,
-    then the sources, then the shared header); the triangle kernels build with
-    FMA contraction."""
+    then the sources, then the shared headers in name order); the triangle
+    kernels build with FMA contraction."""
     k1_flags = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
     assert cuda_lib.NVCC_FLAGS == k1_flags
     h = hashlib.sha256(" ".join(k1_flags).encode())
     h.update((cuda_lib.CSRC / "pair_maps.cu").read_bytes())
-    h.update((cuda_lib.CSRC / "device_scope.cuh").read_bytes())
+    for header in ("device_scope.cuh", "pair_maps.cuh"):
+        h.update((cuda_lib.CSRC / header).read_bytes())
     expected = cuda_lib.BUILD_DIR / f"libpair_maps-{h.hexdigest()[:16]}.so"
     assert cuda_lib.library_path("pair_maps", pair_maps._SOURCES) == expected
     assert "-fmad=false" not in cuda_lib.NVCC_FLAGS_FMA
