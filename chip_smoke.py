@@ -42,10 +42,15 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
 10. K3 vs its plain version on ragged L = 37 and 300, the degenerate probes
     and B=256, L=512 (``randn * 10``, numpy seed 0), f32 and bf16 planes;
 11. K8/K9 vs their plain versions (forward, lse, ds, dk, dv and dq = ds k),
-    f32 and bf16, at the train shape (B=4, H=4, dh=32, L=256, the bias read
-    through the model's permuted layout), ragged L = 37 and 300 with a
-    fully-masked batch row, and bench.py's ``[attn]`` shape (B=1, H=8,
-    dh=32, L=4096, last 100 keys masked);
+    f32 and bf16, at the train shape (B=4, H=4, dh=32, L=256) with the bias
+    read through the model's permuted layout and with a contiguous bias (K8's
+    element-wise and 16-byte bias copies), ragged L = 37 and 300 with a
+    fully-masked batch row, L = 17 (shorter than one 64-row block), q/k/v
+    rows off 16-byte alignment (K8's narrow copies), the JAX smoke gate's
+    shapes (bench.py:977-997: B=1, H=2, L=96, last 8 keys masked, dh 16, 64
+    and 128), B=1, H=1, dh=128, L=2048 (bf16; bench.py:1003-1012) and
+    bench.py's ``[attn]`` shape (B=1, H=8, dh=32, L=4096, last 100 keys
+    masked);
 12. main path of the FoldModel slice: ``python -m protstruc_tpu_torch train``
     (in process) at ``experiments/fold_loo.py``'s configuration with
     ``--flash-attn`` (f32, B=4, crop 256, D=128, P=64, 4 heads, 4 blocks, 6
@@ -62,7 +67,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     parameters); K3 at B=256, L=512; K8 and K9 at the train and ``[attn]``
     shapes, each beside its plain version and
     ``torch.nn.functional.scaled_dot_product_attention`` with the additive
-    mask (its forward, and its backward over a kept graph);
+    mask (its forward, and its backward over a kept graph), with the
+    torch.profiler device time of K8 and of SDPA's forward kernels beside
+    the CUDA-event times;
 14. K2 vs its plain version on card tensors: ragged L = 37 and 300, the
     degenerate probes, bench.py's degenerate batch (CB = CA on every third
     residue, residue 7 = residue 3; must be finite), a NaN residue, a map
@@ -112,6 +119,13 @@ over the H100 SXM peak for
 their type: 989 TFLOP/s bf16, 67 TFLOP/s f32) and, where one PyTorch call
 computes the same function, that call's time.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+    python3 chip_smoke.py --flash-timing
+
+runs phases 1 and 13's K8/K9 timings alone (with K8's and SDPA's device
+times) and prints no result line.  Copied into the root of another checkout
+and run there, it times that checkout's kernels, so two commits can be set
+side by side on one card (parent, change, change, parent).
 """
 
 import concurrent.futures
@@ -352,9 +366,10 @@ def ptxas_lines(log_path):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             spill = ""
-            k = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)E)?E", m.group(1))
-            name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}"
-                    f"{', ' + k.group(3) if k.group(3) else ''}>" if k else m.group(1))
+            k = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E", m.group(1))
+            args = re.findall(r"Li(\d+)E", k.group(3)) if k else []
+            name = (f"{k.group(1)}<{', '.join(['float' if k.group(2) == 'f' else 'bf16', *args])}>"
+                    if k else m.group(1))
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -450,20 +465,30 @@ def k3_parity(torch, dev):
     return worst, total_mis
 
 
-FLASH_SHAPES = (  # (label, B, H, dh, L)
-    ("train", 4, 4, 32, 256),     # the FoldModel train step's node attention
-    ("ragged", 2, 4, 32, 37),     # batch row 1 fully masked
-    ("ragged", 2, 4, 32, 300),
-    ("attn", 1, 8, 32, 4096),     # bench.py [attn]: last 100 keys masked
+FLASH_SHAPES = (  # (label, B, H, dh, L, bf16 only)
+    ("train", 4, 4, 32, 256, False),         # the FoldModel train step's node attention
+    ("train-contig", 4, 4, 32, 256, False),  # the same with a contiguous bias
+    ("ragged", 2, 4, 32, 37, False),         # batch row 1 fully masked
+    ("ragged", 2, 4, 32, 300, False),
+    ("ragged", 1, 2, 32, 17, False),         # shorter than one 64-row block
+    ("unaligned", 2, 4, 32, 70, False),      # q/k/v rows off 16-byte alignment
+    ("gate", 1, 2, 16, 96, False),           # bench.py:977-997: last 8 keys masked
+    ("gate", 1, 2, 64, 96, False),
+    ("gate", 1, 2, 128, 96, False),
+    ("wide", 1, 1, 128, 2048, True),         # bench.py:1003-1012
+    ("attn", 1, 8, 32, 4096, False),         # bench.py [attn]: last 100 keys masked
 )
 
 
 def flash_inputs(torch, dev, dtype, label, B, H, dh, L, seed=0):
     """q, k, v as views of one (B, L, 3, H, dh) projection, bias, kmask and
     the output cotangent, drawn on the card.  The train shape's bias is the
-    permuted (B, L, L, H) layout the model passes; the others are contiguous."""
+    permuted (B, L, L, H) layout the model passes; the others are contiguous.
+    ``unaligned`` starts the projection one element into its buffer."""
     gen = torch.Generator(dev).manual_seed(seed)
-    qkv = torch.randn((B, L, 3, H, dh), generator=gen, device=dev).to(dtype)
+    off = 1 if label == "unaligned" else 0
+    qkv = torch.randn((B * L * 3 * H * dh + off,), generator=gen, device=dev).to(dtype)
+    qkv = qkv[off:].view(B, L, 3, H, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if label == "train":
         bias = torch.randn((B, L, L, H), generator=gen, device=dev).to(dtype).permute(0, 3, 1, 2)
@@ -473,9 +498,12 @@ def flash_inputs(torch, dev, dtype, label, B, H, dh, L, seed=0):
     if label == "ragged":
         kmask[0, L // 3] = False
         kmask[0, -3:] = False
-        kmask[1] = False
+        if B > 1:
+            kmask[1] = False
     elif label == "attn":
         kmask[:, -100:] = False
+    elif label == "gate":
+        kmask[:, -8:] = False
     do = torch.randn((B, L, H, dh), generator=gen, device=dev).to(dtype)
     return q, k, v, bias, kmask, do
 
@@ -542,7 +570,9 @@ def flash_parity(torch, dev):
 
     worst = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, B, H, dh, L in FLASH_SHAPES:
+        for label, B, H, dh, L, bf16_only in FLASH_SHAPES:
+            if bf16_only and dtype != torch.bfloat16:
+                continue
             args = flash_inputs(torch, dev, dtype, label, B, H, dh, L)
             errs = flash_vs_plain(torch, fa, args, f"{label} {str(dtype)[6:]} B={B} H={H} dh={dh} L={L}")
             for key in worst:
@@ -805,11 +835,22 @@ def fold_featurize(torch, batch, model, cfg, kernel):
     return feats, crop.xyz
 
 
+def device_ms(torch, fn):
+    """Device time of one call of ``fn``: the self device time of every
+    kernel under torch.profiler over ITERS calls (after WARMUP), per call;
+    and the names of the kernels that took it, largest first."""
+    for _ in range(WARMUP):
+        fn()
+    _, busy, top = device_profile(torch, lambda: [fn() for _ in range(ITERS)], top=3)
+    return busy / ITERS, [name for name, _, _ in top]
+
+
 def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
     """K8 and K9 at one shape beside their plain versions and SDPA with the
     additive mask (forward without autograd; backward as one autograd.grad
-    over a kept graph).  Returns {fwd, bwd: (kernel ms, plain ms, SDPA ms,
-    bound ms, bound_by)}."""
+    over a kept graph).  Returns ({fwd, bwd: (kernel ms, plain ms, SDPA ms,
+    bound ms, bound_by)}, the profiler's device ms a call of K8 and of SDPA's
+    forward, with SDPA's kernel names)."""
     import torch.nn.functional as F
 
     q, k, v, bias, kmask, do = flash_inputs(torch, dev, dtype, label, B, H, dh, L)
@@ -820,22 +861,47 @@ def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
     bwd_plain, bwd_ms, _ = alternate(lambda: fa._flash_bwd_plain(*bwd_args), lambda: fa.flash_bwd(*bwd_args))
     ds, dk, dv = fa.flash_bwd(*bwd_args)
 
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    mask = bias.masked_fill(~kmask[:, None, None, :], float("-inf")).detach().requires_grad_()
+    # the forward on inputs that require no gradient, so SDPA may pick its
+    # fastest kernel (cuDNN's takes no mask gradient); the backward on leaves
+    # that do, the mask (the bias) included
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))
+    mask_f = bias.masked_fill(~kmask[:, None, None, :], float("-inf"))
+    qt, kt, vt = (t.detach().requires_grad_() for t in (qf, kf, vf))
+    mask = mask_f.detach().requires_grad_()
 
     def sdpa_fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask_f)
 
     lib_fwd = cuda_time_ms(sdpa_fwd)
+    k8_dev, _ = device_ms(torch, lambda: fa.flash_fwd(*fwd_args))
+    sdpa_dev, sdpa_kernels = device_ms(torch, sdpa_fwd)
     o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     g = do.transpose(1, 2)
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt, mask), g, retain_graph=True))
     fwd_bound = bound(nbytes(q, k, v, bias, kmask, out, lse), flash_ops(kmask, H, dh, 2), dtype)
     bwd_bound = bound(nbytes(q, k, v, bias, kmask, do, lse, delta, ds, dk, dv),
                       flash_ops(kmask, H, dh, 4), dtype)
-    return {"fwd": (fwd_ms, fwd_plain, lib_fwd, *fwd_bound),
-            "bwd": (bwd_ms, bwd_plain, lib_bwd, *bwd_bound)}
+    return ({"fwd": (fwd_ms, fwd_plain, lib_fwd, *fwd_bound),
+             "bwd": (bwd_ms, bwd_plain, lib_bwd, *bwd_bound)}, (k8_dev, sdpa_dev, sdpa_kernels))
+
+
+def flash_phase13(torch, dev, fa, smi):
+    """Phase 13's K8/K9 timings at the train and ``[attn]`` shapes, printed;
+    returns {label: flash_timings' times}."""
+    flash_ms = {}
+    for label, dtype, B, H, dh, L in (("train", torch.float32, 4, 4, 32, 256),
+                                      ("attn", torch.bfloat16, 1, 8, 32, 4096)):
+        flash_ms[label], (k8_dev, sdpa_dev, sdpa_kernels) = flash_timings(
+            torch, dev, fa, label, dtype, B, H, dh, L)
+        torch.cuda.empty_cache()
+        for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms[label].items():
+            say(f"phase 13 timing K{8 if part == 'fwd' else 9} ({part}) {label} {str(dtype)[6:]} B={B} "
+                f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+                f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        say(f"phase 13 device time K8 {label} [{smi}]: torch.profiler {k8_dev:.4f} ms a call, SDPA forward "
+            f"{sdpa_dev:.4f} ms a call ({'; '.join(n[:50] for n in sdpa_kernels)})")
+    return flash_ms
 
 # -- K2 and the K1 probes ------------------------------------------------------
 K2_TOL = 1e-5   # max|d| <= 1e-5 max(1, max|ref|): the JAX gate, tests/test_pallas_pairwise.py:94-141
@@ -907,6 +973,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] not in ([], ["--flash-timing"]):
+        print("usage: python3 chip_smoke.py [--flash-timing]", file=sys.stderr)
+        return 2
+    flash_only = sys.argv[1:] == ["--flash-timing"]
     sys.path.insert(0, str(REPO))
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.__main__ import serve_loop
@@ -933,6 +1003,13 @@ def main():
     say(f"phase 1 device: {kind} sm_{cap[0]}{cap[1]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, count {torch.cuda.device_count()} [{smi}]")
     check(cap == (9, 0), f"the kernels are built for sm_90a; this card is sm_{cap[0]}{cap[1]}")
+    if flash_only:
+        t0 = time.perf_counter()
+        flash_attn.load_library()
+        say(f"flash timing of {REPO}: {flash_attn.library_path().name} built or loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        flash_phase13(torch, dev, flash_attn, smi)
+        return 0
 
     # -- 2. build -------------------------------------------------------------
     builds = build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn, kernel_probe)
@@ -1274,15 +1351,7 @@ def main():
         f"{k3_plain_ms:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
         f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
 
-    flash_ms = {}
-    for label, dtype, B, H, dh, L in (("train", torch.float32, 4, 4, 32, 256),
-                                      ("attn", torch.bfloat16, 1, 8, 32, 4096)):
-        flash_ms[label] = flash_timings(torch, dev, flash_attn, label, dtype, B, H, dh, L)
-        torch.cuda.empty_cache()
-        for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms[label].items():
-            say(f"phase 13 timing K{8 if part == 'fwd' else 9} ({part}) {label} {str(dtype)[6:]} B={B} "
-                f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-                f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    flash_ms = flash_phase13(torch, dev, flash_attn, smi)
 
     # -- 14. K2 parity ---------------------------------------------------------------
     t0 = time.perf_counter()

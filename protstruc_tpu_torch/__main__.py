@@ -76,7 +76,8 @@ def serve_loop(infile, outfile, batch_sizes=(1,), buckets=(256, 512),
     Responses: {"ok": true, ...} / {"ok": false, "error": ...} per line.
 
     The featurizer is built and warmed for the given (batch, bucket) grid at
-    startup (utils/aot.py), on ``device``.
+    startup (utils/aot.py), on ``device``: its pair maps go through K1 on a
+    CUDA device and through the arccos form on the CPU.
     """
     import numpy as np
 

@@ -6,8 +6,9 @@ kernels ``_fwd_kernel`` and ``_bwd_kernel``).  The op is TrFold's node
 attention, ``softmax(q k^T / sqrt(dh) + bias) v`` over the keys ``kmask``
 allows, computed without the ``(B, H, L, L)`` probabilities in device memory:
 
-* K8 (forward) streams key tiles through an online softmax and returns the
-  output and the per-row logsumexp ``lse (B, H, L)``;
+* K8 (forward) streams key tiles through an online softmax on the tensor
+  cores (``mma.sync``: bf16, or float32 as three TF32 products) and returns
+  the output and the per-row logsumexp ``lse (B, H, L)``;
 * K9 (backward) recomputes ``p = exp(s - lse)`` per tile, accumulates dk
   and dv per key tile and streams ``ds`` (the bias gradient) out;
   ``delta = sum(dO * out)`` before it and ``dq = ds k * scale`` after it are
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,7 +48,7 @@ __all__ = ["flash_pair_bias_attention", "pair_bias_attention_reference", "flash_
 
 _SOURCES = ("flash_attn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
+_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
 _MAX_GRID_Y = 65535
 NEG = -1e30          # masked-logit sentinel
 LSE_MASKED = 1e30    # logsumexp pin of a query row with no allowed key
@@ -124,17 +125,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the K8/K9 library; raises if it cannot."""
-    lib = cuda_lib.load("flash_attn", _SOURCES, cuda_lib.NVCC_FLAGS_FMA)
-    head = [_I] * 6 + [ctypes.c_float]  # device, dtype, B, H, L, dh, scale
-    lib.ps_flash_fwd.restype = _I
-    # q, k, v, bias, kmask, strides, out, lse; then the stream
-    lib.ps_flash_fwd.argtypes = head + [_P] * 8 + [_P]
-    lib.ps_flash_bwd.restype = _I
-    # q, k, v, bias, kmask, dO, lse, delta, strides, ds, dk, dv; then the stream
-    lib.ps_flash_bwd.argtypes = head + [_P] * 12 + [_P]
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = cuda_lib.load("flash_attn", _SOURCES, cuda_lib.NVCC_FLAGS_FMA)
+        head = [_I] * 6 + [ctypes.c_float]  # device, dtype, B, H, L, dh, scale
+        lib.ps_flash_fwd.restype = _I
+        # q, k, v, bias, kmask, strides, out, lse; then the stream
+        lib.ps_flash_fwd.argtypes = head + [_P] * 8 + [_P]
+        lib.ps_flash_bwd.restype = _I
+        # q, k, v, bias, kmask, dO, lse, delta, strides, ds, dk, dv; then the stream
+        lib.ps_flash_bwd.argtypes = head + [_P] * 12 + [_P]
+        _LIB = lib
+    return _LIB
 
 
 def library_path():

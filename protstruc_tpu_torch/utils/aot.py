@@ -7,11 +7,16 @@ build of the K1 library and one warm call per (batch size, bucket length),
 which also fills PyTorch's caching allocator for those shapes.  Requests are
 then padded to the smallest warmed bucket (xyz NaN, atom mask False,
 chain_idx -1), featurized, and trimmed back, exactly as in the JAX package.
+
+The pair maps go through K1 on a CUDA device and through the arccos form
+(``_inter_residue_geometry``) on the CPU, unless the caller says otherwise:
+the JAX package's rule (Pallas on the TPU, its jnp path elsewhere) with the
+card in the TPU's place, so CPU serving gives the JAX package's CPU maps.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,15 +62,17 @@ class CompiledFeaturizer:
     """Dispatcher over the warmed (B, L-bucket) shapes on one device.
 
     Call with a StructureBatch on :attr:`device`; the batch is padded to the
-    smallest warmed bucket, featurized, and trimmed back to its own (B, L).
+    smallest warmed bucket, featurized, and trimmed back to its own (B, L);
+    the pair maps go through K1 if ``use_kernel``, else the arccos form.
     """
 
     def __init__(self, shapes: Sequence[Tuple[int, int]], buckets: Sequence[int],
-                 device: torch.device):
+                 device: torch.device, use_kernel: bool):
         self._shapes = frozenset(shapes)
         self._buckets = tuple(sorted(buckets))
         self._batch_sizes = tuple(sorted({b for b, _ in self._shapes}))
         self.device = device
+        self.use_kernel = use_kernel
 
     @property
     def shapes(self):
@@ -87,6 +94,7 @@ class CompiledFeaturizer:
                 _pad(batch.xyz, Bb, Lb, float("nan")),
                 _pad(batch.atom_mask, Bb, Lb, False),
                 _pad(batch.chain_idx, Bb, Lb, PAD_IDX),
+                self.use_kernel,
             )
         g = {k: v[:B, :L, :L] for k, v in g.items()}
         return g, d[:B, :L], m[:B, :L], frames[:B, :L]
@@ -96,20 +104,24 @@ def precompile_featurizer(
     batch_sizes: Sequence[int] = (1,),
     buckets: Sequence[int] = DEFAULT_BUCKETS[:5],
     device: DeviceLike = "cuda",
+    use_kernel: Optional[bool] = None,
 ) -> CompiledFeaturizer:
     """Build the kernels and warm featurization for every (B, bucket) pair.
-
-    The pair maps go through K1 (its plain version on a CPU device).
 
     Args:
         batch_sizes: exact batch sizes to warm (requests round up).
         buckets: residue-length buckets to warm.
         device: where the featurizer runs; ``"cuda"`` without a card raises.
+        use_kernel: pair maps through K1 (``True``) or the arccos form
+            (``False``); ``None`` takes K1 on a CUDA device and the arccos
+            form on the CPU, as the JAX package takes Pallas only on a TPU.
 
     Returns a :class:`CompiledFeaturizer`.  A kernel that does not build
     raises here, not on the first request.
     """
     dev = resolve_device(device)
+    if use_kernel is None:
+        use_kernel = dev.type == "cuda"
     shapes = [(B, L) for B in batch_sizes for L in buckets]
     with torch.inference_mode():
         for B, L in shapes:
@@ -118,7 +130,7 @@ def precompile_featurizer(
             am = torch.zeros((B, L, MAX_N_ATOMS_PER_RESIDUE), dtype=torch.bool,
                              device=dev)
             ci = torch.full((B, L), PAD_IDX, dtype=torch.int32, device=dev)
-            _featurize(xyz, am, ci)
+            _featurize(xyz, am, ci, use_kernel)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return CompiledFeaturizer(shapes, buckets, dev)
+    return CompiledFeaturizer(shapes, buckets, dev, use_kernel)

@@ -9,7 +9,7 @@ autograd of the forward) plus ``dq = ds k``.  The CUDA kernels are held to
 these plain versions on the card by ``chip_smoke.py`` phase 11.
 
 Inputs: ``randn`` q, k, v, bias and output cotangent (numpy seeds), ragged
-``L`` (37, 50), ``dh`` 16 and 32, some masked keys, and a batch row whose keys
+``L`` (24-50), ``dh`` 16, 32, 64 and 128, some masked keys, and a batch row whose keys
 are all masked.  Budgets (tests/test_flash_attn.py, BASELINE.md:31-37):
 forward 2e-5, bias gradient 5e-4, dq/dk/dv 5e-5; bfloat16 inputs 2e-2.
 """
@@ -58,7 +58,7 @@ def _jax(q, k, v, bias, kmask, do, dtype=jnp.float32):
     return out, vjp(jnp.asarray(do, dtype))
 
 
-@pytest.mark.parametrize("dh,L", [(16, 37), (32, 50)])
+@pytest.mark.parametrize("dh,L", [(16, 37), (32, 50), (64, 40), (128, 24)])
 def test_forward_and_gradients_match_jax_flash(dh, L):
     args = _inputs(L=L, dh=dh, seed=dh + L)
     out, grads = _port(*args)
@@ -69,7 +69,7 @@ def test_forward_and_gradients_match_jax_flash(dh, L):
         assert_parity(np.asarray(r), g, tol, name)
 
 
-@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_forward_matches_jnp_reference_and_port_reference(dh):
     q, k, v, bias, kmask, _ = _inputs(L=50, dh=dh, seed=7)
     out, _ = _port(q, k, v, bias, kmask, np.zeros_like(q))

@@ -2,10 +2,11 @@
 
 Both ``serve_loop``s get the same JSONL (ping, featurize of 1REX and 1ad0_DC,
 a bad path, shutdown) and must give the same response keys, npz keys and
-shapes, distance maps and frames within 1e-5, omega/theta/phi within 2e-4,
-and masks bitwise.  The 2e-4 is the formulation waiver: the port serves
-through K1 (its plain version on the CPU, atan2 form for phi), while the JAX
-package on the CPU serves its jnp path (arccos form).
+shapes, every float map (distances, omega/theta/phi, dihedrals, frames)
+within 1e-5, and masks bitwise.  On the CPU both packages serve the arccos
+form of the pair maps (the JAX package's jnp path, the port's
+``_inter_residue_geometry``): K1 and its atan2-form plain version are for
+the card, as Pallas is for the TPU.
 """
 
 import io
@@ -29,13 +30,10 @@ torch.set_num_threads(1)
 
 BUCKETS = (256, 512)
 EXACT = ("d_ca_mask", "d_cb_mask", "d_no_mask", "dihedral_mask")
-ANGLE_MAPS = ("omega", "theta", "phi")
 
 
 def _atol(key):
-    if key in EXACT:
-        return 0
-    return 2e-4 if key in ANGLE_MAPS else 1e-5
+    return 0 if key in EXACT else 1e-5
 
 
 def _requests(out_dir, tag):
