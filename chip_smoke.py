@@ -22,10 +22,13 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    K1 alone vs its plain version, and full featurization at B=256, L=512 on
    the kernel path vs the plain path, as structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
-   bf16, C = 16 and 128 on a ragged N = 2*37*37 with masked rows, and C = 128
-   on N = 160*160 (more row tiles than blocks, so each block loops), every
-   output and weight gradient; then the whole op (forward and backward,
-   outgoing and incoming) vs the plain path on the CPU;
+   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K5's
+   streamed rows pass in both dtypes, the weight gradients in 128 x 128
+   tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
+   160*160 (more row tiles than blocks, so each block loops), every output
+   and weight gradient; then the whole op (forward and backward, outgoing
+   and incoming) vs the plain path on the CPU; then K5 and K7 at C = 64 on
+   tensors that start off a 16-byte boundary;
 8. train path: TrFold at the ``[mfu-fused]`` width of bench.py (bf16,
    D=256, P=128, 8 heads, 4 blocks, triangle updates, remat, fused_tri) on
    B=4, L=512 (``randn * 5``, numpy seed 0): ``featurize_for_model(
@@ -35,10 +38,13 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    ``fused_tri=False`` (plain PyTorch); then the same at f32, B=1, L=128,
    with gradients compared leaf by leaf;
 9. timing: the full-width train step, fused vs unfused (ms/step and peak
-   memory; every step from the initial parameters, its loss finite), and each
+   memory; every step from the initial parameters, its loss finite; then one
+   step of each under torch.profiler), and each
    of K4-K7 alone vs its plain version at N = 4*512*512, C = 128, bf16, the
    shape the train path gives it, after each output is held against the plain
-   version's under the budgets below;
+   version's under the budgets below, then under torch.profiler, its device
+   time split by the kernels of the call (K5 and K7: rows pass, weight-gradient
+   pass, reductions);
 10. K3 vs its plain version on ragged L = 37 and 300, the degenerate probes
     and B=256, L=512 (``randn * 10``, numpy seed 0), f32 and bf16 planes;
 11. K8/K9 vs their plain versions (forward, lse, ds, dk, dv and dq = ds k),
@@ -123,9 +129,15 @@ computes the same function, that call's time.  The last line is
     python3 chip_smoke.py --flash-timing
 
 runs phases 1 and 13's K8/K9 timings alone (with K8's and SDPA's device
-times) and prints no result line.  Copied into the root of another checkout
-and run there, it times that checkout's kernels, so two commits can be set
-side by side on one card (parent, change, change, parent).
+times) and prints no result line;
+
+    python3 chip_smoke.py --tri-timing
+
+runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
+K4-K7 timings alone, with the K4-K7 library's ptxas lines, and prints no
+result line.  Copied into the root of another checkout and run there, either
+times that checkout's kernels, so two commits can be set side by side on one
+card (parent, change, change, parent).
 """
 
 import concurrent.futures
@@ -322,7 +334,7 @@ def tri_kernel_parity(torch, dev):
 
     worst = {k: 0.0 for k in TRI_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
-        for C, B, L in ((16, 2, 37), (128, 2, 37), (128, 1, 160)):
+        for C, B, L in ((16, 2, 37), (64, 2, 37), (128, 2, 37), (128, 1, 160), (256, 2, 37)):
             cases = tri_inputs(torch, dev, dtype, C, B=B, L=L)
             for name in TRI_KERNELS:
                 err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name],
@@ -353,7 +365,34 @@ def tri_kernel_parity(torch, dev):
                         for i, (o, r) in enumerate(zip(*outs))]
                 say(f"  fused_triangle_multiplication {str(dtype)[6:]} C={C} L={L} outgoing={outgoing}: "
                     f"out {errs[0]:.2e}, grads max {max(errs[1:]):.2e} over {len(errs) - 1} leaves")
+        # the backwards on tensors that start one element past a 16-byte boundary
+        # (their wrappers hand the kernels aligned copies)
+        for name in ("prologue_bwd", "epilogue_bwd"):
+            args = [off_alignment(torch, t) for t in tri_inputs(torch, dev, dtype, 64)[name]]
+            check(all(t.data_ptr() % 16 for t in args), "the offset copies are aligned")
+            err = tri_kernel_vs_plain(torch, tri_mul, name, args, f"{str(dtype)[6:]} C=64 off alignment")
+            worst[name] = max(worst[name], err)
     return worst
+
+
+def off_alignment(torch, t):
+    """A copy of ``t`` whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16 // t.element_size(), dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def kernel_name(symbol):
+    """The ``..._kernel`` name inside a mangled symbol without template
+    arguments (its length prefix picked from the digits before it), or the
+    symbol itself."""
+    for m in re.finditer(r"\d+", symbol):
+        for i in range(len(m.group())):
+            name = symbol[m.end():m.end() + int(m.group()[i:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[a-z][a-z_0-9]*", name):
+                return name
+    return symbol
 
 
 def ptxas_lines(log_path):
@@ -369,7 +408,7 @@ def ptxas_lines(log_path):
             k = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E", m.group(1))
             args = re.findall(r"Li(\d+)E", k.group(3)) if k else []
             name = (f"{k.group(1)}<{', '.join(['float' if k.group(2) == 'f' else 'bf16', *args])}>"
-                    if k else m.group(1))
+                    if k else kernel_name(m.group(1)))
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -639,6 +678,12 @@ def train_models(torch, dev, cfg_kwargs, xyz_np):
     return feats, models, init
 
 
+def train_xyz(np):
+    """The train path's coordinates: ``randn(4, 512, 15, 3) * 5``, numpy seed 0
+    (bench.py:370-373)."""
+    return np.random.RandomState(0).randn(4, L_FULL, 15, 3).astype(np.float32) * 5.0
+
+
 def run_steps(feats, entry, n):
     """``n`` train steps of one (model, params, opt_state, tx); their losses."""
     from protstruc_tpu_torch.models.trfold import train_step
@@ -654,6 +699,89 @@ def run_steps(feats, entry, n):
 def compare_losses(fused, plain, rtol, label):
     for i, (a, b) in enumerate(zip(fused, plain)):
         check(abs(a - b) <= rtol * abs(b), f"{label} step {i}: fused loss {a!r} vs unfused {b!r}")
+
+
+def train_step_timing(torch, smi, models, feats, init):
+    """Phase 9's train step at the ``[mfu-fused]`` width, fused_tri against
+    unfused, in turns; prints ms/step and peak memory, then one step of each
+    under torch.profiler (device busy, the top kernels).  Three steps already
+    moved the parameters far from the init (the loss grows), so every timed
+    step starts again from the initial parameters: each times the same
+    workload, on sound values."""
+    from protstruc_tpu_torch.models.trfold import train_step
+
+    step_ms, peak, step_losses = {}, {}, {True: [], False: []}
+
+    def stepper(fused):
+        model, params, opt_state, tx = models[fused]
+        state = model.state_dict()
+        leaves = [(state[k], v) for k, v in init.items()]
+
+        def step():
+            with torch.no_grad():
+                for leaf, v in leaves:
+                    leaf.copy_(v)
+            step_losses[fused].append(train_step(params, opt_state, feats, model, tx)[2])
+        return step
+
+    for fused in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        stepper(fused)()
+        torch.cuda.synchronize()
+        peak[fused] = torch.cuda.max_memory_allocated() / 2**30
+    step_ms[False], step_ms[True], rounds = alternate(stepper(False), stepper(True))
+    profiles = []
+    for fused in (True, False):
+        wall, busy, top = device_profile(torch, stepper(fused), top=8)
+        profiles.append(
+            f"phase 9 profile train step, fused_tri={fused}, one step under torch.profiler: device busy "
+            f"{busy:.2f} of {wall:.2f} ms wall (idle {100 * (1 - busy / wall):.1f}%); top kernels "
+            + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top))
+    for fused, losses in step_losses.items():
+        losses = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(losses).all()), f"timed steps fused_tri={fused}: losses {losses}")
+        step_losses[fused] = (float(losses.min()), float(losses.max()), len(losses))
+    say(f"phase 9 timing train step bf16 B=4 L={L_FULL} [{smi}]: fused_tri {step_ms[True]:.4f} ms/step "
+        f"(peak {peak[True]:.2f} GiB), unfused {step_ms[False]:.4f} ms/step (peak {peak[False]:.2f} GiB) "
+        f"(unfused/fused/fused/unfused {', '.join(f'{r:.4f}' for r in rounds)}); each step from the "
+        f"initial parameters, losses (min, max, steps) fused {step_losses[True]}, "
+        f"unfused {step_losses[False]}")
+    for line in profiles:
+        say(line)
+
+
+def tri_timings(torch, dev, smi, tri_worst):
+    """Phase 9's K4-K7 at the train path's shape (N = 4*512*512, C = 128,
+    bf16): each held against its plain version (its error folded into
+    ``tri_worst``), timed by CUDA events (plain/kernel/kernel/plain), then
+    under torch.profiler (device time a call, split by the kernels of the
+    call: K5 and K7 are a rows pass, the weight-gradient pass and two
+    reductions).  Returns {name: (kernel ms, plain ms, bound ms, bound_by)}."""
+    from protstruc_tpu_torch.ops import tri_mul
+
+    tri_ms = {}
+    cases = tri_inputs(torch, dev, torch.bfloat16, 128, B=4, L=L_FULL)
+    for name in TRI_KERNELS:
+        kernel, plain = tri_mul.KERNELS[name]
+        err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=128 train shape")
+        tri_worst[name] = max(tri_worst[name], err)
+        got = kernel(*cases[name])
+        N, C = cases[name][0].shape
+        tri_bound = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
+                          TRI_PRODUCTS[name] * 2 * N * C * C, torch.bfloat16)
+        del got
+        torch.cuda.empty_cache()
+        plain_ms_k, kernel_ms_k, rounds = alternate(lambda: plain(*cases[name]), lambda: kernel(*cases[name]))
+        tri_ms[name] = (kernel_ms_k, plain_ms_k, *tri_bound)
+        say(f"phase 9 timing {name} bf16 N={N} C={C} [{smi}]: kernel {kernel_ms_k:.4f} ms, "
+            f"plain {plain_ms_k:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
+            f"bound {tri_bound[0]:.4f} ms ({tri_bound[1]})")
+        _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)], top=6)
+        say(f"phase 9 device time {name} [{smi}]: torch.profiler {busy / ITERS:.4f} ms a call = "
+            + " + ".join(f"{k[:40]} {ms / ITERS:.4f}" for k, ms, _ in top))
+    del cases
+    torch.cuda.empty_cache()
+    return tri_ms
 
 
 # -- bounds: the least time an H100 SXM could take for a call ------------------
@@ -973,14 +1101,15 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--flash-timing"]):
-        print("usage: python3 chip_smoke.py [--flash-timing]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--flash-timing"], ["--tri-timing"]):
+        print("usage: python3 chip_smoke.py [--flash-timing | --tri-timing]", file=sys.stderr)
         return 2
     flash_only = sys.argv[1:] == ["--flash-timing"]
+    tri_only = sys.argv[1:] == ["--tri-timing"]
     sys.path.insert(0, str(REPO))
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.__main__ import serve_loop
-    from protstruc_tpu_torch.models.trfold import featurize_for_model, loss_fn, train_step
+    from protstruc_tpu_torch.models.trfold import featurize_for_model, loss_fn
     from protstruc_tpu_torch.models.ipa import fold_loss_fn
     from protstruc_tpu_torch.experiments import kernel_probe
     from protstruc_tpu_torch.ops import cuda_lib, flash_attn, model_features, pair_maps, tri_mul
@@ -1009,6 +1138,21 @@ def main():
         say(f"flash timing of {REPO}: {flash_attn.library_path().name} built or loaded in "
             f"{time.perf_counter() - t0:.2f} s")
         flash_phase13(torch, dev, flash_attn, smi)
+        return 0
+    if tri_only:
+        t0 = time.perf_counter()
+        pair_maps.load_library()
+        tri_mul.load_library()
+        say(f"tri timing of {REPO}: {tri_mul.library_path().name} built or loaded in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for ln in ptxas_lines(tri_mul.library_path().with_suffix(".log")):
+            say(f"  ptxas: {ln}")
+        feats, models, init = train_models(torch, dev, dict(TRAIN_WIDTH, dtype=torch.bfloat16),
+                                           train_xyz(np))
+        train_step_timing(torch, smi, models, feats, init)
+        del models, feats, init
+        torch.cuda.empty_cache()
+        tri_timings(torch, dev, smi, dict.fromkeys(TRI_KERNELS, 0.0))
         return 0
 
     # -- 2. build -------------------------------------------------------------
@@ -1153,13 +1297,12 @@ def main():
     say(f"phase 7 parity K4-K7: ok, max abs err {tri_worst}")
 
     # -- 8. train path ---------------------------------------------------------
-    xyz_train = np.random.RandomState(0).randn(4, L_FULL, 15, 3).astype(np.float32) * 5.0
     cfg = dict(TRAIN_WIDTH, dtype=torch.bfloat16)
     pair_maps.LAUNCHES = 0
     for k in tri_mul.LAUNCHES:
         tri_mul.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    feats, models, init = train_models(torch, dev, cfg, xyz_train)
+    feats, models, init = train_models(torch, dev, cfg, train_xyz(np))
     fused_losses = run_steps(feats, models[True], TRAIN_STEPS)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -1192,60 +1335,10 @@ def main():
     del feats32, models32, grads
 
     # -- 9. timing: train step and K4-K7 ---------------------------------------
-    # Three steps already moved the parameters far from the init (the loss
-    # grows), so every timed step starts again from the initial parameters:
-    # each times the same workload, on sound values.
-    step_ms, peak, step_losses = {}, {}, {True: [], False: []}
-
-    def stepper(fused):
-        model, params, opt_state, tx = models[fused]
-        state = model.state_dict()
-        leaves = [(state[k], v) for k, v in init.items()]
-
-        def step():
-            with torch.no_grad():
-                for leaf, v in leaves:
-                    leaf.copy_(v)
-            step_losses[fused].append(train_step(params, opt_state, feats, model, tx)[2])
-        return step
-
-    for fused in (True, False):
-        torch.cuda.reset_peak_memory_stats()
-        stepper(fused)()
-        torch.cuda.synchronize()
-        peak[fused] = torch.cuda.max_memory_allocated() / 2**30
-    step_ms[False], step_ms[True], rounds = alternate(stepper(False), stepper(True))
-    for fused, losses in step_losses.items():
-        losses = torch.stack(losses).float().cpu()
-        check(bool(torch.isfinite(losses).all()), f"timed steps fused_tri={fused}: losses {losses}")
-        step_losses[fused] = (float(losses.min()), float(losses.max()), len(losses))
-    say(f"phase 9 timing train step bf16 B=4 L={L_FULL} [{smi}]: fused_tri {step_ms[True]:.4f} ms/step "
-        f"(peak {peak[True]:.2f} GiB), unfused {step_ms[False]:.4f} ms/step (peak {peak[False]:.2f} GiB) "
-        f"(unfused/fused/fused/unfused {', '.join(f'{r:.4f}' for r in rounds)}); each step from the "
-        f"initial parameters, losses (min, max, steps) fused {step_losses[True]}, "
-        f"unfused {step_losses[False]}")
+    train_step_timing(torch, smi, models, feats, init)
     del models, feats, init
     torch.cuda.empty_cache()
-
-    tri_ms = {}
-    cases = tri_inputs(torch, dev, torch.bfloat16, 128, B=4, L=L_FULL)
-    for name in TRI_KERNELS:
-        kernel, plain = tri_mul.KERNELS[name]
-        err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=128 train shape")
-        tri_worst[name] = max(tri_worst[name], err)
-        got = kernel(*cases[name])
-        N, C = cases[name][0].shape
-        tri_bound = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
-                          TRI_PRODUCTS[name] * 2 * N * C * C, torch.bfloat16)
-        del got
-        torch.cuda.empty_cache()
-        plain_ms_k, kernel_ms_k, rounds = alternate(lambda: plain(*cases[name]), lambda: kernel(*cases[name]))
-        tri_ms[name] = (kernel_ms_k, plain_ms_k, *tri_bound)
-        say(f"phase 9 timing {name} bf16 N={N} C={C} [{smi}]: kernel {kernel_ms_k:.4f} ms, "
-            f"plain {plain_ms_k:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
-            f"bound {tri_bound[0]:.4f} ms ({tri_bound[1]})")
-    del cases
-    torch.cuda.empty_cache()
+    tri_ms = tri_timings(torch, dev, smi, tri_worst)
 
     # -- 10. K3 ------------------------------------------------------------------
     t0 = time.perf_counter()

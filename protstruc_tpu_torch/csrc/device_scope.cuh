@@ -1,7 +1,8 @@
 // DeviceScope, shared by the kernel libraries of this directory: each C entry
 // point makes `device` current for its call and gives the caller's device
 // back on return, so a launch on another card does not move the calling
-// thread.  ops/cuda_lib.py hashes this header with every library's sources.
+// thread.  ops/cuda_lib.py hashes this header into the build key of every
+// library that includes it.
 #pragma once
 
 #include <cuda_runtime.h>

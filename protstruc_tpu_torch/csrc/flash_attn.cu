@@ -93,6 +93,7 @@
 #include <initializer_list>
 
 #include "device_scope.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -132,26 +133,9 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f<T>(from_f<T>(v)); }
 
 // ---------------------------------------------------------------------------
-// K8: asynchronous copies, fragments and tensor-core products
+// K8: asynchronous copies into its tiles (cp.async, ldmatrix and mma.sync
+// helpers are in mma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // one element from a stride that 16-byte copies cannot take: a 4-byte
 // cp.async for float32, a register copy for bf16 (cp.async has no 2-byte form)
@@ -210,91 +194,6 @@ __device__ __forceinline__ void copy_bias(T* dst, const T* bias, long long bi, l
       else dst[rr * BS + c] = from_f<T>(0.0f);
     }
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b, a 16x8 tf32 (row), b 8x8 tf32 (col), c 16x8 f32
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, each a tf32 value (24 of the float's bits kept)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// c += a b at float32 accuracy from three TF32 products, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4], const uint32_t (&b)[4]) {
-  mma_tf32(c, a_small, b[0], b[1]);  // b: big0, big1, small0, small1
-  mma_tf32(c, a_big, b[2], b[3]);
-  mma_tf32(c, a_big, b[0], b[1]);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  a = v.x;
-  b = v.y;
-}
-
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// the m16n8k8 A fragment (big and small) of rows row0 and row0 + 8, columns
-// k0 + t and k0 + t + 4 of a float32 tile with row stride RS
-template <int RS>
-__device__ __forceinline__ void tf32_a_frag(const float* tile, int row0, int k0, int t,
-                                            uint32_t (&big)[4], uint32_t (&small)[4]) {
-  const float* p = tile + row0 * RS + k0 + t;
-  split_tf32(p[0], big[0], small[0]);
-  split_tf32(p[8 * RS], big[1], small[1]);
-  split_tf32(p[4], big[2], small[2]);
-  split_tf32(p[8 * RS + 4], big[3], small[3]);
 }
 
 // K8's tiles: BQ query rows (16 a warp), a ring of two stages of K, V and

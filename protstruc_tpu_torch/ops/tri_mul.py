@@ -245,11 +245,19 @@ def _prologue_fwd_cuda(x, m, *w):
     return a, b
 
 
+def _aligned16(t):
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary: the backward kernels copy rows and weights in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _prologue_bwd_cuda(x, m, *rest):
     N, C = x.shape
     w, da, db = rest[:10], rest[10], rest[11]
     _check("prologue_bwd", x, [x, m, *w, da, db],
            [(N, C), (N,)] + _weight_shapes(C, _PRO_W) + [(N, C), (N, C)])
+    x, da, db = _aligned16(x), _aligned16(da), _aligned16(db)
+    w = [_aligned16(t) for t in w]
     lib = load_library()
     work = _workspace(lib, "prologue_bwd", x)
     dx = torch.empty_like(x)
@@ -277,6 +285,7 @@ def _epilogue_bwd_cuda(x, p, *rest):
     w, do = rest[:8], rest[8]
     _check("epilogue_bwd", x, [x, p, *w, do],
            [(N, C), (N, C)] + _weight_shapes(C, _EPI_W) + [(N, C)])
+    x, p = _aligned16(x), _aligned16(p)
     lib = load_library()
     work = _workspace(lib, "epilogue_bwd", x)
     dx, dp = torch.empty_like(x), torch.empty_like(x)
