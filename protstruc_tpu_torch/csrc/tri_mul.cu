@@ -26,8 +26,8 @@
 // and C in make_plan:
 //
 //  * resident (bf16 C <= 128, float32 C <= 64):
-//    prologue_bwd_resident_kernel / _f32_kernel.  One persistent
-//    block of 8 warps an SM copies wag, wap, wbg, wbp into shared memory once
+//    prologue_bwd_resident_kernel<T>.  One persistent block of 8 warps an
+//    SM copies wag, wap, wbg, wbp into shared memory once
 //    (cp.async; 136 KB in bf16 at C = 128, padded a row) and every warp walks
 //    its own 16-row tiles, the next tile's x in flight through a two-stage
 //    cp.async ring of its own.  The LayerNorm runs on the fragments in
@@ -71,10 +71,13 @@
 //    kernel adds the partials in block order;
 //  * weight gradients dW = s^T @ dpre: the rows kernel writes dpre (cast to
 //    T) to a scratch buffer; wgrad_kernel gives each block a chunk of rows,
-//    one job (K5: wag, wap, wbg, wbp; K7: wog, wo) and one output tile (all
-//    of C x C up to C = 128), recomputes s from the pair rows once per row,
-//    and sums s^T @ dpre on mma.sync into an f32 partial; the same reduction
-//    kernel adds the chunks in order.
+//    one job (K5: wag, wap, wbg, wbp; K7: wog, wo) and one output tile,
+//    recomputes s from the pair rows, and sums s^T @ dpre on mma.sync into
+//    an f32 partial; the same reduction kernel adds the chunks in order.  Up
+//    to C = 128 the tile is all of C x C, so a row's LayerNorm is computed
+//    once per job; wider, the tile is at most 128 x 128 and each of the
+//    (C / tile)^2 tiles of a job recomputes it (4 times per row per job at
+//    C = 256, which only the streamed rows passes reach).
 // No atomics: the result is the same from run to run.  The kernels allocate
 // nothing and do not synchronise.
 
@@ -743,8 +746,12 @@ __device__ __forceinline__ void res_ln_backward(const float (&ds)[NMAX][4], cons
 // 2t + 8 and 2t + 9: the C fragments of s @ W, which, packed to bf16, are the
 // A fragments of the back-projection, so dpre never leaves the registers
 // before its cast and its store to the scratch.
+template <typename T>
+__global__ void prologue_bwd_resident_kernel(RowArgs<T> a, Plan p);
+
+template <>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-prologue_bwd_resident_kernel(RowArgs<bf16> a, Plan p) {
+prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
   ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, &sm);
@@ -933,8 +940,9 @@ prologue_bwd_resident_kernel(RowArgs<bf16> a, Plan p) {
 // 2t + 1) is the A fragment of its back-projection when that product runs
 // its k index as (0, 2, 4, 6, 1, 3, 5, 7) on dpre and on W^T alike, so dpre
 // stays in registers.  W's fragments are read by hand from shared memory.
+template <>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-prologue_bwd_resident_f32_kernel(RowArgs<float> a, Plan p) {
+prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
   ResSmem<float>::carve((uintptr_t)smem_raw, p.C, &sm);
@@ -1413,13 +1421,6 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 
 namespace {
 
-// K5's resident rows pass of each stream dtype
-template <typename T> struct Resident;
-template <> struct Resident<bf16> { static constexpr auto kernel = &prologue_bwd_resident_kernel; };
-template <> struct Resident<float> {
-  static constexpr auto kernel = &prologue_bwd_resident_f32_kernel;
-};
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1481,15 +1482,9 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
     }
     p.res_smem = ResSmem<T>::carve(0, C, nullptr);
     p.resident = kind == kProBwd && C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
-    if (p.resident) {
-      int occ = 0;
-      if ((err = set_smem(Resident<T>::kernel, p.res_smem)) != cudaSuccess) return (int)err;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, Resident<T>::kernel,
-                                                          kResWarps * 32, p.res_smem);
-      if (err != cudaSuccess) return (int)err;
+    if (p.resident) {  // one block an SM: its registers leave room for no second
       const long long need = ((long long)N + 16 * kResWarps - 1) / (16 * kResWarps);
-      const long long have = (long long)nsm * (occ > 0 ? occ : 1);
-      p.res_grid = (int)(need < have ? need : have);
+      p.res_grid = (int)(need < nsm ? need : nsm);
     }
     const int vgrid = p.grid > p.res_grid ? p.grid : p.res_grid;
     p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
@@ -1553,9 +1548,8 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   int vgrid = p.grid;  // blocks that wrote vector partials
   if (pro) {
     if (p.resident) {
-      auto kern = Resident<T>::kernel;
-      if ((err = set_smem(kern, p.res_smem)) != cudaSuccess) return (int)err;
-      kern<<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
+      if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+      prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
       vgrid = p.res_grid;
     } else {
       if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;

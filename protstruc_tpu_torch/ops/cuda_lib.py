@@ -16,10 +16,9 @@ import ctypes
 import hashlib
 import os
 import pathlib
-import re
 import shutil
 import subprocess
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, Optional, Sequence
 
 __all__ = ["NVCC_FLAGS", "NVCC_FLAGS_FMA", "CSRC", "BUILD_DIR", "find_nvcc", "library_path", "load"]
 
@@ -57,29 +56,12 @@ def find_nvcc() -> Optional[str]:
     return shutil.which("nvcc")
 
 
-_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
-
-
-def _headers(sources: Sequence[str]) -> List[pathlib.Path]:
-    """The ``csrc`` headers that ``sources`` include, directly or through
-    another header, in name order."""
-    seen: Set[str] = set()
-    todo = [CSRC / s for s in sources]
-    while todo:
-        for name in _INCLUDE.findall(todo.pop().read_text()):
-            if name not in seen and (CSRC / name).is_file():
-                seen.add(name)
-                todo.append(CSRC / name)
-    return [CSRC / name for name in sorted(seen)]
-
-
 def library_path(stem: str, sources: Sequence[str],
                  flags: Sequence[str] = NVCC_FLAGS) -> pathlib.Path:
     """Where ``lib<stem>`` built from ``sources`` with ``flags`` lives (keyed
-    by their hash and that of the shared headers they include, ``csrc/*.cuh``,
-    so an edit of one header rebuilds only the libraries that include it)."""
+    by their hash and that of the shared headers, ``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in [CSRC / s for s in sources] + _headers(sources):
+    for path in [CSRC / s for s in sources] + sorted(CSRC.glob("*.cuh")):
         h.update(path.read_bytes())
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 

@@ -335,7 +335,7 @@ def test_nvcc_flags_are_per_library():
     assert cuda_lib.NVCC_FLAGS == k1_flags
     h = hashlib.sha256(" ".join(k1_flags).encode())
     h.update((cuda_lib.CSRC / "pair_maps.cu").read_bytes())
-    for header in ("device_scope.cuh", "pair_maps.cuh"):
+    for header in ("device_scope.cuh", "mma.cuh", "pair_maps.cuh"):
         h.update((cuda_lib.CSRC / header).read_bytes())
     expected = cuda_lib.BUILD_DIR / f"libpair_maps-{h.hexdigest()[:16]}.so"
     assert cuda_lib.library_path("pair_maps", pair_maps._SOURCES) == expected
