@@ -27,8 +27,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
-   and incoming) vs the plain path on the CPU; then K5 and K7 at C = 64 on
-   tensors that start off a 16-byte boundary;
+   and incoming) vs the plain path on the CPU; f32 K4, K5 and K7 at the
+   FoldModel shape (N = 4*256*256, C = 64: many tiles a warp in the
+   resident passes); then K4, K5 and K7 at C = 64 on tensors (rows,
+   weights, cotangents) that start off a 16-byte boundary;
 8. train path: TrFold at the ``[mfu-fused]`` width of bench.py (bf16,
    D=256, P=128, 8 heads, 4 blocks, triangle updates, remat, fused_tri) on
    B=4, L=512 (``randn * 5``, numpy seed 0): ``featurize_for_model(
@@ -367,16 +369,17 @@ def tri_kernel_parity(torch, dev):
                     f"out {errs[0]:.2e}, grads max {max(errs[1:]):.2e} over {len(errs) - 1} leaves")
         if dtype == torch.float32:
             # the FoldModel's pair rows (fold_loo.py: B 4, crop 256, C 64), where
-            # each warp of K5's resident pass walks many tiles through its ring
-            # and the weight-gradient pass sums many row steps
+            # each warp of the resident passes (K4, K5, K7) walks many tiles
+            # through its ring and the weight-gradient pass sums many row steps
             cases = tri_inputs(torch, dev, dtype, 64, B=4, L=256)
-            for name in ("prologue_bwd", "epilogue_bwd"):
+            for name in ("prologue_fwd", "prologue_bwd", "epilogue_bwd"):
                 err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "float32 C=64 FoldModel shape")
                 worst[name] = max(worst[name], err)
             del cases
-        # the backwards on tensors that start one element past a 16-byte boundary
-        # (their wrappers hand the kernels aligned copies)
-        for name in ("prologue_bwd", "epilogue_bwd"):
+        # K4, K5 and K7 on tensors (rows, weights, cotangents) that start one
+        # element past a 16-byte boundary (their wrappers hand the kernels
+        # aligned copies)
+        for name in ("prologue_fwd", "prologue_bwd", "epilogue_bwd"):
             args = [off_alignment(torch, t) for t in tri_inputs(torch, dev, dtype, 64)[name]]
             check(all(t.data_ptr() % 16 for t in args), "the offset copies are aligned")
             err = tri_kernel_vs_plain(torch, tri_mul, name, args, f"{str(dtype)[6:]} C=64 off alignment")

@@ -14,46 +14,62 @@
 //  * bias and LayerNorm gradients are column sums of the f32 values; all
 //    gradients are summed in f32 and cast to T once at the end.
 //
-// Matrix products run inside the kernels.  K5's rows pass and the
-// weight-gradient pass (K5 and K7) use mma.sync on the tensor cores: bf16
-// m16n8k16 with f32 accumulators, float32 as 3xTF32 m16n8k8 (x = big +
-// small, three TF32 products, small terms first; helpers in mma.cuh, shared
-// with flash_attn.cu).  The streamed rows passes (K4, K6, K7, and K5 where
-// its weights do not fit) use nvcuda::wmma 16x16x16 in bf16 and FMA loops in
-// full f32 (the library is built with FMA contraction on).
+// Matrix products run inside the kernels.  The resident rows passes (K4,
+// K5, K7) and the weight-gradient pass (K5 and K7) use mma.sync on the tensor
+// cores: bf16 m16n8k16 with f32 accumulators, float32 as 3xTF32 m16n8k8 (x =
+// big + small, three TF32 products, small terms first; helpers in mma.cuh,
+// shared with flash_attn.cu).  The streamed rows passes (K6, and K4, K5, K7
+// where their weights do not fit) use nvcuda::wmma 16x16x16 in bf16 and FMA
+// loops in full f32 (the library is built with FMA contraction on).
 //
-// K5 (the prologue backward) takes one of two rows passes, chosen by dtype
-// and C in make_plan:
+// Which rows pass each kernel takes, chosen by kind, dtype and C in make_plan:
 //
-//  * resident (bf16 C <= 128, float32 C <= 64):
-//    prologue_bwd_resident_kernel<T>.  One persistent block of 8 warps an
-//    SM copies wag, wap, wbg, wbp into shared memory once
-//    (cp.async; 136 KB in bf16 at C = 128, padded a row) and every warp walks
-//    its own 16-row tiles, the next tile's x in flight through a two-stage
-//    cp.async ring of its own.  The LayerNorm runs on the fragments in
-//    registers, s becomes the A fragments of s @ W (W read with
-//    ldmatrix.trans; float32 by hand), the gate backward runs on the
-//    accumulator fragments, dpre is cast to T once and is both stored to the
-//    scratch and (as registers) the A fragment of dpre @ W^T, which reads the
-//    same copy of W (ldmatrix; float32 in the k order 0, 2, 4, 6, 1, 3, 5, 7).
-//    dsrc stays in registers (16 x C f32 a warp), the LayerNorm backward and
-//    dx come from it.  The cotangents are read from global memory straight
-//    into the fragments' registers (shared memory holds the weights).  Column
-//    sums: warp shuffles over a fragment's rows, a per-lane running sum per
-//    chunk, then warp by warp into the block's vacc.  Registers: 239 (bf16) /
-//    216 (float32) a thread, no spills, so 8 warps an SM is what fits; the
-//    weights, vectors and rings take 215,040 of the 232,448 bytes of shared
-//    memory a block may have (bf16, C = 128).
-//  * streamed (every other C): prologue_bwd_kernel, as K7's rows pass below.
+//   K4 prologue_fwd_resident_kernel   bf16 C <= 128, float32 C <= 64
+//   K5 prologue_bwd_resident_kernel   the same widths
+//   K7 epilogue_bwd_resident_kernel   the same widths
+//   K4, K5, K7 streamed (prologue_fwd_kernel, prologue_bwd_kernel,
+//      epilogue_bwd_kernel)           every other C (float32 C = 128, C = 256)
+//   K6 epilogue_fwd_kernel            every C (streamed)
 //
-// What bounds K5 on an H100 at N = 4*512*512, C = 128, bf16: 12 products of
-// 2 N C^2 (412 GFLOP, 0.42 ms at 989 TFLOP/s) against about 2.4 GB of traffic
-// (0.7 ms at 3.35 TB/s, the 1.07 GB dpre scratch written and read back
-// included).  The resident rows pass is bound by its instruction rate and
-// latencies at 8 warps an SM (ldmatrix + mma.sync, the gate's exp, column
-// shuffles; no single part dominates, PERF.md); the weight-gradient pass by
-// its per-step ring.
+// The resident passes.  One persistent block an SM (8 warps, K4 16; grid
+// min(tiles / warps, SMs)) copies its weights into shared memory once
+// (cp.async, padded a row: K4 and K5 wag, wap, wbg, wbp, 136 KB in bf16 at
+// C = 128; K7 wog, wo, 68 KB) and every warp walks its own 16-row tiles
+// through a cp.async ring of its own: K5 and K7 two stages, the next tile's
+// rows (K5 x, K7 x and p) in flight; K4 one stage of x, its 16 warps hiding
+// each other's waits.  The forward half is shared: the LayerNorm statistics and s = LN(x)
+// computed on the fragments in registers, s as the A fragments of s @ W (W
+// read with ldmatrix.trans; float32 by hand), all of a chunk's products at
+// once.  K4 applies the gates and the mask to the accumulator fragments and
+// stores a and b as pairs.  K5 and K7 run the gate backward on the
+// fragments, cast dpre (K7: dpre and du) to T once, store it to the scratch
+// and, as registers, use it as the A fragment of dpre @ W^T, which reads the
+// same copy of W (ldmatrix; float32 in the k order 0, 2, 4, 6, 1, 3, 5, 7).
+// dsrc stays in registers (16 x C f32 a warp) and the LayerNorm backward and
+// dx come from it.  K7 keeps one dsrc at a time: LN1's after the chunks, then
+// dt = du @ Wo^T from du read back from the scratch, and LN2's; K7 rebuilds
+// t = LN2(p)'s fragments from the ring a k step at a time (keeping s and t
+// both in registers spilled).  Cotangents are read from global memory
+// straight into the fragments' registers (shared memory holds the weights
+// and the rings).  Column sums: warp shuffles over a fragment's rows, a
+// per-lane running sum per chunk, then warp by warp into the block's vacc.
+// Registers a thread (bf16 / float32, ptxas, PERF.md): K5 236 / 218 and K7
+// 255 / 247, no spills, so 8 warps an SM; K4 110 / 124, 16 warps.  Each
+// takes 215,040 bytes of the 232,448 of shared memory a block may have
+// (bf16, C = 128).
 //
+// What bounds them on an H100 at N = 4*512*512, C = 128, bf16 (the bytes each
+// input read once and each output written once, at 3.35 TB/s; the products
+// at 989 TFLOP/s): K4 0.81 GB, 0.24 ms (137 GFLOP, 0.14 ms); K5 412 GFLOP,
+// 0.42 ms (about 2.4 GB with its dpre scratch, 0.7 ms); K7 1.34 GB, 0.40 ms
+// (206 GFLOP, 0.21 ms), with the 0.54 GB dpre/du scratch written and read
+// back on top.  The resident rows passes run far from these: each warp's
+// tile is a chain of dependent phases (ring wait, LayerNorm, products,
+// cotangent loads, gate, back-projection, LayerNorm backward) and 8 warps an
+// SM hide little of it; probes that drop one phase each (PERF.md) find no
+// single part dominant.  The weight-gradient pass is bound by its per-step
+// ring.
+
 // The streamed rows passes.  A block of 256 threads takes TR pair rows at a
 // time (64 in bf16, 32 in f32, fewer where C is wide) and keeps them in
 // shared memory as the LayerNorm output s (TR x C, T).  The (C, C) weights
@@ -566,42 +582,54 @@ __global__ void __launch_bounds__(kThreads) prologue_bwd_kernel(RowArgs<T> a, Pl
 }
 
 // ---------------------------------------------------------------------------
-// K5, resident-weight rows pass (bf16 C <= 128, float32 C <= 64)
+// resident-weight rows passes of K4, K5 and K7 (bf16 C <= 128, float32 C <= 64)
 // ---------------------------------------------------------------------------
 
-constexpr int kResWarps = 8;  // warps a block; each walks 16-row tiles alone
+constexpr int kResWarps = 8;  // warps a block (K5, K7); each walks 16-row tiles alone
+// K4 needs about half the registers: 16 warps a block, each with a ring of
+// one stage (the same shared memory as 8 warps of two stages)
+constexpr int kK4Warps = 16;
 
-// widths whose four weights fit in shared memory, with the rows' rings
+__host__ __device__ inline int res_warps(int kind) { return kind == kProFwd ? kK4Warps : kResWarps; }
+
+// widths whose weights fit in shared memory, with the rows' rings
 template <typename T> struct ResMax;
 template <> struct ResMax<bf16> { static constexpr int C = 128; };
 template <> struct ResMax<float> { static constexpr int C = 64; };
 
-// Row strides, in elements, of the weights and of the x rings.  Both keep
+// Row strides, in elements, of the weights and of the row rings.  Both keep
 // rows 16-byte aligned; the weights' pad makes ldmatrix (bf16) and the
 // hand-read tf32 fragments (float32) hit 32 distinct banks, the rings' pad
-// the A-fragment reads of x.
+// the A-fragment reads of the rows.
 __host__ __device__ inline int res_ldw(int C) { return C + 8; }
 template <typename T> __host__ __device__ inline int res_ldx(int C) {
   return sizeof(T) == 2 ? C + 8 : C + 4;
 }
 
-// Shared memory of the resident pass: the four weights (C x ldw each,
-// row-major (in, out)), the six vectors as f32, the block's column sums, and
-// per warp a two-stage ring of 16 x rows.
+// weights resident, and row sources ringed, in the resident pass of `kind`:
+// the prologue's four weights and its x; the epilogue's two and its x and p
+__host__ __device__ inline int res_nw(int kind) { return kind >= kEpiFwd ? 2 : 4; }
+__host__ __device__ inline int res_nsrc(int kind) { return kind >= kEpiFwd ? 2 : 1; }
+
+// Shared memory of a resident pass: nw weights (C x ldw each, row-major
+// (in, out)), the six vectors as f32, the block's column sums of their
+// gradients, and 2 kResWarps ring stages of 16 rows of each of nsrc row
+// sources: two a warp in K5 and K7 (the warp's stage s holds source j at (s
+// nsrc + j) 16 ldx), one a warp in K4.
 template <typename T>
 struct ResSmem {
   T* w;
-  float* vec;   // lns, lnb, bag, bap, bbg, bbp
-  float* vacc;  // the same six gradients' column sums
-  T* xs;        // (kResWarps, 2, 16, ldx)
+  float* vec;   // RowArgs::vec as f32
+  float* vacc;  // the six gradients' column sums (backward)
+  T* xs;        // (kResWarps, 2, nsrc, 16, ldx)
 
-  __host__ __device__ static size_t carve(uintptr_t base, int C, ResSmem* out) {
+  __host__ __device__ static size_t carve(uintptr_t base, int C, int nw, int nsrc, ResSmem* out) {
     Carver cv{base, 0};
     ResSmem r{};
-    r.w = (T*)cv.take(sizeof(T) * 4 * C * res_ldw(C));
+    r.w = (T*)cv.take(sizeof(T) * nw * C * res_ldw(C));
     r.vec = (float*)cv.take(sizeof(float) * 6 * C);
     r.vacc = (float*)cv.take(sizeof(float) * 6 * C);
-    r.xs = (T*)cv.take(sizeof(T) * kResWarps * 2 * 16 * res_ldx<T>(C));
+    r.xs = (T*)cv.take(sizeof(T) * kResWarps * 2 * nsrc * 16 * res_ldx<T>(C));
     if (out) *out = r;
     return cv.off;
   }
@@ -618,13 +646,13 @@ __device__ __forceinline__ float column_sum(float v) {  // over the 8 row groups
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-// The weights into shared memory (cp.async, one group, not waited for) and
-// the six vectors as f32; the column sums zeroed.
+// The nw weights into shared memory (cp.async, one group, not waited for)
+// and the six vectors as f32; the column sums zeroed.
 template <typename T>
-__device__ void res_load_weights(const ResSmem<T>& sm, const RowArgs<T>& a, int C) {
-  constexpr int E = 16 / (int)sizeof(T), NT = kResWarps * 32;
-  const int ch = C / E, ldw = res_ldw(C);  // ch: 16-byte pieces a row
-  for (int e = threadIdx.x; e < 4 * C * ch; e += NT) {
+__device__ void res_load_weights(const ResSmem<T>& sm, const RowArgs<T>& a, int C, int nw) {
+  constexpr int E = 16 / (int)sizeof(T);
+  const int ch = C / E, ldw = res_ldw(C), NT = blockDim.x;  // ch: 16-byte pieces a row
+  for (int e = threadIdx.x; e < nw * C * ch; e += NT) {
     const int k = e / (C * ch), r = (e / ch) % C, c = (e % ch) * E;
     cp_async16(sm.w + ((size_t)k * C + r) * ldw + c, a.mat[k] + (size_t)r * C + c);
   }
@@ -669,16 +697,227 @@ __device__ void res_store_partial(const ResSmem<T>& sm, const float (&vs)[6][CW 
   for (int i = threadIdx.x; i < 6 * C; i += kResWarps * 32) part[(size_t)blockIdx.x * 6 * C + i] = sm.vacc[i];
 }
 
+// Rows [r0, r0 + 16) of x and, when y is given, of y into a warp's ring
+// stage (y's rows 16 ldx after x's).
+template <typename T>
+__device__ __forceinline__ void res_load_stage(T* stage, const T* __restrict__ x,
+                                               const T* __restrict__ y, int64_t r0, int N, int C,
+                                               int ldx) {
+  res_load_rows(stage, x, r0, N, C, ldx);
+  if (y) res_load_rows(stage + 16 * ldx, y, r0, N, C, ldx);
+}
+
+// The forward half of a resident pass, shared by K4, K5 and K7.
+//
+// LayerNorm statistics of rows g, g + 8 of a 16-row tile in a ring stage:
+// f32, fast variance; each row's mean and 1/sigma.
+__device__ __forceinline__ void res_ln_stats(const bf16* xt, int ldx, int C, float (&mu)[2],
+                                             float (&inv)[2]) {
+  constexpr int KMAX = ResMax<bf16>::C / 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 16;
+  float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < nk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v0, v1;
+          load_pair(xt + (g + 8 * h) * ldx + 16 * kk + 8 * j + 2 * t, v0, v1);
+          sum[h] += v0 + v1;
+          sq[h] += v0 * v0 + v1 * v1;
+        }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] = quad_sum(sum[h]) / C;
+    const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
+    inv[h] = rsqrtf(var + kEps);
+  }
+}
+
+__device__ __forceinline__ void res_ln_stats(const float* xt, int ldx, int C, float (&mu)[2],
+                                             float (&inv)[2]) {
+  constexpr int KMAX = ResMax<float>::C / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 8;
+  float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < nk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = xt[(g + 8 * h) * ldx + 8 * k + t], v1 = xt[(g + 8 * h) * ldx + 8 * k + t + 4];
+        sum[h] += v0 + v1;
+        sq[h] += v0 * v0 + v1 * v1;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] = quad_sum(sum[h]) / C;
+    const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
+    inv[h] = rsqrtf(var + kEps);
+  }
+}
+
+// k16 step kk of the LayerNorm output cast to bf16, as the A fragment of s @
+// W: register 2j + h holds columns 16 kk + 8 j + 2t, + 1 of row g + 8 h.
+__device__ __forceinline__ void res_ln_frag(const bf16* xt, int ldx, const float* lns,
+                                            const float* lnb, const float (&mu)[2],
+                                            const float (&inv)[2], int kk, uint32_t (&sa)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * kk + 8 * j + 2 * t;
+      float v0, v1;
+      load_pair(xt + (g + 8 * h) * ldx + c, v0, v1);
+      sa[2 * j + h] = pack_bf16((v0 - mu[h]) * inv[h] * lns[c] + lnb[c],
+                                (v1 - mu[h]) * inv[h] * lns[c + 1] + lnb[c + 1]);
+    }
+}
+
+// The same in float32 for k8 step k, split into tf32 (big, small): a0 (g,
+// t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+__device__ __forceinline__ void res_ln_frag(const float* xt, int ldx, const float* lns,
+                                            const float* lnb, const float (&mu)[2],
+                                            const float (&inv)[2], int k, uint32_t (&sb)[4],
+                                            uint32_t (&ss)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int h = i & 1, c = 8 * k + t + 4 * (i >> 1);
+    split_tf32((xt[(g + 8 * h) * ldx + c] - mu[h]) * inv[h] * lns[c] + lnb[c], sb[i], ss[i]);
+  }
+}
+
+// The tile's statistics and every step's A fragments (bf16), kept in registers.
+template <int KMAX>
+__device__ __forceinline__ void res_ln_frags(const bf16* xt, int ldx, const float* lns,
+                                             const float* lnb, int C, float (&mu)[2],
+                                             float (&inv)[2], uint32_t (&sa)[KMAX][4]) {
+  res_ln_stats(xt, ldx, C, mu, inv);
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk)
+    if (kk < C / 16) res_ln_frag(xt, ldx, lns, lnb, mu, inv, kk, sa[kk]);
+}
+
+// The same in float32 (split tf32 fragments).
+template <int KMAX>
+__device__ __forceinline__ void res_ln_frags(const float* xt, int ldx, const float* lns,
+                                             const float* lnb, int C, float (&mu)[2],
+                                             float (&inv)[2], uint32_t (&sb)[KMAX][4],
+                                             uint32_t (&ss)[KMAX][4]) {
+  res_ln_stats(xt, ldx, C, mu, inv);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    if (k < C / 8) res_ln_frag(xt, ldx, lns, lnb, mu, inv, k, sb[k], ss[k]);
+}
+
+// pre[w] += s @ W_w[:, n0:n0 + 16] (n8 tiles j = 0, 1) for the NW weights at
+// w0 (W_w at w0 + w C ldw), s's A fragments sa, all NW at once: 2 NW
+// independent accumulators.  W read with ldmatrix.trans.
+template <int NW, int KMAX>
+__device__ __forceinline__ void res_products(const bf16* w0, int ldw, int C,
+                                             const uint32_t (&sa)[KMAX][4], int n0,
+                                             float (&pre)[NW][2][4]) {
+  const int lane = threadIdx.x & 31, nk = C / 16;
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < nk) {
+      const int off = (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldw + n0 + (lane >> 4) * 8;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        uint32_t bw[4];
+        ldsm_x4_trans(bw, w0 + (size_t)w * C * ldw + off);
+        mma_bf16(pre[w][0], sa[kk], bw[0], bw[1]);
+        mma_bf16(pre[w][1], sa[kk], bw[2], bw[3]);
+      }
+    }
+  }
+}
+
+// The same in float32 for one n8 tile (columns n0..n0 + 7), 3xTF32; W's B
+// fragments read by hand: b0 = W[8k + t][n0 + g], b1 = W[8k + t + 4][n0 + g].
+template <int NW, int KMAX>
+__device__ __forceinline__ void res_products(const float* w0, int ldw, int C,
+                                             const uint32_t (&sb)[KMAX][4],
+                                             const uint32_t (&ss)[KMAX][4], int n0,
+                                             float (&pre)[NW][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 8;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < nk) {
+      const int off = (8 * k + t) * ldw + n0 + g;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const float* W = w0 + (size_t)w * C * ldw;
+        uint32_t b[4];
+        split_tf32(W[off], b[0], b[2]);
+        split_tf32(W[off + 4 * ldw], b[1], b[3]);
+        mma_3xtf32(pre[w], sb[k], ss[k], b);
+      }
+    }
+  }
+}
+
+// ds += d @ W[:, n0:n0 + 16]^T: d the cast cotangent of one 16-column chunk
+// as an A fragment (its C fragments packed), W read with ldmatrix; ds holds
+// 16 x C in n8 tiles.
+template <int NMAX>
+__device__ __forceinline__ void res_back_project(float (&ds)[NMAX][4], const uint32_t (&d)[4],
+                                                 const bf16* w, int ldw, int C, int n0) {
+  const int lane = threadIdx.x & 31, nk = C / 16;
+#pragma unroll
+  for (int np = 0; np < NMAX / 2; ++np) {
+    if (np < nk) {
+      const int off = (16 * np + (lane >> 4) * 8 + (lane & 7)) * ldw + n0 + ((lane >> 3) & 1) * 8;
+      uint32_t b[4];
+      ldsm_x4(b, w + off);
+      mma_bf16(ds[2 * np], d, b[0], b[1]);
+      mma_bf16(ds[2 * np + 1], d, b[2], b[3]);
+    }
+  }
+}
+
+// The same in float32 for one 8-column chunk: d's C fragment is the A
+// fragment of the product when its k index runs (0, 2, 4, 6, 1, 3, 5, 7) on
+// d and on W^T alike (a0 = c0, a1 = c2, a2 = c1, a3 = c3); b0 = W[8np +
+// g][n0 + 2t], b1 = W[8np + g][n0 + 2t + 1].
+template <int NMAX>
+__device__ __forceinline__ void res_back_project(float (&ds)[NMAX][4], const float (&d)[4],
+                                                 const float* w, int ldw, int C, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 8;
+  uint32_t db[4], dsm[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(d[(i >> 1) | ((i & 1) << 1)], db[i], dsm[i]);
+#pragma unroll
+  for (int np = 0; np < NMAX; ++np) {
+    if (np < nk) {
+      float w0, w1;
+      uint32_t b[4];
+      load_pair(w + (8 * np + g) * ldw + n0 + 2 * t, w0, w1);
+      split_tf32(w0, b[0], b[2]);
+      split_tf32(w1, b[1], b[3]);
+      mma_3xtf32(ds[np], db, dsm, b);
+    }
+  }
+}
+
 // LayerNorm backward of rows g, g + 8 of a tile from dsrc in C fragments (n8
 // tile n of columns 8n + 2t, + 1): dx = inv (dxh - mean(dxh) - xhat
 // mean(dxh xhat)), dxh = dsrc lns, stored for rows below N; the column sums of
-// dsrc * xhat and dsrc go to slot (n % (CW / 8)) * 2 + e of the lane whose g
-// is the chunk n / (CW / 8).
+// dsrc * xhat and dsrc go to slot (n % (CW / 8)) * 2 + e of vsx and vsb in
+// the lane whose g is the chunk n / (CW / 8).
 template <int CW, int NMAX, typename T>
 __device__ __forceinline__ void res_ln_backward(const float (&ds)[NMAX][4], const T* xt, int ldx,
                                                 const float* lns, const float (&mu)[2],
                                                 const float (&inv)[2], int64_t r0, int N, int C,
-                                                T* __restrict__ dx, float (&vs)[6][CW / 4]) {
+                                                T* __restrict__ dx, float (&vsx)[CW / 4],
+                                                float (&vsb)[CW / 4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int nn = C / 8;
   float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f};
@@ -728,12 +967,64 @@ __device__ __forceinline__ void res_ln_backward(const float (&ds)[NMAX][4], cons
         const float sx = column_sum(ds[n][e] * xh[e] + ds[n][2 + e] * xh[2 + e]);
         const float sb = column_sum(ds[n][e] + ds[n][2 + e]);
         if (g == n / PER) {
-          vs[0][2 * (n % PER) + e] += sx;
-          vs[1][2 * (n % PER) + e] += sb;
+          vsx[2 * (n % PER) + e] += sx;
+          vsb[2 * (n % PER) + e] += sb;
         }
       }
     }
   }
+}
+
+// A chunk of rows [r0, r0 + 16) of the cast cotangent d (this lane's own
+// stores to the scratch, read back from global memory) as the A fragment of
+// its back-projection: bf16 16 columns as packed pairs, float32 8 columns
+// as its C fragment.  Rows past N read 0.
+__device__ __forceinline__ void res_load_frag(const bf16* d, int64_t r0, int N, int C, int n0,
+                                              uint32_t (&f)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int64_t row = r0 + g + 8 * rr;
+      f[2 * j + rr] = row < N ? *reinterpret_cast<const uint32_t*>(d + row * C + n0 + 8 * j + 2 * t) : 0u;
+    }
+}
+
+__device__ __forceinline__ void res_load_frag(const float* d, int64_t r0, int N, int C, int n0,
+                                              float (&f)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t row = r0 + g + 8 * rr;
+    f[2 * rr] = f[2 * rr + 1] = 0.0f;
+    if (row < N) load_pair(d + row * C + n0 + 2 * t, f[2 * rr], f[2 * rr + 1]);
+  }
+}
+
+template <typename T> struct ResFrag { using type = float; };  // an A-fragment register
+template <> struct ResFrag<bf16> { using type = uint32_t; };
+
+// The backward of one row source of a tile: dsrc = d @ W^T over every chunk
+// of the cast cotangent d (read back with res_load_frag), then the LayerNorm
+// backward (res_ln_backward) into dx and the column sums vsx, vsb.
+template <int V, typename T>
+__device__ __forceinline__ void res_backward_rows(const T* d, const T* w, int ldw, const T* xt,
+                                                  int ldx, const float* lns, const float (&mu)[2],
+                                                  const float (&inv)[2], int64_t r0, int N, int C,
+                                                  T* __restrict__ dx, float (&vsx)[V],
+                                                  float (&vsb)[V]) {
+  constexpr int CW = 4 * V, NCH = ResMax<T>::C / CW;  // chunk width, chunks at most
+  const int nch = C / CW;
+  typename ResFrag<T>::type f[NCH][4];
+#pragma unroll
+  for (int nc = 0; nc < NCH; ++nc)
+    if (nc < nch) res_load_frag(d, r0, N, C, CW * nc, f[nc]);
+  float ds[ResMax<T>::C / 8][4] = {};  // dsrc, 16 x C, as C fragments
+#pragma unroll
+  for (int nc = 0; nc < NCH; ++nc)
+    if (nc < nch) res_back_project(ds, f[nc], w, ldw, C, CW * nc);
+  res_ln_backward<CW>(ds, xt, ldx, lns, mu, inv, r0, N, C, dx, vsx, vsb);
 }
 
 // K5 rows pass with the four weights resident in shared memory.  Warp w of
@@ -754,7 +1045,7 @@ __global__ void __launch_bounds__(kResWarps * 32, 1)
 prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
-  ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, &sm);
+  ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kProBwd), res_nsrc(kProBwd), &sm);
   constexpr int KMAX = ResMax<bf16>::C / 16;  // k16 steps, and 16-column chunks, at most
   const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -763,7 +1054,7 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
   const int64_t stride = (int64_t)gridDim.x * kResWarps;
   bf16* const xs = sm.xs + (size_t)warp * 2 * 16 * ldx;
 
-  res_load_weights(sm, a, C);
+  res_load_weights(sm, a, C, res_nw(kProBwd));
   if (first < ntiles) res_load_rows(xs, a.x, first * 16, p.N, C, ldx);
   cp_async_wait_all();
   __syncthreads();
@@ -784,48 +1075,13 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
     const bf16* xt = xs + st * 16 * ldx;
     const int64_t r0 = tile * 16;
 
-    // LayerNorm of rows g, g + 8 (f32 statistics, fast variance), s as A fragments
     float mu[2], inv[2], mrow[2];
-    {
-      float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk) {
-        if (kk < nk) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              float v0, v1;
-              load_pair(xt + (g + 8 * h) * ldx + 16 * kk + 8 * j + 2 * t, v0, v1);
-              sum[h] += v0 + v1;
-              sq[h] += v0 * v0 + v1 * v1;
-            }
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mu[h] = quad_sum(sum[h]) / C;
-        const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
-        inv[h] = rsqrtf(var + kEps);
-        const int64_t row = r0 + g + 8 * h;
-        mrow[h] = row < p.N ? tof(a.aux[row]) : 0.0f;
-      }
-    }
     uint32_t sa[KMAX][4];
+    res_ln_frags(xt, ldx, lns, lnb, C, mu, inv, sa);
 #pragma unroll
-    for (int kk = 0; kk < KMAX; ++kk) {
-      if (kk < nk) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = 16 * kk + 8 * j + 2 * t;
-            float v0, v1;
-            load_pair(xt + (g + 8 * h) * ldx + c, v0, v1);
-            sa[kk][2 * j + h] = pack_bf16((v0 - mu[h]) * inv[h] * lns[c] + lnb[c],
-                                          (v1 - mu[h]) * inv[h] * lns[c + 1] + lnb[c + 1]);
-          }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + g + 8 * h;
+      mrow[h] = row < p.N ? tof(a.aux[row]) : 0.0f;
     }
 
     float ds[2 * KMAX][4];  // dsrc, 16 x C, as C fragments
@@ -838,19 +1094,7 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
       // once: eight independent accumulators (one half after the other ran
       // slower, PERF.md)
       float fwd[4][2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < KMAX; ++kk) {
-        if (kk < nk) {
-          const int off = (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldw + n0 + (lane >> 4) * 8;
-#pragma unroll
-          for (int w4 = 0; w4 < 4; ++w4) {
-            uint32_t bw[4];
-            ldsm_x4_trans(bw, sm.w + (size_t)w4 * C * ldw + off);
-            mma_bf16(fwd[w4][0], sa[kk], bw[0], bw[1]);
-            mma_bf16(fwd[w4][1], sa[kk], bw[2], bw[3]);
-          }
-        }
-      }
+      res_products<4>(sm.w, ldw, C, sa, n0, fwd);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // (dag, dap), then (dbg, dbp)
         const bf16* wg = sm.w + (size_t)(2 * h) * C * ldw;
@@ -928,7 +1172,7 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
         }
       }
     }
-    res_ln_backward<16>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs);
+    res_ln_backward<16>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs[0], vs[1]);
   }
   res_store_partial<16>(sm, vs, C, a.vec_part);
 }
@@ -945,7 +1189,7 @@ __global__ void __launch_bounds__(kResWarps * 32, 1)
 prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
-  ResSmem<float>::carve((uintptr_t)smem_raw, p.C, &sm);
+  ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kProBwd), res_nsrc(kProBwd), &sm);
   constexpr int KMAX = ResMax<float>::C / 8;  // k8 steps, and 8-column chunks, at most
   const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -954,7 +1198,7 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   const int64_t stride = (int64_t)gridDim.x * kResWarps;
   float* const xs = sm.xs + (size_t)warp * 2 * 16 * ldx;
 
-  res_load_weights(sm, a, C);
+  res_load_weights(sm, a, C, res_nw(kProBwd));
   if (first < ntiles) res_load_rows(xs, a.x, first * 16, p.N, C, ldx);
   cp_async_wait_all();
   __syncthreads();
@@ -973,40 +1217,13 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
     const float* xt = xs + st * 16 * ldx;
     const int64_t r0 = tile * 16;
 
-    // LayerNorm of rows g, g + 8; s split into tf32 A fragments (big, small)
     float mu[2], inv[2], mrow[2];
-    {
-      float sum[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < nk) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v0 = xt[(g + 8 * h) * ldx + 8 * k + t], v1 = xt[(g + 8 * h) * ldx + 8 * k + t + 4];
-            sum[h] += v0 + v1;
-            sq[h] += v0 * v0 + v1 * v1;
-          }
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mu[h] = quad_sum(sum[h]) / C;
-        const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
-        inv[h] = rsqrtf(var + kEps);
-        const int64_t row = r0 + g + 8 * h;
-        mrow[h] = row < p.N ? a.aux[row] : 0.0f;
-      }
-    }
     uint32_t sb[KMAX][4], ss[KMAX][4];
+    res_ln_frags(xt, ldx, lns, lnb, C, mu, inv, sb, ss);
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < nk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {  // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-          const int h = i & 1, c = 8 * k + t + 4 * (i >> 1);
-          split_tf32((xt[(g + 8 * h) * ldx + c] - mu[h]) * inv[h] * lns[c] + lnb[c], sb[k][i], ss[k][i]);
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + g + 8 * h;
+      mrow[h] = row < p.N ? a.aux[row] : 0.0f;
     }
 
     float ds[KMAX][4];  // dsrc, 16 x C, as C fragments
@@ -1026,20 +1243,10 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
           ct[2 * rr] = ct[2 * rr + 1] = 0.0f;
           if (row < p.N) load_pair(a.ct[h] + row * C + n0 + 2 * t, ct[2 * rr], ct[2 * rr + 1]);
         }
-        float fg[4] = {}, fp[4] = {};
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          if (k < nk) {  // b0 = W[8k + t][n0 + g], b1 = W[8k + t + 4][n0 + g]
-            const int off = (8 * k + t) * ldw + n0 + g;
-            uint32_t bg[4], bp[4];
-            split_tf32(wg[off], bg[0], bg[2]);
-            split_tf32(wg[off + 4 * ldw], bg[1], bg[3]);
-            split_tf32(wp[off], bp[0], bp[2]);
-            split_tf32(wp[off + 4 * ldw], bp[1], bp[3]);
-            mma_3xtf32(fg, sb[k], ss[k], bg);
-            mma_3xtf32(fp, sb[k], ss[k], bp);
-          }
-        }
+        float pre[2][4] = {};
+        res_products<2>(wg, ldw, C, sb, ss, n0, pre);
+        const float (&fg)[4] = pre[0];
+        const float (&fp)[4] = pre[1];
         const float* bgv = sm.vec + (2 + 2 * h) * C + n0;
         const float* bpv = sm.vec + (3 + 2 * h) * C + n0;
         float dg[4], dp[4];
@@ -1098,7 +1305,363 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
         }
       }
     }
-    res_ln_backward<8>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs);
+    res_ln_backward<8>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs[0], vs[1]);
+  }
+  res_store_partial<8>(sm, vs, C, a.vec_part);
+}
+
+// K4 with the four weights resident: K5's forward half (the LayerNorm on the
+// fragments, the four pre-activations of a chunk at once), then a =
+// sigmoid(pre_ag + bag) (pre_ap + bap) m and b likewise on the C fragments,
+// stored as pairs.  No dsrc and no column sums, so about half K5's
+// registers: 16 warps a block, each loading its tile's rows into a
+// one-stage ring and waiting for them (more warps in flight beat 8 warps
+// with a two-stage ring, PERF.md).
+template <typename T>
+__global__ void prologue_fwd_resident_kernel(RowArgs<T> a, Plan p);
+
+template <>
+__global__ void __launch_bounds__(kK4Warps * 32, 1)
+prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ResSmem<bf16> sm;
+  ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kProFwd), res_nsrc(kProFwd), &sm);
+  constexpr int KMAX = ResMax<bf16>::C / 16;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t ntiles = ((int64_t)p.N + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.x * kK4Warps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kK4Warps;
+  bf16* const xt = sm.xs + (size_t)warp * 16 * ldx;
+
+  res_load_weights(sm, a, C, res_nw(kProFwd));
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int64_t tile = first; tile < ntiles; tile += stride) {
+    __syncwarp();  // the last tile's readers are done with the stage
+    res_load_rows(xt, a.x, tile * 16, p.N, C, ldx);
+    cp_async_wait_all();
+    __syncwarp();
+    const int64_t r0 = tile * 16;
+
+    float mu[2], inv[2], mrow[2];
+    uint32_t sa[KMAX][4];
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu, inv, sa);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + g + 8 * h;
+      mrow[h] = row < p.N ? tof(a.aux[row]) : 0.0f;
+    }
+    for (int nc = 0; nc < nk; ++nc) {
+      const int n0 = 16 * nc;
+      float pre[4][2][4] = {};
+      res_products<4>(sm.w, ldw, C, sa, n0, pre);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // a, then b
+        const float* bg = sm.vec + (2 + 2 * h) * C + n0;
+        const float* bp = sm.vec + (3 + 2 * h) * C + n0;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int64_t row = r0 + g + 8 * rr;
+            if (row < p.N) {
+              const int c = 8 * j + 2 * t;
+              const float v0 = sigmoidf(pre[2 * h][j][2 * rr] + bg[c]) * (pre[2 * h + 1][j][2 * rr] + bp[c]);
+              const float v1 = sigmoidf(pre[2 * h][j][2 * rr + 1] + bg[c + 1]) *
+                               (pre[2 * h + 1][j][2 * rr + 1] + bp[c + 1]);
+              store_pair(a.out[h] + row * C + n0 + c, v0 * mrow[rr], v1 * mrow[rr]);
+            }
+          }
+      }
+    }
+  }
+}
+
+// The float32 K4, on 3xTF32 over 8-column chunks, a's two products and then
+// b's (as K5's float32 pass).
+template <>
+__global__ void __launch_bounds__(kK4Warps * 32, 1)
+prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ResSmem<float> sm;
+  ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kProFwd), res_nsrc(kProFwd), &sm);
+  constexpr int KMAX = ResMax<float>::C / 8;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t ntiles = ((int64_t)p.N + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.x * kK4Warps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kK4Warps;
+  float* const xt = sm.xs + (size_t)warp * 16 * ldx;
+
+  res_load_weights(sm, a, C, res_nw(kProFwd));
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int64_t tile = first; tile < ntiles; tile += stride) {
+    __syncwarp();  // the last tile's readers are done with the stage
+    res_load_rows(xt, a.x, tile * 16, p.N, C, ldx);
+    cp_async_wait_all();
+    __syncwarp();
+    const int64_t r0 = tile * 16;
+
+    float mu[2], inv[2], mrow[2];
+    uint32_t sb[KMAX][4], ss[KMAX][4];
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu, inv, sb, ss);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = r0 + g + 8 * h;
+      mrow[h] = row < p.N ? a.aux[row] : 0.0f;
+    }
+    for (int nc = 0; nc < nk; ++nc) {
+      const int n0 = 8 * nc;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float pre[2][4] = {};
+        res_products<2>(sm.w + (size_t)(2 * h) * C * ldw, ldw, C, sb, ss, n0, pre);
+        const float* bg = sm.vec + (2 + 2 * h) * C + n0;
+        const float* bp = sm.vec + (3 + 2 * h) * C + n0;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = r0 + g + 8 * rr;
+          if (row < p.N) {
+            const int c = 2 * t;
+            const float v0 = sigmoidf(pre[0][2 * rr] + bg[c]) * (pre[1][2 * rr] + bp[c]);
+            const float v1 = sigmoidf(pre[0][2 * rr + 1] + bg[c + 1]) * (pre[1][2 * rr + 1] + bp[c + 1]);
+            store_pair(a.out[h] + row * C + n0 + c, v0 * mrow[rr], v1 * mrow[rr]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// K7 rows pass with Wog and Wo resident.  Each warp's ring stage holds the
+// tile's rows of x and of p; s = LN1(x) stays in registers as A fragments,
+// t = LN2(p)'s are rebuilt from the ring a k step at a time (keeping both
+// spilled).  Per chunk of columns: g's and u's pre-activations at once, the
+// gate backward on the C fragments (du = dout g, dpre = dout u g (1 - g);
+// dout read from global memory straight into the fragments' registers),
+// dpre and du cast to T once and stored to the scratch, their column sums
+// kept per lane, and dsrc += dpre @ Wog^T as in K5 (dpre's C fragments are
+// its A fragment).  One dsrc accumulator at a time: after the chunks LN1's
+// backward (dx), then dt = du @ Wo^T, du read back from the scratch
+// (res_backward_rows; keeping it in registers spilled), and LN2's backward
+// (dp).
+template <typename T>
+__global__ void epilogue_bwd_resident_kernel(RowArgs<T> a, Plan p);
+
+template <>
+__global__ void __launch_bounds__(kResWarps * 32, 1)
+epilogue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ResSmem<bf16> sm;
+  ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiBwd), res_nsrc(kEpiBwd), &sm);
+  constexpr int KMAX = ResMax<bf16>::C / 16;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t ntiles = ((int64_t)p.N + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kResWarps;
+  bf16* const xs = sm.xs + (size_t)warp * 2 * 2 * 16 * ldx;  // stage s: x at 32 s ldx, p 16 ldx on
+
+  res_load_weights(sm, a, C, res_nw(kEpiBwd));
+  if (first < ntiles) res_load_stage(xs, a.x, a.aux, first * 16, p.N, C, ldx);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const bf16* wog = sm.w;
+  const bf16* wo = sm.w + (size_t)C * ldw;
+  const float* bog = sm.vec + 2 * C;
+  const float* bo = sm.vec + 5 * C;
+  bf16* const dpo = a.dpre;
+  bf16* const duo = a.dpre + (size_t)p.N * C;
+  // column sums this lane keeps: chunk g, columns 8j + 2t + e at slot 2j + e,
+  // of dsrc * xhat1, dsrc, dpre, dt * xhat2, dt, du
+  float vs[6][4];
+#pragma unroll
+  for (int v = 0; v < 6; ++v) vs[v][0] = vs[v][1] = vs[v][2] = vs[v][3] = 0.0f;
+
+  int st = 0;
+  for (int64_t tile = first; tile < ntiles; tile += stride, st ^= 1) {
+    cp_async_wait_all();
+    __syncwarp();
+    if (tile + stride < ntiles) res_load_stage(xs + (st ^ 1) * 32 * ldx, a.x, a.aux, (tile + stride) * 16, p.N, C, ldx);
+    const bf16* xt = xs + st * 32 * ldx;
+    const bf16* pt = xt + 16 * ldx;
+    const int64_t r0 = tile * 16;
+
+    float mu[2][2], inv[2][2];  // LN1's, LN2's
+    uint32_t sa[KMAX][4];       // s, kept; t is rebuilt a step at a time from p's rows
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu[0], inv[0], sa);
+    res_ln_stats(pt, ldx, C, mu[1], inv[1]);
+
+    float ds[2 * KMAX][4] = {};  // dsrc = dpre @ Wog^T, chunk by chunk
+    for (int nc = 0; nc < nk; ++nc) {
+      const int n0 = 16 * nc;
+      float pre[2][2][4] = {};  // s @ Wog, t @ Wo
+#pragma unroll
+      for (int kk = 0; kk < KMAX; ++kk) {
+        if (kk < nk) {
+          uint32_t ta[4], bg[4], bu[4];
+          res_ln_frag(pt, ldx, sm.vec + 3 * C, sm.vec + 4 * C, mu[1], inv[1], kk, ta);
+          const int off = (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldw + n0 + (lane >> 4) * 8;
+          ldsm_x4_trans(bg, wog + off);
+          ldsm_x4_trans(bu, wo + off);
+          mma_bf16(pre[0][0], sa[kk], bg[0], bg[1]);
+          mma_bf16(pre[0][1], sa[kk], bg[2], bg[3]);
+          mma_bf16(pre[1][0], ta, bu[0], bu[1]);
+          mma_bf16(pre[1][1], ta, bu[2], bu[3]);
+        }
+      }
+      float dpre[2][4], du[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = r0 + g + 8 * rr;
+          float d[2] = {0.0f, 0.0f};  // rows past N: dout 0
+          if (row < p.N) load_pair(a.ct[0] + row * C + n0 + 8 * j + 2 * t, d[0], d[1]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = n0 + 8 * j + 2 * t + e;
+            const float gg = sigmoidf(pre[0][j][2 * rr + e] + bog[c]);
+            const float u = pre[1][j][2 * rr + e] + bo[c];
+            du[j][2 * rr + e] = d[e] * gg;
+            dpre[j][2 * rr + e] = d[e] * u * gg * (1.0f - gg);
+          }
+        }
+      // dpre and du cast to bf16 once: dpre's the A fragment of its
+      // back-projection, both stored to the scratch
+      const uint32_t ap[4] = {pack_bf16(dpre[0][0], dpre[0][1]), pack_bf16(dpre[0][2], dpre[0][3]),
+                              pack_bf16(dpre[1][0], dpre[1][1]), pack_bf16(dpre[1][2], dpre[1][3])};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = r0 + g + 8 * rr;
+          if (row < p.N) {
+            const int64_t o = row * C + n0 + 8 * j + 2 * t;
+            *reinterpret_cast<uint32_t*>(dpo + o) = ap[2 * j + rr];
+            store_pair(duo + o, du[j][2 * rr], du[j][2 * rr + 1]);
+          }
+        }
+      res_back_project(ds, ap, wog, ldw, C, n0);
+      // bias gradients: column sums of the f32 values (rows past N are 0)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sp = column_sum(dpre[j][e] + dpre[j][2 + e]);
+          const float su = column_sum(du[j][e] + du[j][2 + e]);
+          if (g == nc) {
+            vs[2][2 * j + e] += sp;
+            vs[5][2 * j + e] += su;
+          }
+        }
+    }
+    res_ln_backward<16>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, a.out[0], vs[0], vs[1]);
+    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, a.out[1], vs[3], vs[4]);
+  }
+  res_store_partial<16>(sm, vs, C, a.vec_part);
+}
+
+// The float32 K7 rows pass, the same walk on 3xTF32 over 8-column chunks;
+// s and t as split tf32 A fragments (big, small), t rebuilt a step at a time.
+template <>
+__global__ void __launch_bounds__(kResWarps * 32, 1)
+epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ResSmem<float> sm;
+  ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiBwd), res_nsrc(kEpiBwd), &sm);
+  constexpr int KMAX = ResMax<float>::C / 8;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t ntiles = ((int64_t)p.N + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kResWarps;
+  float* const xs = sm.xs + (size_t)warp * 2 * 2 * 16 * ldx;
+
+  res_load_weights(sm, a, C, res_nw(kEpiBwd));
+  if (first < ntiles) res_load_stage(xs, a.x, a.aux, first * 16, p.N, C, ldx);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float* wog = sm.w;
+  const float* wo = sm.w + (size_t)C * ldw;
+  const float* bog = sm.vec + 2 * C;
+  const float* bo = sm.vec + 5 * C;
+  float* const dpo = a.dpre;
+  float* const duo = a.dpre + (size_t)p.N * C;
+  float vs[6][2];  // column sums: chunk g, columns 2t + e at slot e
+#pragma unroll
+  for (int v = 0; v < 6; ++v) vs[v][0] = vs[v][1] = 0.0f;
+
+  int st = 0;
+  for (int64_t tile = first; tile < ntiles; tile += stride, st ^= 1) {
+    cp_async_wait_all();
+    __syncwarp();
+    if (tile + stride < ntiles) res_load_stage(xs + (st ^ 1) * 32 * ldx, a.x, a.aux, (tile + stride) * 16, p.N, C, ldx);
+    const float* xt = xs + st * 32 * ldx;
+    const float* pt = xt + 16 * ldx;
+    const int64_t r0 = tile * 16;
+
+    float mu[2][2], inv[2][2];
+    uint32_t sb[KMAX][4], ss[KMAX][4];  // s, kept; t rebuilt a step at a time
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu[0], inv[0], sb, ss);
+    res_ln_stats(pt, ldx, C, mu[1], inv[1]);
+
+    float ds[KMAX][4] = {};  // dsrc = dpre @ Wog^T, chunk by chunk
+    for (int nc = 0; nc < nk; ++nc) {
+      const int n0 = 8 * nc;
+      float pre[2][4] = {};  // s @ Wog, t @ Wo
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (k < nk) {  // b0 = W[8k + t][n0 + g], b1 = W[8k + t + 4][n0 + g]
+          uint32_t tb[4], ts[4], bg[4], bu[4];
+          res_ln_frag(pt, ldx, sm.vec + 3 * C, sm.vec + 4 * C, mu[1], inv[1], k, tb, ts);
+          const int off = (8 * k + t) * ldw + n0 + g;
+          split_tf32(wog[off], bg[0], bg[2]);
+          split_tf32(wog[off + 4 * ldw], bg[1], bg[3]);
+          split_tf32(wo[off], bu[0], bu[2]);
+          split_tf32(wo[off + 4 * ldw], bu[1], bu[3]);
+          mma_3xtf32(pre[0], sb[k], ss[k], bg);
+          mma_3xtf32(pre[1], tb, ts, bu);
+        }
+      }
+      float dpre[4], du[4];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t row = r0 + g + 8 * rr;
+        float d[2] = {0.0f, 0.0f};
+        if (row < p.N) load_pair(a.ct[0] + row * C + n0 + 2 * t, d[0], d[1]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * rr + e, c = n0 + 2 * t + e;
+          const float gg = sigmoidf(pre[0][i] + bog[c]);
+          const float u = pre[1][i] + bo[c];
+          du[i] = d[e] * gg;
+          dpre[i] = d[e] * u * gg * (1.0f - gg);
+        }
+        if (row < p.N) {
+          store_pair(dpo + row * C + n0 + 2 * t, dpre[2 * rr], dpre[2 * rr + 1]);
+          store_pair(duo + row * C + n0 + 2 * t, du[2 * rr], du[2 * rr + 1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sp = column_sum(dpre[e] + dpre[2 + e]);
+        const float su = column_sum(du[e] + du[2 + e]);
+        if (g == nc) {
+          vs[2][e] += sp;
+          vs[5][e] += su;
+        }
+      }
+      res_back_project(ds, dpre, wog, ldw, C, n0);
+    }
+    res_ln_backward<8>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, a.out[0], vs[0], vs[1]);
+    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, a.out[1], vs[3], vs[4]);
   }
   res_store_partial<8>(sm, vs, C, a.vec_part);
 }
@@ -1426,6 +1989,13 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int K>
+bool aligned16(const void* const (&ptrs)[K]) {
+  for (int i = 0; i < K; ++i)
+    if ((uintptr_t)ptrs[i] % 16 != 0) return false;
+  return true;
+}
+
 template <typename T>
 size_t rows_smem(const Plan& p, int kind) {
   return RowsSmem<T>::carve(0, p, kind, nullptr);
@@ -1459,6 +2029,12 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
   p.ntiles = (N + p.TR - 1) / p.TR;
   p.grid = p.ntiles < 2 * nsm ? p.ntiles : 2 * nsm;
   p.work_floats = 0;
+  p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
+  p.resident = kind != kEpiFwd && C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
+  if (p.resident) {  // one block an SM: its registers leave room for no second
+    const long long need = ((long long)N + 16 * res_warps(kind) - 1) / (16 * res_warps(kind));
+    p.res_grid = (int)(need < nsm ? need : nsm);
+  }
   if (is_bwd(kind)) {
     p.njobs = n_dpre(kind);
     int units = 8;  // the output tile, in 16s: the largest divisor of C / 16 up to 8
@@ -1479,12 +2055,6 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
       const int rows = (N + chunks - 1) / chunks;
       p.chunk_rows = (rows + p.wg_rows - 1) / p.wg_rows * p.wg_rows;
       p.chunks = (N + p.chunk_rows - 1) / p.chunk_rows;
-    }
-    p.res_smem = ResSmem<T>::carve(0, C, nullptr);
-    p.resident = kind == kProBwd && C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
-    if (p.resident) {  // one block an SM: its registers leave room for no second
-      const long long need = ((long long)N + 16 * kResWarps - 1) / (16 * kResWarps);
-      p.res_grid = (int)(need < nsm ? need : nsm);
     }
     const int vgrid = p.grid > p.res_grid ? p.grid : p.res_grid;
     p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
@@ -1516,17 +2086,27 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   for (int i = 0; i < (pro ? 4 : 2); ++i) a.mat[i] = (const T*)w[pro ? kProMat[i] : kEpiMat[i]];
   void* const* rest = ptrs + 2 + nw;
   cudaError_t err;
-  if (kind == kProFwd) {
-    a.out[0] = (T*)rest[0];
-    a.out[1] = (T*)rest[1];
-    if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-    prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    return (int)cudaGetLastError();
-  }
   if (kind == kEpiFwd) {
     a.out[0] = (T*)rest[0];
     if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
     epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    return (int)cudaGetLastError();
+  }
+  // the resident passes and the weight-gradient pass copy rows and weights
+  // in 16-byte pieces (cp.async), and read cotangents and write outputs in
+  // pairs: the wrappers hand all of them over 16-byte aligned
+  if (kind == kProFwd) {
+    a.out[0] = (T*)rest[0];
+    a.out[1] = (T*)rest[1];
+    const void* need[] = {a.x, a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.out[1]};
+    if (!aligned16(need)) return kErrBadArgs;
+    if (p.resident) {
+      if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+      prologue_fwd_resident_kernel<T><<<p.res_grid, kK4Warps * 32, p.res_smem, st>>>(a, p);
+    } else {
+      if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
+      prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    }
     return (int)cudaGetLastError();
   }
   // backward: cotangents, grads of the rows, dvec (6, C), dmat (njobs, C, C),
@@ -1539,22 +2119,23 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   a.dpre = (T*)rest[nct + nout + 2];
   float* work = (float*)rest[nct + nout + 3];
   a.vec_part = work;
-  // the weight-gradient pass copies the source rows in 16-byte pieces
-  // (cp.async), K5's resident pass its weights too, and reads the cotangents
-  // in pairs: the wrappers hand them over 16-byte aligned
-  const T* need[] = {a.x, pro ? a.ct[0] : a.aux, a.ct[1], a.mat[0], a.mat[1], a.mat[2], a.mat[3]};
-  for (int i = 0; i < (pro ? 7 : 2); ++i)
-    if ((uintptr_t)need[i] % 16 != 0) return kErrBadArgs;
-  int vgrid = p.grid;  // blocks that wrote vector partials
   if (pro) {
-    if (p.resident) {
-      if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-      prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-      vgrid = p.res_grid;
-    } else {
-      if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-      prologue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    }
+    const void* need[] = {a.x, a.ct[0], a.ct[1], a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.dpre};
+    if (!aligned16(need)) return kErrBadArgs;
+  } else {
+    const void* need[] = {a.x, a.aux, a.ct[0], a.mat[0], a.mat[1], a.out[0], a.out[1], a.dpre};
+    if (!aligned16(need)) return kErrBadArgs;
+  }
+  const int vgrid = p.resident ? p.res_grid : p.grid;  // blocks that wrote vector partials
+  if (p.resident && pro) {
+    if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+    prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
+  } else if (p.resident) {
+    if ((err = set_smem(epilogue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+    epilogue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
+  } else if (pro) {
+    if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
+    prologue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
   } else {
     if ((err = set_smem(epilogue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
     epilogue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);

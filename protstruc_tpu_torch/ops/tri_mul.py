@@ -239,6 +239,7 @@ _EPI_W = "vvmvvvmv"     # ln1s ln1b wog bog ln2s ln2b wo bo
 def _prologue_fwd_cuda(x, m, *w):
     N, C = x.shape
     _check("prologue_fwd", x, [x, m, *w], [(N, C), (N,)] + _weight_shapes(C, _PRO_W))
+    x, w = _aligned16(x), [_aligned16(t) for t in w]
     lib = load_library()
     a, b = torch.empty_like(x), torch.empty_like(x)
     _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, x, m, *w, a, b)
@@ -247,7 +248,8 @@ def _prologue_fwd_cuda(x, m, *w):
 
 def _aligned16(t):
     """``t``, or a copy of it where its data does not start on a 16-byte
-    boundary: the backward kernels copy rows and weights in 16-byte pieces."""
+    boundary: K4, K5 and K7 copy rows and weights in 16-byte pieces and read
+    cotangents in pairs."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -285,7 +287,8 @@ def _epilogue_bwd_cuda(x, p, *rest):
     w, do = rest[:8], rest[8]
     _check("epilogue_bwd", x, [x, p, *w, do],
            [(N, C), (N, C)] + _weight_shapes(C, _EPI_W) + [(N, C)])
-    x, p = _aligned16(x), _aligned16(p)
+    x, p, do = _aligned16(x), _aligned16(p), _aligned16(do)
+    w = [_aligned16(t) for t in w]
     lib = load_library()
     work = _workspace(lib, "epilogue_bwd", x)
     dx, dp = torch.empty_like(x), torch.empty_like(x)
