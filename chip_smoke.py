@@ -27,10 +27,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
-   and incoming) vs the plain path on the CPU; f32 K4, K5 and K7 at the
-   FoldModel shape (N = 4*256*256, C = 64: many tiles a warp in the
-   resident passes); then K4, K5 and K7 at C = 64 on tensors (rows,
-   weights, cotangents) that start off a 16-byte boundary;
+   and incoming) vs the plain path on the CPU; f32 K4-K7 at the FoldModel
+   shape (N = 4*256*256, C = 64: many tiles a warp in the resident
+   passes); then K4-K7 at C = 64 on tensors (rows, weights, cotangents)
+   that start off a 16-byte boundary;
 8. train path: TrFold at the ``[mfu-fused]`` width of bench.py (bf16,
    D=256, P=128, 8 heads, 4 blocks, triangle updates, remat, fused_tri) on
    B=4, L=512 (``randn * 5``, numpy seed 0): ``featurize_for_model(
@@ -72,7 +72,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     gradient leaf;
 13. timing: the FoldModel train step (featurization included), kernel path
     vs plain path (ms/step, peak memory, each step from the initial
-    parameters); K3 at B=256, L=512; K8 and K9 at the train and ``[attn]``
+    parameters), then one step of each under torch.profiler (device busy,
+    the top kernels, and every K4-K7 kernel of the kernel path's step); K3
+    at B=256, L=512; K8 and K9 at the train and ``[attn]``
     shapes, each beside its plain version and
     ``torch.nn.functional.scaled_dot_product_attention`` with the additive
     mask (its forward, and its backward over a kept graph), with the
@@ -369,17 +371,17 @@ def tri_kernel_parity(torch, dev):
                     f"out {errs[0]:.2e}, grads max {max(errs[1:]):.2e} over {len(errs) - 1} leaves")
         if dtype == torch.float32:
             # the FoldModel's pair rows (fold_loo.py: B 4, crop 256, C 64), where
-            # each warp of the resident passes (K4, K5, K7) walks many tiles
+            # each warp of the resident passes (K4-K7) walks many tiles
             # through its ring and the weight-gradient pass sums many row steps
             cases = tri_inputs(torch, dev, dtype, 64, B=4, L=256)
-            for name in ("prologue_fwd", "prologue_bwd", "epilogue_bwd"):
+            for name in TRI_KERNELS:
                 err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "float32 C=64 FoldModel shape")
                 worst[name] = max(worst[name], err)
             del cases
-        # K4, K5 and K7 on tensors (rows, weights, cotangents) that start one
-        # element past a 16-byte boundary (their wrappers hand the kernels
-        # aligned copies)
-        for name in ("prologue_fwd", "prologue_bwd", "epilogue_bwd"):
+        # K4-K7 on tensors (rows, weights, cotangents) that start one element
+        # past a 16-byte boundary (their wrappers hand the kernels aligned
+        # copies)
+        for name in TRI_KERNELS:
             args = [off_alignment(torch, t) for t in tri_inputs(torch, dev, dtype, 64)[name]]
             check(all(t.data_ptr() % 16 for t in args), "the offset copies are aligned")
             err = tri_kernel_vs_plain(torch, tri_mul, name, args, f"{str(dtype)[6:]} C=64 off alignment")
@@ -882,6 +884,12 @@ def device_profile(torch, fn, top=6):
                and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda k: -k[1])
     return wall, sum(k[1] for k in kernels), kernels[:top]
+
+
+def kernel_name(key):
+    """A profiler key without its parameter list and namespaces:
+    ``epilogue_fwd_resident_kernel<float>``."""
+    return re.sub(r"^void |\(anonymous namespace\)::", "", key).split("(")[0]
 
 
 def fold_main_path(dev, tmp):
@@ -1416,11 +1424,16 @@ def main():
         fold_peak[kernel] = torch.cuda.max_memory_allocated() / 2**30
     fold_step_ms[False], fold_step_ms[True], rounds = alternate(steppers[False], steppers[True])
     for kernel, step in steppers.items():
-        wall, busy, top = device_profile(torch, step)
+        wall, busy, every = device_profile(torch, step, top=None)
         say(f"phase 13 profile FoldModel train step, {'kernel' if kernel else 'plain'} path, one step "
             f"under torch.profiler: device busy {busy:.2f} of {wall:.2f} ms wall "
             f"(idle {100 * (1 - busy / wall):.1f}%); top kernels "
-            + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in top))
+            + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in every[:6]))
+        if kernel:  # K4-K7's kernels in that step, however far down the list
+            tri = [(kernel_name(name), ms, n) for name, ms, n in every
+                   if re.search(r"namespace\)::((prologue|epilogue)_\w+|wgrad|reduce)_kernel<", name)]
+            say("phase 13 device time K4-K7 in one kernel-path step: "
+                + "; ".join(f"{name} {ms:.2f} ms x{n}" for name, ms, n in tri))
     for kernel, losses in fold_step_losses.items():
         losses = torch.stack(losses).float().cpu()
         check(bool(torch.isfinite(losses).all()), f"timed FoldModel steps kernel={kernel}: losses {losses}")

@@ -14,37 +14,43 @@
 //  * bias and LayerNorm gradients are column sums of the f32 values; all
 //    gradients are summed in f32 and cast to T once at the end.
 //
-// Matrix products run inside the kernels.  The resident rows passes (K4,
-// K5, K7) and the weight-gradient pass (K5 and K7) use mma.sync on the tensor
-// cores: bf16 m16n8k16 with f32 accumulators, float32 as 3xTF32 m16n8k8 (x =
-// big + small, three TF32 products, small terms first; helpers in mma.cuh,
-// shared with flash_attn.cu).  The streamed rows passes (K6, and K4, K5, K7
-// where their weights do not fit) use nvcuda::wmma 16x16x16 in bf16 and FMA
-// loops in full f32 (the library is built with FMA contraction on).
+// Matrix products run inside the kernels.  The resident rows passes (K4-K7)
+// and the weight-gradient pass (K5 and K7) use mma.sync on the tensor cores:
+// bf16 m16n8k16 with f32 accumulators, float32 as 3xTF32 m16n8k8 (x = big +
+// small, three TF32 products, small terms first; helpers in mma.cuh, shared
+// with flash_attn.cu).  The streamed rows passes (K4-K7 where their weights
+// do not fit) use nvcuda::wmma 16x16x16 in bf16 and FMA loops in full f32
+// (the library is built with FMA contraction on).
 //
 // Which rows pass each kernel takes, chosen by kind, dtype and C in make_plan:
 //
 //   K4 prologue_fwd_resident_kernel   bf16 C <= 128, float32 C <= 64
 //   K5 prologue_bwd_resident_kernel   the same widths
+//   K6 epilogue_fwd_resident_kernel   the same widths
 //   K7 epilogue_bwd_resident_kernel   the same widths
-//   K4, K5, K7 streamed (prologue_fwd_kernel, prologue_bwd_kernel,
-//      epilogue_bwd_kernel)           every other C (float32 C = 128, C = 256)
-//   K6 epilogue_fwd_kernel            every C (streamed)
+//   K4-K7 streamed (prologue_fwd_kernel, prologue_bwd_kernel,
+//      epilogue_fwd_kernel, epilogue_bwd_kernel)
+//                                     every other C (float32 C = 128, C = 256)
 //
-// The resident passes.  One persistent block an SM (8 warps, K4 16; grid
-// min(tiles / warps, SMs)) copies its weights into shared memory once
+// The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
+// grid min(tiles / warps, SMs)) copies its weights into shared memory once
 // (cp.async, padded a row: K4 and K5 wag, wap, wbg, wbp, 136 KB in bf16 at
-// C = 128; K7 wog, wo, 68 KB) and every warp walks its own 16-row tiles
-// through a cp.async ring of its own: K5 and K7 two stages, the next tile's
-// rows (K5 x, K7 x and p) in flight; K4 one stage of x, its 16 warps hiding
-// each other's waits.  The forward half is shared: the LayerNorm statistics and s = LN(x)
-// computed on the fragments in registers, s as the A fragments of s @ W (W
-// read with ldmatrix.trans; float32 by hand), all of a chunk's products at
-// once.  K4 applies the gates and the mask to the accumulator fragments and
-// stores a and b as pairs.  K5 and K7 run the gate backward on the
-// fragments, cast dpre (K7: dpre and du) to T once, store it to the scratch
-// and, as registers, use it as the A fragment of dpre @ W^T, which reads the
-// same copy of W (ldmatrix; float32 in the k order 0, 2, 4, 6, 1, 3, 5, 7).
+// C = 128; K6 and K7 wog, wo, 68 KB) and every warp walks its own 16-row
+// tiles through a cp.async ring of its own: K5 and K7 two stages, the next
+// tile's rows (K5 x, K7 x and p) in flight; K4 one stage of x, its 16 warps
+// hiding each other's waits; K6 one stage of x and p, refilled with the
+// next tile's rows as soon as s and t are in registers.  The forward half is
+// shared: the LayerNorm statistics and s = LN(x) computed on the fragments in
+// registers, s as the A fragments of s @ W (W read with ldmatrix.trans;
+// float32 by hand), all of a chunk's products at once.  K4 applies the gates
+// and the mask to the accumulator fragments and stores a and b as pairs; K6
+// keeps s and t both (bf16 as packed A fragments, float32 as f32 values split
+// to tf32 at each k step), forms g's and u's pre-activations a 16-column
+// chunk at a time and stores out = g u as pairs.  K5 and K7 run the gate
+// backward on the fragments, cast dpre (K7: dpre and du) to T once, store it
+// to the scratch and, as registers, use it as the A fragment of dpre @ W^T,
+// which reads the same copy of W (ldmatrix; float32 in the k order 0, 2, 4,
+// 6, 1, 3, 5, 7).
 // dsrc stays in registers (16 x C f32 a warp) and the LayerNorm backward and
 // dx come from it.  K7 keeps one dsrc at a time: LN1's after the chunks, then
 // dt = du @ Wo^T from du read back from the scratch, and LN2's; K7 rebuilds
@@ -54,21 +60,23 @@
 // and the rings).  Column sums: warp shuffles over a fragment's rows, a
 // per-lane running sum per chunk, then warp by warp into the block's vacc.
 // Registers a thread (bf16 / float32, ptxas, PERF.md): K5 236 / 218 and K7
-// 255 / 247, no spills, so 8 warps an SM; K4 110 / 124, 16 warps.  Each
-// takes 215,040 bytes of the 232,448 of shared memory a block may have
-// (bf16, C = 128).
+// 255 / 247, no spills, so 8 warps an SM; K4 110 / 124 and K6 128 / 128, 16
+// warps.  Each takes 215,040 bytes of the 232,448 of shared memory a block
+// may have (bf16, C = 128).
 //
 // What bounds them on an H100 at N = 4*512*512, C = 128, bf16 (the bytes each
 // input read once and each output written once, at 3.35 TB/s; the products
-// at 989 TFLOP/s): K4 0.81 GB, 0.24 ms (137 GFLOP, 0.14 ms); K5 412 GFLOP,
-// 0.42 ms (about 2.4 GB with its dpre scratch, 0.7 ms); K7 1.34 GB, 0.40 ms
-// (206 GFLOP, 0.21 ms), with the 0.54 GB dpre/du scratch written and read
-// back on top.  The resident rows passes run far from these: each warp's
+// at 989 TFLOP/s): K4 and K6 0.81 GB, 0.24 ms (K4 137 GFLOP, 0.14 ms; K6
+// 69 GFLOP, 0.07 ms); K5 412 GFLOP, 0.42 ms (about 2.4 GB with its dpre
+// scratch, 0.7 ms); K7 1.34 GB, 0.40 ms (206 GFLOP, 0.21 ms), with the 0.54
+// GB dpre/du scratch written and read back on top.  The resident rows passes run far from these: each warp's
 // tile is a chain of dependent phases (ring wait, LayerNorm, products,
 // cotangent loads, gate, back-projection, LayerNorm backward) and 8 warps an
 // SM hide little of it; probes that drop one phase each (PERF.md) find no
-// single part dominant.  The weight-gradient pass is bound by its per-step
-// ring.
+// single part dominant (K6: the products, which reread both weights from
+// shared memory for every 16-row tile, the LayerNorms and the gate's exp
+// each about a quarter).  The weight-gradient pass is bound by its
+// per-step ring.
 
 // The streamed rows passes.  A block of 256 threads takes TR pair rows at a
 // time (64 in bf16, 32 in f32, fewer where C is wide) and keeps them in
@@ -240,7 +248,7 @@ struct Plan {
   size_t smem;
   int njobs, tiles, chunks, chunk_rows, wg_tile, wg_rows;  // weight-gradient kernel
   size_t wg_smem;
-  int resident, res_grid;  // K5: the resident-weight rows pass takes this shape
+  int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
   size_t res_smem;
   long long work_floats;   // f32 scratch: grid*6*C vector partials + chunks*njobs*C*C
 };
@@ -582,15 +590,16 @@ __global__ void __launch_bounds__(kThreads) prologue_bwd_kernel(RowArgs<T> a, Pl
 }
 
 // ---------------------------------------------------------------------------
-// resident-weight rows passes of K4, K5 and K7 (bf16 C <= 128, float32 C <= 64)
+// resident-weight rows passes of K4-K7 (bf16 C <= 128, float32 C <= 64)
 // ---------------------------------------------------------------------------
 
 constexpr int kResWarps = 8;  // warps a block (K5, K7); each walks 16-row tiles alone
-// K4 needs about half the registers: 16 warps a block, each with a ring of
-// one stage (the same shared memory as 8 warps of two stages)
-constexpr int kK4Warps = 16;
+// The forward passes (K4, K6) need about half the registers: 16 warps a
+// block, each with a ring of one stage (the same shared memory as 8 warps of
+// two stages)
+constexpr int kFwdWarps = 16;
 
-__host__ __device__ inline int res_warps(int kind) { return kind == kProFwd ? kK4Warps : kResWarps; }
+__host__ __device__ inline int res_warps(int kind) { return is_bwd(kind) ? kResWarps : kFwdWarps; }
 
 // widths whose weights fit in shared memory, with the rows' rings
 template <typename T> struct ResMax;
@@ -615,7 +624,7 @@ __host__ __device__ inline int res_nsrc(int kind) { return kind >= kEpiFwd ? 2 :
 // (in, out)), the six vectors as f32, the block's column sums of their
 // gradients, and 2 kResWarps ring stages of 16 rows of each of nsrc row
 // sources: two a warp in K5 and K7 (the warp's stage s holds source j at (s
-// nsrc + j) 16 ldx), one a warp in K4.
+// nsrc + j) 16 ldx), one a warp in K4 and K6.
 template <typename T>
 struct ResSmem {
   T* w;
@@ -1321,7 +1330,7 @@ template <typename T>
 __global__ void prologue_fwd_resident_kernel(RowArgs<T> a, Plan p);
 
 template <>
-__global__ void __launch_bounds__(kK4Warps * 32, 1)
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
 prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
@@ -1330,8 +1339,8 @@ prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
   const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
-  const int64_t first = (int64_t)blockIdx.x * kK4Warps + warp;
-  const int64_t stride = (int64_t)gridDim.x * kK4Warps;
+  const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kFwdWarps;
   bf16* const xt = sm.xs + (size_t)warp * 16 * ldx;
 
   res_load_weights(sm, a, C, res_nw(kProFwd));
@@ -1382,7 +1391,7 @@ prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 // The float32 K4, on 3xTF32 over 8-column chunks, a's two products and then
 // b's (as K5's float32 pass).
 template <>
-__global__ void __launch_bounds__(kK4Warps * 32, 1)
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
 prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
@@ -1391,8 +1400,8 @@ prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
-  const int64_t first = (int64_t)blockIdx.x * kK4Warps + warp;
-  const int64_t stride = (int64_t)gridDim.x * kK4Warps;
+  const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kFwdWarps;
   float* const xt = sm.xs + (size_t)warp * 16 * ldx;
 
   res_load_weights(sm, a, C, res_nw(kProFwd));
@@ -1666,7 +1675,163 @@ epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
   res_store_partial<8>(sm, vs, C, a.vec_part);
 }
 
-// K6: out = sigmoid(LN1(x) @ Wog + bog) * (LN2(prod) @ Wo + bo).
+// The float32 LayerNorm output of rows g, g + 8 of a tile in a ring stage,
+// in A-fragment order and not yet split: v[k][i] is row g + 8 (i & 1),
+// column 8k + t + 4 (i >> 1).
+template <int KMAX>
+__device__ __forceinline__ void res_ln_vals(const float* xt, int ldx, const float* lns,
+                                            const float* lnb, int C, float (&v)[KMAX][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float mu[2], inv[2];
+  res_ln_stats(xt, ldx, C, mu, inv);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k < C / 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i & 1, c = 8 * k + t + 4 * (i >> 1);
+        v[k][i] = (xt[(g + 8 * h) * ldx + c] - mu[h]) * inv[h] * lns[c] + lnb[c];
+      }
+    }
+  }
+}
+
+// K6's operands of one tile in registers: s = LN1(x) and t = LN2(p), read
+// from the warp's ring stage (p's rows 16 ldx after x's), and the products
+// of a 16-column chunk, pre[0] = s @ Wog[:, n0:n0 + 16] and pre[1] = t @
+// Wo[:, n0:n0 + 16] (n8 tiles j = 0, 1), with Wo C ldw after Wog.
+template <typename T> struct EpiFwdFrags;
+
+// bf16: both as the packed A fragments of every k16 step (2 x 32 registers);
+// W read with ldmatrix.trans.
+template <> struct EpiFwdFrags<bf16> {
+  static constexpr int KMAX = ResMax<bf16>::C / 16;
+  uint32_t sa[KMAX][4], ta[KMAX][4];
+
+  __device__ __forceinline__ void build(const bf16* xt, int ldx, const float* vec, int C) {
+    float mu[2], inv[2];
+    res_ln_frags(xt, ldx, vec, vec + C, C, mu, inv, sa);
+    res_ln_frags(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, mu, inv, ta);
+  }
+
+  __device__ __forceinline__ void products(const bf16* w, int ldw, int C, int n0,
+                                           float (&pre)[2][2][4]) const {
+    const int lane = threadIdx.x & 31;
+    const bf16* wo = w + (size_t)C * ldw;
+#pragma unroll
+    for (int kk = 0; kk < KMAX; ++kk) {
+      if (kk < C / 16) {
+        const int off = (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldw + n0 + (lane >> 4) * 8;
+        uint32_t bg[4], bu[4];
+        ldsm_x4_trans(bg, w + off);
+        ldsm_x4_trans(bu, wo + off);
+        mma_bf16(pre[0][0], sa[kk], bg[0], bg[1]);
+        mma_bf16(pre[0][1], sa[kk], bg[2], bg[3]);
+        mma_bf16(pre[1][0], ta[kk], bu[0], bu[1]);
+        mma_bf16(pre[1][1], ta[kk], bu[2], bu[3]);
+      }
+    }
+  }
+};
+
+// float32: both as f32 values (2 x 32 registers; split to tf32 (big, small)
+// at each k8 step, which costs fewer registers than keeping both splits);
+// 3xTF32, W's B fragments read by hand: b0 = W[8k + t][n], b1 = W[8k + t +
+// 4][n], n = n0 + 8j + g.
+template <> struct EpiFwdFrags<float> {
+  static constexpr int KMAX = ResMax<float>::C / 8;
+  float sa[KMAX][4], ta[KMAX][4];
+
+  __device__ __forceinline__ void build(const float* xt, int ldx, const float* vec, int C) {
+    res_ln_vals(xt, ldx, vec, vec + C, C, sa);
+    res_ln_vals(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, ta);
+  }
+
+  __device__ __forceinline__ void products(const float* w, int ldw, int C, int n0,
+                                           float (&pre)[2][2][4]) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const float* wo = w + (size_t)C * ldw;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < C / 8) {
+        uint32_t sb[4], ss[4], tb[4], ts[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(sa[k][i], sb[i], ss[i]);
+          split_tf32(ta[k][i], tb[i], ts[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int off = (8 * k + t) * ldw + n0 + 8 * j + g;
+          uint32_t bg[4], bu[4];
+          split_tf32(w[off], bg[0], bg[2]);
+          split_tf32(w[off + 4 * ldw], bg[1], bg[3]);
+          split_tf32(wo[off], bu[0], bu[2]);
+          split_tf32(wo[off + 4 * ldw], bu[1], bu[3]);
+          mma_3xtf32(pre[0][j], sb, ss, bg);
+          mma_3xtf32(pre[1][j], tb, ts, bu);
+        }
+      }
+    }
+  }
+};
+
+// K6 with Wog and Wo resident, K7's forward half: 16 warps a block, each
+// walking its 16-row tiles through a one-stage ring of the tile's rows of x
+// and p.  s and t go to registers first, which frees the stage, so the next
+// tile's rows are in flight while this tile's products, gates and stores
+// run.  Per 16-column chunk: g's and u's pre-activations (four independent
+// accumulators), out = sigmoid(pre_g + bog) (pre_u + bo) on the C fragments
+// (rows g, g + 8, columns n0 + 8j + 2t, + 1), stored as pairs below N.
+template <typename T>
+__global__ void __launch_bounds__(kFwdWarps * 32, 1)
+epilogue_fwd_resident_kernel(RowArgs<T> a, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ResSmem<T> sm;
+  ResSmem<T>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiFwd), res_nsrc(kEpiFwd), &sm);
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<T>(C);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t ntiles = ((int64_t)p.N + 15) / 16;
+  const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
+  const int64_t stride = (int64_t)gridDim.x * kFwdWarps;
+  T* const xt = sm.xs + (size_t)warp * 2 * 16 * ldx;  // x's rows, then p's 16 ldx on
+
+  res_load_weights(sm, a, C, res_nw(kEpiFwd));
+  if (first < ntiles) res_load_stage(xt, a.x, a.aux, first * 16, p.N, C, ldx);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float* bog = sm.vec + 2 * C;
+  const float* bo = sm.vec + 5 * C;
+  for (int64_t tile = first; tile < ntiles; tile += stride) {
+    cp_async_wait_all();
+    __syncwarp();  // this tile's rows landed
+    EpiFwdFrags<T> f;
+    f.build(xt, ldx, sm.vec, C);
+    __syncwarp();  // every lane has read the stage: the next tile's rows may land in it
+    if (tile + stride < ntiles) res_load_stage(xt, a.x, a.aux, (tile + stride) * 16, p.N, C, ldx);
+    const int64_t r0 = tile * 16;
+    for (int n0 = 0; n0 < C; n0 += 16) {
+      float pre[2][2][4] = {};
+      f.products(sm.w, ldw, C, n0, pre);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = r0 + g + 8 * rr;
+          if (row < p.N) {
+            const int c = n0 + 8 * j + 2 * t;
+            const float v0 = sigmoidf(pre[0][j][2 * rr] + bog[c]) * (pre[1][j][2 * rr] + bo[c]);
+            const float v1 = sigmoidf(pre[0][j][2 * rr + 1] + bog[c + 1]) * (pre[1][j][2 * rr + 1] + bo[c + 1]);
+            store_pair(a.out[0] + row * C + c, v0, v1);
+          }
+        }
+    }
+  }
+}
+
+// K6 streamed (the widths whose weights do not fit):
+// out = sigmoid(LN1(x) @ Wog + bog) * (LN2(prod) @ Wo + bo).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) epilogue_fwd_kernel(RowArgs<T> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -2030,7 +2195,7 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
   p.grid = p.ntiles < 2 * nsm ? p.ntiles : 2 * nsm;
   p.work_floats = 0;
   p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
-  p.resident = kind != kEpiFwd && C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
+  p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
   if (p.resident) {  // one block an SM: its registers leave room for no second
     const long long need = ((long long)N + 16 * res_warps(kind) - 1) / (16 * res_warps(kind));
     p.res_grid = (int)(need < nsm ? need : nsm);
@@ -2086,15 +2251,22 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   for (int i = 0; i < (pro ? 4 : 2); ++i) a.mat[i] = (const T*)w[pro ? kProMat[i] : kEpiMat[i]];
   void* const* rest = ptrs + 2 + nw;
   cudaError_t err;
-  if (kind == kEpiFwd) {
-    a.out[0] = (T*)rest[0];
-    if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-    epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    return (int)cudaGetLastError();
-  }
   // the resident passes and the weight-gradient pass copy rows and weights
   // in 16-byte pieces (cp.async), and read cotangents and write outputs in
   // pairs: the wrappers hand all of them over 16-byte aligned
+  if (kind == kEpiFwd) {
+    a.out[0] = (T*)rest[0];
+    const void* need[] = {a.x, a.aux, a.mat[0], a.mat[1], a.out[0]};
+    if (!aligned16(need)) return kErrBadArgs;
+    if (p.resident) {
+      if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+      epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
+    } else {
+      if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
+      epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    }
+    return (int)cudaGetLastError();
+  }
   if (kind == kProFwd) {
     a.out[0] = (T*)rest[0];
     a.out[1] = (T*)rest[1];
@@ -2102,7 +2274,7 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     if (!aligned16(need)) return kErrBadArgs;
     if (p.resident) {
       if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-      prologue_fwd_resident_kernel<T><<<p.res_grid, kK4Warps * 32, p.res_smem, st>>>(a, p);
+      prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
     } else {
       if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
       prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);

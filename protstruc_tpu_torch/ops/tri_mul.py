@@ -248,7 +248,7 @@ def _prologue_fwd_cuda(x, m, *w):
 
 def _aligned16(t):
     """``t``, or a copy of it where its data does not start on a 16-byte
-    boundary: K4, K5 and K7 copy rows and weights in 16-byte pieces and read
+    boundary: K4-K7 copy rows and weights in 16-byte pieces and read
     cotangents in pairs."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -276,6 +276,7 @@ def _prologue_bwd_cuda(x, m, *rest):
 def _epilogue_fwd_cuda(x, p, *w):
     N, C = x.shape
     _check("epilogue_fwd", x, [x, p, *w], [(N, C), (N, C)] + _weight_shapes(C, _EPI_W))
+    x, p, w = _aligned16(x), _aligned16(p), [_aligned16(t) for t in w]
     lib = load_library()
     out = torch.empty_like(x)
     _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, x, p, *w, out)

@@ -1,22 +1,23 @@
-"""K4's, K5's and K7's schedules on the card, emulated in plain torch and
-checked on the CPU.
+"""K4's, K5's, K6's and K7's schedules on the card, emulated in plain torch
+and checked on the CPU.
 
 K5 (the triangle prologue backward) and K7 (the epilogue backward),
 ``csrc/tri_mul.cu``, run as a rows pass with their weights resident in shared
 memory, then a weight-gradient pass and two ordered reductions; K4 (the
-prologue forward) is K5's forward half.  Their sums run in another order than
-the plain versions', and their products on the tensor cores.  This file
-emulates those schedules step by step:
+prologue forward) is K5's forward half and K6 (the epilogue forward) K7's.
+Their sums run in another order than the plain versions', and their products
+on the tensor cores.  This file emulates those schedules step by step:
 
 * rows in tiles of 16 (one warp each), the last tile ragged; tile ``i`` goes
   to warp ``i % (grid * warps)`` of the persistent grid;
-* LayerNorm in f32 (fast variance), ``s`` (and K7's ``t``) cast to the
-  stream dtype;
-* per chunk of columns (16 in bf16, 8 in float32): the gate and projection
-  products, the gate backward in f32, ``dpre`` (K7: ``dpre`` and ``du``)
-  cast to the stream dtype once; ``dsrc`` summed over the chunks'
-  back-projection products in f32 (K7: ``dsrc`` then ``dt``, each from its
-  cast cotangent as stored);
+* LayerNorm in f32 (fast variance), ``s`` (and K6's and K7's ``t``) cast
+  to the stream dtype;
+* per chunk of columns (16 in bf16, 8 in float32; K6 16 in both): the gate
+  and projection products (K6: the gate and the product applied to them in
+  f32, the result cast once), the gate backward in f32, ``dpre`` (K7:
+  ``dpre`` and ``du``) cast to the stream dtype once; ``dsrc`` summed over
+  the chunks' back-projection products in f32 (K7: ``dsrc`` then ``dt``,
+  each from its cast cotangent as stored);
 * bias and LayerNorm gradients as column sums per tile, summed in each
   warp's walk order, then warp by warp within a block, then block by block;
 * weight gradients split over chunks of rows, 64 rows a step, the chunk
@@ -27,11 +28,11 @@ operands); float32 products are taken as 3xTF32 (``big = tf32(x)``, ``small
 = tf32(x - big)``, ``a_small b_big + a_big b_small + a_big b_big``), as
 tests/test_torch_flash_split.py emulates K8's, each 64-row step of the weight
 gradients summed apart.  Each emulation is held to the plain version
-(``_prologue_fwd_plain``, ``_prologue_bwd_plain``, ``_epilogue_bwd_plain``)
-and to the Pallas op in interpret mode (``_prologue_op``, and ``jax.vjp`` of
-``_prologue_op`` and ``_epilogue_op``) on a row count ragged against every
-tile, at C = 16, 64 and 128: bf16 within 5e-2 of max|ref|, f32 within 2e-5 *
-max(1, max|ref|) (tests/test_tri_mul.py:49-60).
+(``_prologue_fwd_plain``, ``_prologue_bwd_plain``, ``_epilogue_fwd_plain``,
+``_epilogue_bwd_plain``) and to the Pallas op in interpret mode
+(``_prologue_op`` and ``_epilogue_op``, and ``jax.vjp`` of each) on a row
+count ragged against every tile, at C = 16, 64 and 128: bf16 within 5e-2 of
+max|ref|, f32 within 2e-5 * max(1, max|ref|) (tests/test_tri_mul.py:49-60).
 """
 
 import types
@@ -44,8 +45,8 @@ import torch
 
 from protstruc_tpu.ops.tri_mul import _epilogue_op, _prologue_op
 from protstruc_tpu_torch.ops import tri_mul
-from protstruc_tpu_torch.ops.tri_mul import (_epilogue_bwd_plain, _prologue_bwd_plain,
-                                             _prologue_fwd_plain)
+from protstruc_tpu_torch.ops.tri_mul import (_epilogue_bwd_plain, _epilogue_fwd_plain,
+                                             _prologue_bwd_plain, _prologue_fwd_plain)
 
 torch.set_num_threads(1)
 
@@ -210,6 +211,25 @@ def _emulated_prologue_fwd(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bb
     return out
 
 
+def _emulated_epilogue_fwd(x, p, ln1s, ln1b, wog, bog, ln2s, ln2b, wo, bo):
+    """K6: K7's walk and forward half, 16-column chunks in both dtypes, the
+    gate and the product on each chunk's f32 pre-activations, cast once."""
+    dtype = x.dtype
+    n, C = x.shape
+    vecs = [v.float() for v in (ln1s, ln1b, bog, ln2s, ln2b, bo)]
+    out = torch.empty_like(x)
+    for r0 in range(0, n, TILE):
+        rows = slice(r0, min(n, r0 + TILE))
+        s, _, _ = _ln(x[rows].float(), vecs[0], vecs[1], dtype)
+        t, _, _ = _ln(p[rows].float(), vecs[3], vecs[4], dtype)
+        for n0 in range(0, C, 16):
+            cols = slice(n0, n0 + 16)
+            g = torch.sigmoid(_product(s, wog[:, cols], dtype) + vecs[2][cols])
+            u = _product(t, wo[:, cols], dtype) + vecs[5][cols]
+            out[rows, cols] = (g * u).to(dtype)
+    return out
+
+
 def _inputs(C, seed):
     rng = np.random.RandomState(seed)
 
@@ -331,17 +351,32 @@ def test_k4_schedule_matches_plain_and_pallas(dtype, C):
         assert not g[torch.from_numpy(m) == 0].any(), f"{name}: masked rows not zero"
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("C", [16, 64, 128])
+def test_k6_schedule_matches_plain_and_pallas(dtype, C):
+    x, p, weights, _ = _epilogue_inputs(C, seed=300 + C)
+    tdt, jdt = DTYPES[dtype]
+    tt = [torch.from_numpy(a).to(tdt) for a in (x, p, *weights)]
+    got = _emulated_epilogue_fwd(*tt)
+    plain = _epilogue_fwd_plain(*tt)
+    ref = _epilogue_op(128, True, *_jax_rows((x, p, *weights), jdt))
+    assert got.dtype == tdt and got.shape == plain.shape
+    _check(plain.float().numpy(), got.float().numpy(), dtype, "out vs plain")
+    _check(np.asarray(jnp.asarray(ref, jnp.float32)), got.float().numpy(), dtype, "out vs pallas")
+
+
 _WRAPPERS = {  # name: (CUDA wrapper, entry point, tensors the kernel takes in pieces)
     "prologue_fwd": ("_prologue_fwd_cuda", "ps_tri_prologue_fwd", "x w"),
     "prologue_bwd": ("_prologue_bwd_cuda", "ps_tri_prologue_bwd", "x w ct"),
+    "epilogue_fwd": ("_epilogue_fwd_cuda", "ps_tri_epilogue_fwd", "x aux w"),
     "epilogue_bwd": ("_epilogue_bwd_cuda", "ps_tri_epilogue_bwd", "x aux w ct"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_WRAPPERS))
 def test_wrappers_hand_over_aligned_copies(name, monkeypatch):
-    """K4, K5 and K7 copy rows and weights in 16-byte pieces and read
-    cotangents in pairs: each wrapper hands the library 16-byte aligned
+    """K4-K7 copy rows and weights in 16-byte pieces and read cotangents in
+    pairs: each wrapper hands the library 16-byte aligned
     copies of those tensors when it is given views off a 16-byte boundary
     (the library is faked: no card here)."""
     wrapper, entry, kinds = _WRAPPERS[name]
@@ -349,7 +384,7 @@ def test_wrappers_hand_over_aligned_copies(name, monkeypatch):
     x, m, pro_w, da, db = _inputs(C, seed=7)
     _, p, epi_w, do = _epilogue_inputs(C, seed=7)
     args = {"prologue_fwd": (x, m, *pro_w), "prologue_bwd": (x, m, *pro_w, da, db),
-            "epilogue_bwd": (x, p, *epi_w, do)}[name]
+            "epilogue_fwd": (x, p, *epi_w), "epilogue_bwd": (x, p, *epi_w, do)}[name]
     n_w = len(epi_w) if name.startswith("epilogue") else len(pro_w)
 
     def off(a):  # a contiguous copy that starts 4 bytes past a 16-byte boundary
