@@ -12,15 +12,24 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    probes P1-P3 (csrc/pair_maps_probe.cu), K3 (csrc/model_features.cu),
    K4-K7 (csrc/tri_mul.cu) and K8/K9 (csrc/flash_attn.cu) with nvcc, from
    the checkout's sources, the six builds started together;
-3. parity at small sizes: K1 vs its plain PyTorch version on the card, on
-   ragged L = 37 and 300 and on degenerate probes;
-4. parity at full size: B=256, L=512 on ``randn * 10`` (numpy seed 0);
+3. parity at small sizes: K1 vs its plain PyTorch version on the card,
+   bitwise (the count of unequal entries must be 0) and under the
+   tolerances below, at B=2 and L = 1, 2, 31, 33, 37, 127, 129, 300, 512
+   (the launch plan gives L % 4 != 0 scalar stores, the rest vector ones)
+   and on degenerate probes, printing the plan's store path of each; a map
+   subset written into six
+   sentinel planes, only the selected ones touched (f32 and bf16); the bf16
+   mode equal to the f32 planes cast to bf16 at L = 37;
+4. parity at full size: B=256, L=512 on ``randn * 10`` (numpy seed 0),
+   bitwise, and the bf16 mode equal to the f32 planes cast;
 5. main path: ``StructureBatch.from_pdb`` on bundled PDBs, then
    ``precompile_featurizer(device="cuda")`` and ``serve_loop`` over JSONL
-   requests; K1's launch counter is reset just before and must grow;
+   requests; K1's launch counters are reset just before: the f32 one must
+   grow, the bf16 mode's must stay 0 (the path serves f32 maps);
 6. timing (CUDA events, 2 warm-up + 10 timed, plain/kernel/kernel/plain):
-   K1 alone vs its plain version, and full featurization at B=256, L=512 on
-   the kernel path vs the plain path, as structures/s;
+   K1 alone vs its plain version, K1's bf16 mode with its bound, and full
+   featurization at B=256, L=512 on the kernel path vs the plain path, as
+   structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
    bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K5's
    streamed rows pass in both dtypes, the weight gradients in 128 x 128
@@ -47,8 +56,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    version's under the budgets below, then under torch.profiler, its device
    time split by the kernels of the call (K5 and K7: rows pass, weight-gradient
    pass, reductions);
-10. K3 vs its plain version on ragged L = 37 and 300, the degenerate probes
-    and B=256, L=512 (``randn * 10``, numpy seed 0), f32 and bf16 planes;
+10. K3 vs its plain version at B=2 and L = 1, 2, 31, 33, 37, 127, 129, 300,
+    512, the degenerate probes and B=256, L=512 (``randn * 10``, numpy seed
+    0), f32 and bf16 planes;
 11. K8/K9 vs their plain versions (forward, lse, ds, dk, dv and dq = ds k),
     f32 and bf16, at the train shape (B=4, H=4, dh=32, L=256) with the bias
     read through the model's permuted layout and with a contiguous bias (K8's
@@ -101,9 +111,12 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     L=512, the probe counter reset before each and read after; full
     against write-only splits K1's time into stores and the rest.
 
-Parity tolerances on the card: distance maps atol 1e-5 + rtol 1e-5; omega,
-theta, phi atol 1e-4 (the largest error and the count above 1e-5 are
-printed); NaN patterns identical; masks bitwise.  K4-K7: the JAX package's
+Parity tolerances on the card: K1 bitwise against its plain version (both
+round every operation once; the count of unequal entries is printed and
+must be 0), and under the JAX package's limits: distance maps atol 1e-5 +
+rtol 1e-5; omega, theta, phi atol 1e-4 (the largest error and the count
+above 1e-5 are printed); NaN patterns identical; masks bitwise; K1's bf16
+planes bit for bit its f32 planes cast to bf16.  K4-K7: the JAX package's
 budgets (tests/test_tri_mul.py:49-60), f32 ``max|d| <= 2e-5 max(1,
 max|ref|)``, bf16 ``max|d| <= 5e-2 max|ref|``.  Train path: bf16 losses of
 the fused and unfused paths within 2e-2 relative per step; f32 within 1e-5
@@ -120,7 +133,8 @@ FoldModel kernel vs plain path: loss within
 1e-4 relative, each gradient leaf within 1e-3 of its largest entry.
 
 The line before the last is one JSON object describing each kernel: its
-launches on its slice's main path (K1 phase 5, K4-K7 phase 8, K3 and K8/K9
+launches on its slice's main path (K1 phase 5, with its bf16 mode's own
+count from the same run, K4-K7 phase 8, K3 and K8/K9
 phase 12, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
@@ -135,13 +149,22 @@ computes the same function, that call's time.  The last line is
 runs phases 1 and 13's K8/K9 timings alone (with K8's and SDPA's device
 times) and prints no result line;
 
+    python3 chip_smoke.py --pair-timing
+
+runs phase 1, then K1 (six f32 maps, and its bf16 mode where the checkout
+has it) and K3 (bf16 and f32 planes) at B=256, L=512, CUDA-event and
+torch.profiler device times, and phase 6's featurization timing, with the
+K1 and K3 libraries' ptxas lines and the store path the launch plan gives
+each shape, and prints no result line;
+
     python3 chip_smoke.py --tri-timing
 
 runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
 K4-K7 timings alone, with the K4-K7 library's ptxas lines, and prints no
-result line.  Copied into the root of another checkout and run there, either
-times that checkout's kernels, so two commits can be set side by side on one
-card (parent, change, change, parent).
+result line.  Copied into the root of another checkout and run there, each
+timing mode times that checkout's kernels (skipping what it lacks), so two
+commits can be set side by side on one card (parent, change, change,
+parent).
 """
 
 import concurrent.futures
@@ -212,6 +235,59 @@ def compare_maps(ref, out, label):
         parts.append(f"{k} {err:.2e}" + (f" ({n_above} > 1e-5)" if n_above else ""))
     say(f"  {label}: " + ", ".join(parts))
     return worst
+
+
+PAIR_LENGTHS = (1, 2, 31, 33, 37, 127, 129, 300, 512)   # the tile walk's edges, ragged and whole
+
+
+def unequal(ref, out):
+    """Entries of ``out`` whose bits differ from ``ref``'s (NaN equal to NaN)."""
+    import torch
+
+    check(ref.shape == out.shape and ref.dtype == out.dtype,
+          f"{tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} {ref.dtype}")
+    nan_r, nan_o = torch.isnan(ref), torch.isnan(out)
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[ref.dtype]
+    differ = ref.masked_fill(nan_r, 0).view(view) != out.masked_fill(nan_o, 0).view(view)
+    return int((differ | (nan_r != nan_o)).sum())
+
+
+def k1_bitwise(ref, out, label):
+    """K1's maps against the plain version's, bit for bit; returns the count."""
+    n = {k: unequal(ref[k], out[k]) for k in ref}
+    check(sum(n.values()) == 0, f"{label}: K1 differs from its plain version at {n} entries")
+    return sum(n.values())
+
+
+def k1_bf16_gate(torch, pair_maps, x, label):
+    """K1's bf16 mode against its own f32 planes cast to bf16, bit for bit."""
+    f32 = pair_maps.pairwise_maps_forward(x)
+    b16 = pair_maps.pairwise_maps_forward(x, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = {k: unequal(f32[k].to(torch.bfloat16), b16[k]) for k in f32}
+    check(sum(n.values()) == 0, f"{label}: K1 bf16 differs from its f32 planes cast at {n} entries")
+    return sum(n.values())
+
+
+def k1_subset_writes(torch, pair_maps, x, maps, dtype):
+    """K1 through its C entry with all six planes filled with a sentinel and
+    ``maps`` selected: the selected planes equal the wrapper's, the others
+    keep every sentinel bit."""
+    B, L, A, _ = x.shape
+    lib = pair_maps.load_library()
+    fn = lib.ps_pair_maps_f32 if dtype == torch.float32 else lib.ps_pair_maps_bf16
+    planes = {k: torch.full((B, L, L), 7.0, dtype=dtype, device=x.device) for k in pair_maps.MAP_NAMES}
+    bits = sum(1 << pair_maps.MAP_NAMES.index(k) for k in maps)
+    err = fn(x.device.index, x.data_ptr(), B, L, A, bits, *[planes[k].data_ptr() for k in pair_maps.MAP_NAMES],
+             pair_maps.plan_arg(pair_maps.tile_plan(B, L)), torch.cuda.current_stream(x.device).cuda_stream)
+    check(err == 0, f"K1 subset launch: CUDA error {err}")
+    want = pair_maps.pairwise_maps_forward(x, maps, out_dtype=dtype)
+    torch.cuda.synchronize()
+    for k, p in planes.items():
+        if k in maps:
+            check(unequal(want[k], p) == 0, f"K1 subset {dtype}: {k} differs from the wrapper's")
+        else:
+            check(bool((p == 7.0).all()), f"K1 subset {dtype}: unselected {k} was written")
 
 
 def cuda_time_ms(fn):
@@ -451,6 +527,89 @@ def bf16_ulp(torch, x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def store_path(L):
+    """The stores the launch plan hands K1 and K3 at length L (the wrappers
+    pass ``tile_plan``'s store rule to every launch; a parent tree without
+    the plan stored every pair by itself)."""
+    from protstruc_tpu_torch.ops import pair_maps
+
+    if not hasattr(pair_maps, "plan_arg"):
+        return "4-byte scalar (32x8 block)"
+    return f"{'vector' if pair_maps.tile_plan(1, L).vector else 'scalar'} (launch plan)"
+
+
+def featurize_timing(torch, xyz, smi, k1_ms):
+    """Phase 6's full featurization of ``xyz`` (``utils/aot._featurize``),
+    kernel path against plain path, CUDA events, and each path's peak; then
+    the kernel path's device time under torch.profiler (the event time also
+    reads the host's launch rate)."""
+    from protstruc_tpu_torch.utils.aot import _featurize
+
+    B, L = xyz.shape[:2]
+    am = torch.ones((B, L, 15), dtype=torch.bool, device=xyz.device)
+    ci = torch.zeros((B, L), dtype=torch.int32, device=xyz.device)
+    peak = {}
+
+    def run(use_kernel):
+        def fn():
+            with torch.inference_mode():
+                _featurize(xyz, am, ci, use_kernel)
+        return fn
+
+    for name, use_kernel in (("kernel", True), ("plain", False)):
+        torch.cuda.reset_peak_memory_stats()
+        run(use_kernel)()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    feat_plain, feat_kernel, rounds = alternate(run(False), run(True))
+    dev_kernel, names = device_ms(torch, run(True))
+    say(f"phase 6 timing featurize B={B} L={L} [{smi}]: "
+        f"kernel path {feat_kernel:.4f} ms = {B / feat_kernel * 1e3:.1f} structures/s "
+        f"(peak {peak['kernel']:.2f} GiB), plain path {feat_plain:.4f} ms = "
+        f"{B / feat_plain * 1e3:.1f} structures/s (peak {peak['plain']:.2f} GiB) "
+        f"(plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
+        f"K1 writes {B * L * L * 24 / k1_ms / 1e6:.1f} GB/s of maps; kernel path device time "
+        f"{dev_kernel:.4f} ms a call (torch.profiler; largest {kernel_name(names[0]) if names else 'none'})")
+    return feat_kernel
+
+
+def pair_timing(torch, dev, smi):
+    """``--pair-timing``: K1 (f32, and bf16 where the checkout has the mode)
+    and K3 (bf16 and f32 planes) at B=256, L=512, CUDA-event and profiler
+    device times, then phase 6's featurization, in whatever checkout holds
+    this script."""
+    import numpy as np
+    from protstruc_tpu_torch.ops import cuda_lib, model_features as mf, pair_maps as pm
+
+    t0 = time.perf_counter()
+    pm.load_library()
+    mf.load_library()
+    say(f"pair timing of {REPO}: K1 and K3 built or loaded in {time.perf_counter() - t0:.2f} s")
+    for name, path in (("K1", cuda_lib.library_path("pair_maps", pm._SOURCES)), ("K3", mf.library_path())):
+        for ln in ptxas_lines(path.with_suffix(".log")):
+            say(f"  ptxas {name}: {ln}")
+    xyz = torch.from_numpy(np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32) * 10).to(dev)
+    pairs = B_FULL * L_FULL ** 2
+    cases = [("K1 f32 six maps", lambda: pm.pairwise_maps(xyz), slot_bytes(xyz, K1_SLOTS) + pairs * 24,
+              K1_OPS_PER_PAIR)]
+    if hasattr(pm, "pairwise_maps_forward"):
+        cases.append(("K1 bf16 six maps", lambda: pm.pairwise_maps_forward(xyz, out_dtype=torch.bfloat16),
+                      slot_bytes(xyz, K1_SLOTS) + pairs * 12, K1_OPS_PER_PAIR))
+    for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        cases.append((f"K3 {str(dt)[6:]} planes", lambda dt=dt: mf.model_features(xyz, 36, 20.0, dt),
+                      slot_bytes(xyz, K3_SLOTS) + pairs * (4 + 6 * size), K3_OPS_PER_PAIR))
+    k1_ms = None
+    for name, fn, n_bytes, ops in cases:
+        ev = cuda_time_ms(fn)
+        dv, names = device_ms(torch, fn)
+        k1_ms = k1_ms or ev
+        b_ms, b_by = bound(n_bytes, ops * pairs, torch.float32)
+        say(f"pair timing {name} B={B_FULL} L={L_FULL} [{smi}]: event {ev:.4f} ms, device {dv:.4f} ms "
+            f"({kernel_name(names[0]) if names else 'no kernel'}); bound {b_ms:.4f} ms ({b_by}); "
+            f"{store_path(L_FULL)} stores")
+    featurize_timing(torch, xyz, smi, k1_ms)
+
+
 def k3_compare(torch, mf, x, label, n_bins=36, max_dist=20.0):
     """K3 against its plain version on the same card tensor, f32 and bf16
     planes; returns (largest plane error, bin mismatches, pairs near an edge)."""
@@ -480,20 +639,25 @@ def k3_compare(torch, mf, x, label, n_bins=36, max_dist=20.0):
                   f"beyond one bf16 ulp, max err {err:.3e}")
         worst = max(worst, err)
     near_edge = int(near.sum())
-    say(f"  K3 {label} B={x.shape[0]} L={x.shape[1]}: planes max err {worst:.2e}; bins differ at "
+    say(f"  K3 {label} B={x.shape[0]} L={x.shape[1]} ({store_path(x.shape[1])} stores): planes max err "
+        f"{worst:.2e}; bins differ at "
         f"{mismatches} pairs (all within {K3_EDGE} A of an edge; {near_edge} pairs that close)")
     return worst, mismatches, near_edge
 
 
 def k3_parity(torch, dev):
-    """Phase 10: K3 vs its plain version on ragged L, the degenerate probes and
-    the [model-fused] shape B=256, L=512 (in chunks for the plain version)."""
+    """Phase 10: K3 vs its plain version at every L of PAIR_LENGTHS (B=2), the
+    degenerate probes and the [model-fused] shape B=256, L=512 (in chunks for
+    the plain version)."""
     import numpy as np
     from protstruc_tpu_torch.ops import model_features as mf
 
     rng = np.random.RandomState(1)
     cases = {f"L{L}": torch.from_numpy((rng.randn(2, L, 15, 3) * 10).astype(np.float32)).to(dev)
              for L in (37, 300)}
+    rng = np.random.RandomState(5)
+    cases.update({f"L{L}": torch.from_numpy((rng.randn(2, L, 15, 3) * 10).astype(np.float32)).to(dev)
+                  for L in PAIR_LENGTHS if f"L{L}" not in cases})
     cases["probes"] = probes(torch, dev)
     worst, total_mis = 0.0, 0
     for label, x in cases.items():
@@ -1109,8 +1273,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--flash-timing"], ["--tri-timing"]):
-        print("usage: python3 chip_smoke.py [--flash-timing | --tri-timing]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--flash-timing"], ["--tri-timing"], ["--pair-timing"]):
+        print("usage: python3 chip_smoke.py [--flash-timing | --tri-timing | --pair-timing]", file=sys.stderr)
         return 2
     flash_only = sys.argv[1:] == ["--flash-timing"]
     tri_only = sys.argv[1:] == ["--tri-timing"]
@@ -1124,7 +1288,7 @@ def main():
     from protstruc_tpu_torch.ops.pair_maps import MAP_NAMES, _pair_maps_plain, pairwise_maps
     from protstruc_tpu_torch.train import TrainOptimizer
     from protstruc_tpu_torch.train import train_step as fold_train_step
-    from protstruc_tpu_torch.utils.aot import _featurize, precompile_featurizer
+    from protstruc_tpu_torch.utils.aot import precompile_featurizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1146,6 +1310,9 @@ def main():
         say(f"flash timing of {REPO}: {flash_attn.library_path().name} built or loaded in "
             f"{time.perf_counter() - t0:.2f} s")
         flash_phase13(torch, dev, flash_attn, smi)
+        return 0
+    if sys.argv[1:] == ["--pair-timing"]:
+        pair_timing(torch, dev, smi)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -1176,26 +1343,38 @@ def main():
     # -- 3. parity at small sizes ---------------------------------------------
     rng = np.random.RandomState(1)
     small = {f"B2 L{L}": torch.from_numpy((rng.randn(2, L, 15, 3) * 10).astype(np.float32)).to(dev)
-             for L in (37, 300)}
+             for L in (37, 300)}   # phases 14 and 17 take these two as they were
+    rng = np.random.RandomState(5)
+    small.update({f"B2 L{L}": torch.from_numpy((rng.randn(2, L, 15, 3) * 10).astype(np.float32)).to(dev)
+                  for L in PAIR_LENGTHS if f"B2 L{L}" not in small})
     small["probes"] = probes(torch, dev)
     worst_small = 0.0
     for label, x in small.items():
         got = pairwise_maps(x)
         torch.cuda.synchronize()
-        worst_small = max(worst_small, compare_maps(_pair_maps_plain(x), got, label))
+        ref = _pair_maps_plain(x)
+        worst_small = max(worst_small, compare_maps(ref, got, label))
+        say(f"  {label}: {store_path(x.shape[1])} stores; unequal entries vs plain "
+            f"{k1_bitwise(ref, got, label)}")
     sub = pairwise_maps(small["B2 L300"], maps=("d_cb", "phi"))
     full = pairwise_maps(small["B2 L300"])
     check(tuple(sub) == ("d_cb", "phi"), "map subset order")
     for k in sub:
         check(torch.equal(sub[k].nan_to_num(), full[k].nan_to_num()), f"subset {k} differs")
-    say(f"phase 3 parity small: ok, max err {worst_small:.3e}; map subset ok")
+    for label in ("B2 L37", "B2 L300"):
+        for dt in (torch.float32, torch.bfloat16):
+            k1_subset_writes(torch, pair_maps, small[label], ("d_cb", "phi"), dt)
+    k1_bf16_gate(torch, pair_maps, small["B2 L37"], "B2 L37")
+    say(f"phase 3 parity small: ok, max err {worst_small:.3e}, every map bitwise equal to plain at "
+        f"L = {', '.join(map(str, PAIR_LENGTHS))} and the probes; map subset ok (only the selected "
+        f"planes written, f32 and bf16); bf16 mode = f32 planes cast at L=37")
 
     # -- 4. parity at full size -----------------------------------------------
     xyz_np = np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32) * 10
     xyz = torch.from_numpy(xyz_np).to(dev)
     got = pairwise_maps(xyz)
     torch.cuda.synchronize()
-    worst_full, above = 0.0, {k: 0 for k in got}
+    worst_full, above, full_unequal = 0.0, {k: 0 for k in got}, 0
     chunk = 32
     for b0 in range(0, B_FULL, chunk):
         ref = _pair_maps_plain(xyz[b0:b0 + chunk])
@@ -1203,10 +1382,13 @@ def main():
             err, n = compare(ref[k], got[k][b0:b0 + chunk], f"full {k}")
             worst_full = max(worst_full, err)
             above[k] += n
+        full_unequal += k1_bitwise(ref, {k: v[b0:b0 + chunk] for k, v in got.items()}, "full")
         del ref
-    say(f"phase 4 parity full B={B_FULL} L={L_FULL}: ok, max err {worst_full:.3e}; "
-        f"entries above 1e-5: {above}")
     del got
+    bf16_unequal = k1_bf16_gate(torch, pair_maps, xyz, "full")
+    say(f"phase 4 parity full B={B_FULL} L={L_FULL}: ok, max err {worst_full:.3e}; "
+        f"entries above 1e-5: {above}; unequal entries vs plain {full_unequal}; "
+        f"bf16 mode vs f32 planes cast: {bf16_unequal} unequal")
 
     # -- 5. main path ---------------------------------------------------------
     paths = [str(DATA / p) for p in PDBS]
@@ -1226,7 +1408,7 @@ def main():
                  {"op": "shutdown"}]
         out = io.StringIO()
 
-        pair_maps.LAUNCHES = 0
+        pair_maps.LAUNCHES = pair_maps.BF16_LAUNCHES = 0
         t0 = time.perf_counter()
         sb = pt.StructureBatch.from_pdb(paths, device="cuda")
         g = sb.inter_residue_geometry(use_kernel=True)
@@ -1238,7 +1420,7 @@ def main():
                         buckets=(256, 512), device="cuda")
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
-        launches = pair_maps.LAUNCHES
+        launches, bf16_launches = pair_maps.LAUNCHES, pair_maps.BF16_LAUNCHES
 
         check(sb.device.type == "cuda" and g["d_cb"].is_cuda, "main path did not run on the card")
         compare_maps(cpu_g, {k: v.cpu() for k, v in g.items()},
@@ -1269,36 +1451,21 @@ def main():
               f"analyze reply {lines[5]}")
         check(lines[6] == {"ok": True, "bye": True}, f"shutdown reply {lines[6]}")
     check(launches > 0, "the main path launched K1 no time")
+    check(bf16_launches == 0, f"the main path launched K1's bf16 mode {bf16_launches} times (it serves f32 maps)")
     say(f"phase 5 main path: ok in {main_s:.2f} s; {len(reqs)} requests served; "
-        f"K1 launches {launches}")
+        f"K1 launches {launches} (f32), bf16 mode {bf16_launches}")
 
     # -- 6. timing ------------------------------------------------------------
     plain_ms, kernel_ms, rounds = alternate(lambda: _pair_maps_plain(xyz), lambda: pairwise_maps(xyz))
     say(f"phase 6 timing K1 B={B_FULL} L={L_FULL} [{smi}]: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)})")
-    am = torch.ones((B_FULL, L_FULL, 15), dtype=torch.bool, device=dev)
-    ci = torch.zeros((B_FULL, L_FULL), dtype=torch.int32, device=dev)
-    peak = {}
-
-    def run(use_kernel):
-        def fn():
-            with torch.inference_mode():
-                _featurize(xyz, am, ci, use_kernel)
-        return fn
-
-    for name, use_kernel in (("kernel", True), ("plain", False)):
-        torch.cuda.reset_peak_memory_stats()
-        run(use_kernel)()
-        torch.cuda.synchronize()
-        peak[name] = torch.cuda.max_memory_allocated() / 2**30
-    feat_plain, feat_kernel, rounds = alternate(run(False), run(True))
-    bytes_out = B_FULL * L_FULL * L_FULL * 24
-    say(f"phase 6 timing featurize B={B_FULL} L={L_FULL} [{smi}]: "
-        f"kernel path {feat_kernel:.4f} ms = {B_FULL / feat_kernel * 1e3:.1f} structures/s "
-        f"(peak {peak['kernel']:.2f} GiB), plain path {feat_plain:.4f} ms = "
-        f"{B_FULL / feat_plain * 1e3:.1f} structures/s (peak {peak['plain']:.2f} GiB) "
-        f"(plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
-        f"K1 writes {bytes_out / kernel_ms / 1e6:.1f} GB/s of maps")
+        f"plain {plain_ms:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
+        f"{store_path(L_FULL)} stores")
+    bf16_ms = cuda_time_ms(lambda: pair_maps.pairwise_maps_forward(xyz, out_dtype=torch.bfloat16))
+    bf16_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 2,
+                       K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
+    say(f"phase 6 timing K1 bf16 mode B={B_FULL} L={L_FULL} six maps [{smi}]: kernel {bf16_ms:.4f} ms; "
+        f"bound {bf16_bound[0]:.4f} ms ({bf16_bound[1]}); {store_path(L_FULL)} stores")
+    featurize_timing(torch, xyz, smi, kernel_ms)
 
     # -- 7. triangle kernels ---------------------------------------------------
     tri_worst = tri_kernel_parity(torch, dev)
@@ -1455,7 +1622,7 @@ def main():
     del bins, ang
     say(f"phase 13 timing K3 B={B_FULL} L={L_FULL} bf16 planes [{smi}]: kernel {k3_ms:.4f} ms, plain "
         f"{k3_plain_ms:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
-        f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+        f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]}); {store_path(L_FULL)} stores")
 
     flash_ms = flash_phase13(torch, dev, flash_attn, smi)
 
@@ -1646,8 +1813,10 @@ def main():
                 "replaces": replaces, "launches": launches_, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
-    kernels = [entry("pair_maps", "pair_maps.cu", "protstruc_tpu/ops/pallas_pairwise.py:146", launches,
-                     max(worst_small, worst_full), kernel_ms, plain_ms, *k1_bound, None),
+    kernels = [dict(entry("pair_maps", "pair_maps.cu", "protstruc_tpu/ops/pallas_pairwise.py:146", launches,
+                          max(worst_small, worst_full), kernel_ms, plain_ms, *k1_bound, None),
+                    bf16_mode={"launches": bf16_launches, "unequal_vs_f32_cast": bf16_unequal, "ms": bf16_ms, "bound_ms": bf16_bound[0],
+                               "bound_by": bf16_bound[1]}),
                entry("model_features", "model_features.cu", "protstruc_tpu/ops/pallas_pairwise.py:671",
                      fold_launches["model_features"], k3_worst, k3_ms, k3_plain_ms, *k3_bound, None)]
     kernels += [entry(f"tri_mul_{name}", "tri_mul.cu", TRI_REPLACES[name], train_launches[name],

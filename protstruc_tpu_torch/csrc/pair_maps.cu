@@ -8,7 +8,9 @@
 //   d_cb  = |CB_i - CB_j|          theta = dihedral(N_i, CA_i, CB_i, CB_j)
 //   d_no  = |N_i - O_j|            phi   = angle(CA_i, CB_i, CB_j)
 //
-// for the maps selected by a bitmask, into f32 (B, L, L) planes.
+// for the maps selected by a bitmask, into (B, L, L) planes of f32, or of
+// bf16 (pairwise_maps_pallas(out_dtype=bfloat16): computed in f32, each value
+// rounded to nearest even once, as a cast of the f32 planes rounds it).
 //
 // Numerics (held to the plain PyTorch version, ops/pair_maps.py):
 //  * distances are sqrt of the summed squares;
@@ -22,22 +24,30 @@
 //  * atan2f and sqrtf from libdevice (no --use_fast_math).  The TPU kernel's
 //    minimax atan2 existed only because Mosaic cannot lower atan2;
 //  * built with -fmad=false: every product and sum rounds once, in the order
-//    the plain version evaluates them, so the two agree to the rounding of
-//    atan2f even where a dihedral is ill-conditioned (near-collinear atoms).
+//    the plain version evaluates them, so the f32 planes are bitwise equal to
+//    the plain version's even where a dihedral is ill-conditioned.  The terms
+//    of residue i alone (theta's n0 and |b1|, CA_i - CB_i, the i-only
+//    equality tests) are built once a row (pair_maps.cuh PairI): the same
+//    expressions, so the same bits.
 //
-// What bounds it on an H100: the writes.  Six f32 maps are 24 B per pair,
-// 1.61 GB at B=256, L=512 (about 0.48 ms at 3.35 TB/s), against a few hundred
-// FP32 operations per pair (about 0.3 ms at 67 TFLOP/s).  The input is 60 B
-// per residue and is read once per tile.  So the design keeps the stores
-// dense and coalesced: a 32 (j) x 8 (i) thread block stages its i-rows' and
-// j-columns' 15 floats (atom slots 0-4: N, CA, C, O, CB) in shared memory
-// straight from xyz (B, L, A, 3), with no packing pass, and each warp then
-// writes 32 consecutive floats (128 B) of one row of every requested map.
-// Ragged edges are masked here; nothing is padded to the tile grid.  The
-// kernel allocates nothing and does not synchronise.  This first version,
-// one output per thread, runs at about a third of that write floor: a fixed
-// per-block cost dominates (PERF.md has the times).
+// What bounds it on an H100: by bytes, the writes (six f32 maps are 24 B a
+// pair, 1.61 GB at B=256, L=512: 0.48 ms at 3.35 TB/s; bf16 half that).  In
+// fact the instructions: with every product and sum its own instruction
+// (-fmad=false) and libdevice's exactly rounded sqrtf (5 a pair) and atan2f
+// (3 a pair, each with a divide), the six maps take several hundred
+// instructions a pair, and a version that stores nothing takes as long as
+// the full one (PERF.md).  So the design spends its registers on warps: it
+// runs the tile skeleton of pair_maps.cuh (a 256-thread block walks 128 (j)
+// x 32 (i) tiles, stages each tile's atoms once, builds each row's i-side
+// once), evaluates a row's four pairs map by map as four independent chains,
+// reads the j atoms a map needs from shared memory, and stores each map's
+// four values as one 16-byte (f32) or 8-byte (bf16) store where L is a
+// multiple of 4; 64 registers, 4 blocks an SM.  The first version (a 32 x 8
+// block, one pair a thread, 4-byte stores) took 1.46 ms.  Ragged edges are
+// masked; nothing is padded.  The kernel allocates nothing and does not
+// synchronise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,60 +56,107 @@
 
 namespace {
 
-constexpr int kTileJ = 32;           // threads along j: one warp per i-row
-constexpr int kTileI = 8;            // i-rows per block
+__device__ __forceinline__ void store_run(float* p, const float (&v)[kPairsJ], int n, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPairsJ; ++q)
+      if (q < n) p[q] = v[q];
+  }
+}
 
-// the six maps' (B, L, L) planes (null where unselected); store(k, v) writes
-// map k at offset o
-struct PlaneStore {
-  float* planes[6];
-  int64_t o;
-  __device__ __forceinline__ void operator()(int k, float v) const { planes[k][o] = v; }
+__device__ __forceinline__ void store_run(__nv_bfloat16* p, const float (&v)[kPairsJ], int n,
+                                          bool vec) {
+  if (vec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]), hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 w;
+    w.x = *reinterpret_cast<const uint32_t*>(&lo);
+    w.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPairsJ; ++q)
+      if (q < n) p[q] = __float2bfloat16_rn(v[q]);
+  }
+}
+
+// one map's value of one pair
+struct ValueStore {
+  float* v;
+  __device__ __forceinline__ void operator()(int, float x) const { *v = x; }
 };
 
-__global__ void __launch_bounds__(kTileJ * kTileI)
-pair_maps_kernel(const float* __restrict__ xyz, int L, int A, int mask,
-                 float* __restrict__ d_ca, float* __restrict__ d_cb,
-                 float* __restrict__ d_no, float* __restrict__ omega,
-                 float* __restrict__ theta, float* __restrict__ phi) {
-  __shared__ float si[kTileI * kSlotFloats];
-  __shared__ float sj[kTileJ * kSlotFloats];
+// The selected maps of one row's run of pairs, map by map: each map's
+// kPairsJ pairs are independent chains, stored as one run.  Map by map, a
+// thread needs only one map's values and the atoms that map reads.
+template <typename T>
+struct MapsRow {
+  int mask;
+  T* planes[6];
+  __device__ __forceinline__ void operator()(const PairI& I, const float* sjl, int64_t o, int n,
+                                             bool vec, bool) const {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int bit = 1 << k;
+      if (!(mask & bit)) continue;
+      V3 ca[kPairsJ] = {}, cb[kPairsJ] = {}, ox[kPairsJ] = {};
+      if (bit & (kDCa | kOmega)) load_j_atom(sjl, 0, ca);
+      if (bit & (kDCb | kOmega | kTheta | kPhi)) load_j_atom(sjl, 1, cb);
+      if (bit & kDNo) load_j_atom(sjl, 2, ox);
+      float v[kPairsJ];
+#pragma unroll
+      for (int q = 0; q < kPairsJ; ++q)
+        pair_maps_pair(I, pair_j(ca[q], cb[q], ox[q], bit), bit, Atan2f{}, ValueStore{&v[q]});
+      store_run(planes[k] + o, v, n, vec);
+    }
+  }
+};
 
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTileI;
-  const int j0 = blockIdx.x * kTileJ;
-  const int tid = threadIdx.y * kTileJ + threadIdx.x;
-  const int64_t res_stride = (int64_t)A * 3;
-  const float* base = xyz + (int64_t)b * L * res_stride;
+// 64 registers a thread, 4 blocks (32 warps) an SM: the arithmetic is what
+// bounds K1, and more warps hide more of its latency (PERF.md)
+template <typename T>
+__global__ void __launch_bounds__(kPairThreads, 4)
+pair_maps_kernel(const float* __restrict__ xyz, int B, int L, int A, PairPlan plan, MapsRow<T> row) {
+  pair_tiles<3>(xyz, B, L, A, plan, row.mask, row);
+}
 
-  stage_slots(sj, base, j0, kTileJ, L, res_stride, tid, kTileJ * kTileI);
-  stage_slots(si, base, i0, kTileI, L, res_stride, tid, kTileJ * kTileI);
-  __syncthreads();
-
-  const int i = i0 + threadIdx.y;
-  const int j = j0 + threadIdx.x;
-  if (i >= L || j >= L) return;
-
-  pair_maps_at(si + threadIdx.y * kSlotFloats, sj + threadIdx.x * kSlotFloats, mask, Atan2f{},
-               PlaneStore{{d_ca, d_cb, d_no, omega, theta, phi}, ((int64_t)b * L + i) * L + j});
+template <typename T>
+int launch(int device, const float* xyz, int B, int L, int A, int mask, T* d_ca, T* d_cb,
+           T* d_no, T* omega, T* theta, T* phi, PairPlan plan, void* stream) {
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  MapsRow<T> row{mask, {d_ca, d_cb, d_no, omega, theta, phi}};
+  for (int k = 0; k < 6; ++k)
+    if (((mask >> k) & 1) && reinterpret_cast<uintptr_t>(row.planes[k]) % 16) return -2;
+  if (B <= 0 || L <= 0) return (int)cudaSuccess;
+  if (!plan_fits(plan, L)) return -3;
+  pair_maps_kernel<T><<<plan.grid, kPairThreads, 0, (cudaStream_t)stream>>>(xyz, B, L, A, plan, row);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // xyz: contiguous f32 (B, L, A, 3) with A >= 5, on `device`.  Each selected
-// map pointer is a contiguous f32 (B, L, L) buffer; unselected ones may be
-// null.  Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// The calling thread's current device is the same after the call.
+// map pointer is a contiguous (B, L, L) buffer starting on a 16-byte
+// boundary; unselected ones may be null.  `plan` is the walk
+// ops/pair_maps.py tile_plan lays out for (B, L).  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched), -2 for a misaligned plane or -3
+// for a plan the kernel cannot take (pair_maps.cuh plan_fits).  The calling
+// thread's current device is the same after the call.
 extern "C" int ps_pair_maps_f32(int device, const float* xyz, int B, int L, int A,
                                 int mask, float* d_ca, float* d_cb, float* d_no,
-                                float* omega, float* theta, float* phi,
+                                float* omega, float* theta, float* phi, PairPlan plan,
                                 void* stream) {
-  DeviceScope scope(device);
-  if (scope.err != cudaSuccess) return (int)scope.err;
-  if (B <= 0 || L <= 0) return (int)cudaSuccess;
-  dim3 block(kTileJ, kTileI);
-  dim3 grid((L + kTileJ - 1) / kTileJ, (L + kTileI - 1) / kTileI, B);
-  pair_maps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      xyz, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi);
-  return (int)cudaGetLastError();
+  return launch(device, xyz, B, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan, stream);
+}
+
+// The same maps as bf16 planes (ps_pair_maps_f32's values rounded to
+// nearest even).
+extern "C" int ps_pair_maps_bf16(int device, const float* xyz, int B, int L, int A,
+                                 int mask, __nv_bfloat16* d_ca, __nv_bfloat16* d_cb,
+                                 __nv_bfloat16* d_no, __nv_bfloat16* omega,
+                                 __nv_bfloat16* theta, __nv_bfloat16* phi, PairPlan plan,
+                                 void* stream) {
+  return launch(device, xyz, B, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan, stream);
 }

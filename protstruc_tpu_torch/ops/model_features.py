@@ -21,6 +21,8 @@ CUDA tensor launches the kernel in ``csrc/model_features.cu`` (or raises), a
 CPU tensor takes :func:`_model_features_plain`, the same formulas and
 rounding points in plain PyTorch.  :func:`model_inputs` adds the pair mask
 (CB present and finite at both ends) for ``featurize_for_model(fused=True)``.
+The kernel walks ``(B, L, L)`` as K1 does, by the plan ``ops.pair_maps.tile_plan``
+lays out.
 """
 
 from __future__ import annotations
@@ -32,14 +34,23 @@ import numpy as np
 import torch
 
 from protstruc_tpu_torch.ops import cuda_lib
-from protstruc_tpu_torch.ops.pair_maps import _cross, _dot, _eq3, _sub
+from protstruc_tpu_torch.ops.pair_maps import (
+    _check_xyz,
+    _cross,
+    _dot,
+    _eq3,
+    _PlanC,
+    _sub,
+    launch_error,
+    plan_arg,
+    tile_plan,
+)
 from protstruc_tpu_torch.vocab import ATOM
 
 __all__ = ["model_features", "model_inputs", "load_library", "library_path", "LAUNCHES"]
 
 _SOURCES = ("model_features.cu",)
 _ANG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Z = 65535
 _N, _CA, _CB = int(ATOM.N), int(ATOM.CA), int(ATOM.CB)
 
 #: Kernel launches made by :func:`model_features` in this process.
@@ -59,7 +70,7 @@ def load_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * 2 + [_PlanC, ctypes.c_void_p])
     return lib
 
 
@@ -85,15 +96,8 @@ def model_features(xyz: torch.Tensor, n_bins: int = 36, max_dist: float = 20.0,
 
 def _model_features_cuda(xyz, n_bins, max_dist, ang_dtype):
     global LAUNCHES
-    if xyz.dtype != torch.float32:
-        raise TypeError(f"model_features kernel takes float32 xyz, got {xyz.dtype}")
-    if xyz.dim() != 4 or xyz.shape[-1] != 3 or xyz.shape[2] < 5:
-        raise ValueError(f"model_features kernel takes xyz (B, L, A>=5, 3), got {tuple(xyz.shape)}")
-    if not xyz.is_contiguous():
-        raise ValueError("model_features kernel takes a contiguous xyz")
+    _check_xyz(xyz, "model_features", max_batch=None)
     B, L, A, _ = xyz.shape
-    if B > _MAX_GRID_Z:
-        raise ValueError(f"model_features kernel takes B <= {_MAX_GRID_Z}, got {B}")
     bins = torch.empty((B, L, L), dtype=torch.int32, device=xyz.device)
     ang = torch.empty((B, L, L, 6), dtype=ang_dtype, device=xyz.device)
     if B == 0 or L == 0:
@@ -102,9 +106,10 @@ def _model_features_cuda(xyz, n_bins, max_dist, ang_dtype):
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     err = lib.ps_model_features(xyz.device.index, xyz.data_ptr(), B, L, A, n_bins,
                                 _ratio(n_bins, max_dist), float(max_dist),
-                                _ANG_DTYPES[ang_dtype], bins.data_ptr(), ang.data_ptr(), stream)
+                                _ANG_DTYPES[ang_dtype], bins.data_ptr(), ang.data_ptr(),
+                                plan_arg(tile_plan(B, L)), stream)
     if err != 0:
-        raise RuntimeError(f"model_features kernel launch failed with CUDA error {err}")
+        raise launch_error("model_features", err)
     LAUNCHES += 1
     return bins, ang
 

@@ -15,13 +15,18 @@ backward (``csrc/pair_maps.cu``, ``csrc/pair_maps_bwd.cu``) or raises, a CPU
 tensor takes the plain versions :func:`_pair_maps_plain` and
 :func:`_maps_bwd_plain`, the same functions written in plain PyTorch (same
 formulas and order of operations, same equality-based pinning and guards,
-same NaN rules).
+same NaN rules).  :func:`pairwise_maps_forward` is the forward alone, in
+f32 or, as ``pairwise_maps_pallas(out_dtype=bfloat16)``, bf16 planes.
+
+K1 and K3 (``ops/model_features.py``) share one tile skeleton
+(``csrc/pair_maps.cuh``); :func:`tile_plan` lays out the walk that their
+wrappers hand to every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -29,21 +34,88 @@ from torch.autograd.function import once_differentiable
 from protstruc_tpu_torch.ops import cuda_lib
 from protstruc_tpu_torch.vocab import ATOM
 
-__all__ = ["MAP_NAMES", "pairwise_maps", "maps_bwd", "trrosetta_features", "load_library",
-           "load_bwd_library", "bwd_library_path", "LAUNCHES", "BWD_LAUNCHES"]
+__all__ = ["MAP_NAMES", "pairwise_maps", "pairwise_maps_forward", "maps_bwd", "trrosetta_features",
+           "load_library", "load_bwd_library", "bwd_library_path", "tile_plan", "TilePlan",
+           "LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES"]
 
 #: The six maps, in the order of the kernel's bitmask.
 MAP_NAMES = ("d_ca", "d_cb", "d_no", "omega", "theta", "phi")
 _SOURCES = ("pair_maps.cu",)
 _BWD_SOURCES = ("pair_maps_bwd.cu",)
 
-#: K1 launches made by :func:`pairwise_maps` in this process.
+#: K1 launches with f32 planes made by :func:`pairwise_maps` and
+#: :func:`pairwise_maps_forward` in this process.
 LAUNCHES = 0
+#: K1 launches with bf16 planes (``pairwise_maps_forward(out_dtype=bfloat16)``).
+BF16_LAUNCHES = 0
 #: K2 launches made by :func:`maps_bwd` (the backward of :func:`pairwise_maps`).
 BWD_LAUNCHES = 0
 
 _N, _CA, _O, _CB = int(ATOM.N), int(ATOM.CA), int(ATOM.O), int(ATOM.CB)
-_MAX_GRID_Z = 65535
+_MAX_GRID_Z = 65535       # K2's grid runs B along z
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+#: The tile shape of K1 and K3 (csrc/pair_maps.cuh): pairs a thread owns
+#: along j, the tile's j and i extent, warps a block.  The kernels refuse a
+#: plan of another shape (``plan_fits``).
+PAIR_TILE = (4, 128, 32, 8)
+_MAX_GRID = 2**31 - 1     # blocks a launch may have along x
+
+
+class TilePlan(NamedTuple):
+    """The walk K1 and K3 take over ``(B, L, L)``: tiles of ``tile_i`` rows
+    by ``tile_j`` columns of one batch entry, numbered ``t = (b * tiles_i +
+    ti) * tiles_j + tj``; block ``k`` of ``grid`` takes ``t = k, k + grid,
+    ...``.  In a tile, lane ``l`` of every warp owns columns ``j0 + pairs_j *
+    l`` and the ``pairs_j - 1`` after it, and warp ``w`` the rows ``w, w +
+    warps, ...``.  With ``vector`` every run of ``pairs_j`` pairs is one
+    vector store (16 bytes in f32 and int32 outputs and K3's 6-plane runs, 8
+    in bf16 planes); without it every pair takes scalar stores."""
+
+    B: int
+    L: int
+    pairs_j: int
+    tile_j: int
+    tile_i: int
+    warps: int
+    tiles_j: int
+    tiles_i: int
+    n_tiles: int
+    grid: int
+    vector: bool
+
+
+class _PlanC(ctypes.Structure):
+    """``PairPlan`` of csrc/pair_maps.cuh, the plan as the launch takes it."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("pairs_j", "tile_j", "tile_i", "warps", "tiles_j", "tiles_i", "grid", "vector")]
+
+
+def tile_plan(B: int, L: int) -> TilePlan:
+    """The walk K1 and K3 launch for ``xyz (B, L, ...)``: one block a tile
+    (up to the grid's limit, past which a block walks several), vector
+    stores when ``L`` is a multiple of ``pairs_j`` (every row then starts
+    on a multiple of 4 elements and every run is whole)."""
+    pairs_j, tile_j, tile_i, warps = PAIR_TILE
+    tiles_j, tiles_i = -(-L // tile_j), -(-L // tile_i)
+    n_tiles = B * tiles_i * tiles_j
+    return TilePlan(B, L, pairs_j, tile_j, tile_i, warps, tiles_j, tiles_i, n_tiles,
+                    min(n_tiles, _MAX_GRID), L % pairs_j == 0)
+
+
+def plan_arg(plan: TilePlan) -> _PlanC:
+    """``plan`` as the C entries of K1 and K3 take it."""
+    return _PlanC(*(int(getattr(plan, f)) for f, _ in _PlanC._fields_))
+
+
+def launch_error(what: str, err: int) -> RuntimeError:
+    """The error of a K1 or K3 launch that returned ``err``."""
+    if err == -3:
+        return RuntimeError(f"{what} kernel refused its tile plan (pair_maps.cuh plan_fits: a tile "
+                            f"shape other than {PAIR_TILE}, tiles short of L, or vector stores at "
+                            f"L % 4 != 0)")
+    return RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
 def _check_maps(maps: Sequence[str]) -> Tuple[str, ...]:
@@ -57,10 +129,10 @@ def _check_maps(maps: Sequence[str]) -> Tuple[str, ...]:
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the K1 library; raises if it cannot."""
     lib = cuda_lib.load("pair_maps", _SOURCES)
-    fn = lib.ps_pair_maps_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_void_p])
+    for fn in (lib.ps_pair_maps_f32, lib.ps_pair_maps_bf16):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 6 + [_PlanC, ctypes.c_void_p])
     return lib
 
 
@@ -101,7 +173,7 @@ class _PairMaps(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(xyz)
         ctx.maps = maps
-        out = _on_device(xyz, "pairwise_maps", _pair_maps_cuda, _pair_maps_plain)(xyz, maps)
+        out = pairwise_maps_forward(xyz, maps)
         return tuple(out[k] for k in maps)
 
     @staticmethod
@@ -125,6 +197,23 @@ def pairwise_maps(xyz: torch.Tensor,
     return dict(zip(maps, _PairMaps.apply(xyz, maps)))
 
 
+def pairwise_maps_forward(xyz: torch.Tensor, maps: Sequence[str] = MAP_NAMES,
+                          out_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """The requested maps of ``xyz (B, L, A, 3)``, each ``(B, L, L)`` of
+    ``out_dtype`` (float32 or bfloat16: computed in f32, rounded once to
+    nearest even), with no gradient: the counterpart of
+    ``pairwise_maps_pallas(out_dtype=...)``.  A CUDA tensor goes to K1, a CPU
+    tensor to ``_pair_maps_plain(...)`` cast to ``out_dtype``."""
+    maps = _check_maps(maps)
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if xyz.device.type == "cuda":
+        return _pair_maps_cuda(xyz, maps, out_dtype)
+    if xyz.device.type == "cpu":
+        return {k: v.to(out_dtype) for k, v in _pair_maps_plain(xyz, maps).items()}
+    raise ValueError(f"pairwise_maps has no implementation for device {xyz.device}")
+
+
 def maps_bwd(xyz: torch.Tensor,
              grads: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
     """``dxyz (B, L, A, 3)`` in ``xyz.dtype`` from the maps' cotangents.
@@ -138,35 +227,38 @@ def maps_bwd(xyz: torch.Tensor,
     return _on_device(xyz, "maps_bwd", _maps_bwd_cuda, _maps_bwd_plain)(xyz, grads)
 
 
-def _pair_maps_cuda(xyz: torch.Tensor, maps: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
-    global LAUNCHES
-    _check_xyz(xyz, "pair_maps")
+def _pair_maps_cuda(xyz: torch.Tensor, maps: Tuple[str, ...],
+                    out_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    global LAUNCHES, BF16_LAUNCHES
+    _check_xyz(xyz, "pair_maps", max_batch=None)
     B, L, A, _ = xyz.shape
-    outs = {k: torch.empty((B, L, L), dtype=torch.float32, device=xyz.device)
-            for k in maps}
+    outs = {k: torch.empty((B, L, L), dtype=out_dtype, device=xyz.device) for k in maps}
     if B == 0 or L == 0:
         return outs
     lib = load_library()
+    fn = lib.ps_pair_maps_f32 if out_dtype == torch.float32 else lib.ps_pair_maps_bf16
     bits = sum(1 << MAP_NAMES.index(k) for k in maps)
     ptrs = [outs[k].data_ptr() if k in outs else None for k in MAP_NAMES]
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = lib.ps_pair_maps_f32(xyz.device.index, xyz.data_ptr(), B, L, A, bits,
-                               *ptrs, stream)
+    err = fn(xyz.device.index, xyz.data_ptr(), B, L, A, bits, *ptrs, plan_arg(tile_plan(B, L)), stream)
     if err != 0:
-        raise RuntimeError(f"pair_maps kernel launch failed with CUDA error {err}")
-    LAUNCHES += 1
+        raise launch_error("pair_maps", err)
+    if out_dtype == torch.float32:
+        LAUNCHES += 1
+    else:
+        BF16_LAUNCHES += 1
     return outs
 
 
-def _check_xyz(xyz: torch.Tensor, what: str) -> None:
+def _check_xyz(xyz: torch.Tensor, what: str, max_batch: Optional[int] = _MAX_GRID_Z) -> None:
     if xyz.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32 xyz, got {xyz.dtype}")
     if xyz.dim() != 4 or xyz.shape[-1] != 3 or xyz.shape[2] < 5:
         raise ValueError(f"{what} kernel takes xyz (B, L, A>=5, 3), got {tuple(xyz.shape)}")
     if not xyz.is_contiguous():
         raise ValueError(f"{what} kernel takes a contiguous xyz")
-    if xyz.shape[0] > _MAX_GRID_Z:
-        raise ValueError(f"{what} kernel takes B <= {_MAX_GRID_Z}, got {xyz.shape[0]}")
+    if max_batch is not None and xyz.shape[0] > max_batch:
+        raise ValueError(f"{what} kernel takes B <= {max_batch}, got {xyz.shape[0]}")
 
 
 def _maps_bwd_cuda(xyz: torch.Tensor, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
