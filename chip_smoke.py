@@ -66,9 +66,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     fully-masked batch row, L = 17 (shorter than one 64-row block), q/k/v
     rows off 16-byte alignment (K8's narrow copies), the JAX smoke gate's
     shapes (bench.py:977-997: B=1, H=2, L=96, last 8 keys masked, dh 16, 64
-    and 128), B=1, H=1, dh=128, L=2048 (bf16; bench.py:1003-1012) and
+    and 128), B=1, H=1, dh=128, L=2048 (bf16; bench.py:1003-1012),
     bench.py's ``[attn]`` shape (B=1, H=8, dh=32, L=4096, last 100 keys
-    masked);
+    masked) and B*H past 65535 (f32, B=16400, H=4, dh=16, L=17);
 12. main path of the FoldModel slice: ``python -m protstruc_tpu_torch train``
     (in process) at ``experiments/fold_loo.py``'s configuration with
     ``--flash-attn`` (f32, B=4, crop 256, D=128, P=64, 4 heads, 4 blocks, 6
@@ -87,14 +87,16 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     at B=256, L=512; K8 and K9 at the train and ``[attn]``
     shapes, each beside its plain version and
     ``torch.nn.functional.scaled_dot_product_attention`` with the additive
-    mask (its forward, and its backward over a kept graph), with the
-    torch.profiler device time of K8 and of SDPA's forward kernels beside
-    the CUDA-event times;
+    mask (its forward, and its backward over a kept graph), then the
+    CUDA-event and torch.profiler device times of K8, K9, SDPA's forward,
+    SDPA's backward, and the whole flash backward (delta, K9 and dq = ds k:
+    what SDPA's backward computes);
 14. K2 vs its plain version on card tensors: ragged L = 37 and 300, the
     degenerate probes, bench.py's degenerate batch (CB = CA on every third
     residue, residue 7 = residue 3; must be finite), a NaN residue, a map
-    subset with a ``None`` cotangent, and B=256, L=512 (cotangents ``randn``
-    from a card generator seeded 1);
+    subset with a ``None`` cotangent, B=70000, L=5 (past 65535), and
+    B=256, L=512 (cotangents ``randn`` from a card generator seeded 1), run
+    twice: the two results must be the same bits;
 15. main path of the gradient through features: ``from_pdb`` on bundled
     PDBs, ``inter_residue_geometry(use_kernel=True)`` on a leaf ``xyz`` (as
     parsed, and with missing atoms at 0), a loss over the six maps under
@@ -146,8 +148,14 @@ computes the same function, that call's time.  The last line is
 
     python3 chip_smoke.py --flash-timing
 
-runs phases 1 and 13's K8/K9 timings alone (with K8's and SDPA's device
-times) and prints no result line;
+runs phases 1 and 13's K8/K9 timings alone (with the device times), after
+the K8/K9 library's ptxas lines, and prints no result line;
+
+    python3 chip_smoke.py --grad-timing
+
+runs phase 1, then K2 alone at B=256, L=512 (phase 16's inputs), CUDA-event
+and torch.profiler device times beside its bound, after the K2 library's
+ptxas lines, and prints no result line;
 
     python3 chip_smoke.py --pair-timing
 
@@ -473,6 +481,21 @@ def off_alignment(torch, t):
     return out
 
 
+def nested_name(mangled):
+    """The last name of a mangled ``_ZN<len><name>...E...`` entry (a kernel in
+    an anonymous namespace), else ``mangled``."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
 def ptxas_lines(log_path):
     """One line per kernel from an ``nvcc -Xptxas -v`` log: its (demangled
     enough) name, registers, stack and spills."""
@@ -486,7 +509,7 @@ def ptxas_lines(log_path):
             k = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E", m.group(1))
             args = re.findall(r"Li(\d+)E", k.group(3)) if k else []
             name = (f"{k.group(1)}<{', '.join(['float' if k.group(2) == 'f' else 'bf16', *args])}>"
-                    if k else m.group(1))
+                    if k else nested_name(m.group(1)))
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -670,18 +693,19 @@ def k3_parity(torch, dev):
     return worst, total_mis
 
 
-FLASH_SHAPES = (  # (label, B, H, dh, L, bf16 only)
-    ("train", 4, 4, 32, 256, False),         # the FoldModel train step's node attention
-    ("train-contig", 4, 4, 32, 256, False),  # the same with a contiguous bias
-    ("ragged", 2, 4, 32, 37, False),         # batch row 1 fully masked
-    ("ragged", 2, 4, 32, 300, False),
-    ("ragged", 1, 2, 32, 17, False),         # shorter than one 64-row block
-    ("unaligned", 2, 4, 32, 70, False),      # q/k/v rows off 16-byte alignment
-    ("gate", 1, 2, 16, 96, False),           # bench.py:977-997: last 8 keys masked
-    ("gate", 1, 2, 64, 96, False),
-    ("gate", 1, 2, 128, 96, False),
-    ("wide", 1, 1, 128, 2048, True),         # bench.py:1003-1012
-    ("attn", 1, 8, 32, 4096, False),         # bench.py [attn]: last 100 keys masked
+FLASH_SHAPES = (  # (label, B, H, dh, L, dtypes: None for both, else the one)
+    ("train", 4, 4, 32, 256, None),          # the FoldModel train step's node attention
+    ("train-contig", 4, 4, 32, 256, None),   # the same with a contiguous bias
+    ("ragged", 2, 4, 32, 37, None),          # batch row 1 fully masked
+    ("ragged", 2, 4, 32, 300, None),
+    ("ragged", 1, 2, 32, 17, None),          # shorter than one 64-row block
+    ("unaligned", 2, 4, 32, 70, None),       # q/k/v rows off 16-byte alignment
+    ("gate", 1, 2, 16, 96, None),            # bench.py:977-997: last 8 keys masked
+    ("gate", 1, 2, 64, 96, None),
+    ("gate", 1, 2, 128, 96, None),
+    ("wide", 1, 1, 128, 2048, "bfloat16"),   # bench.py:1003-1012
+    ("attn", 1, 8, 32, 4096, None),          # bench.py [attn]: last 100 keys masked
+    ("many", 16400, 4, 16, 17, "float32"),   # B*H = 65600 blocks along grid x
 )
 
 
@@ -709,6 +733,8 @@ def flash_inputs(torch, dev, dtype, label, B, H, dh, L, seed=0):
         kmask[:, -100:] = False
     elif label == "gate":
         kmask[:, -8:] = False
+    elif label == "many":
+        kmask[::3, -2:] = False
     do = torch.randn((B, L, H, dh), generator=gen, device=dev).to(dtype)
     return q, k, v, bias, kmask, do
 
@@ -775,8 +801,8 @@ def flash_parity(torch, dev):
 
     worst = {"fwd": 0.0, "bwd": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, B, H, dh, L, bf16_only in FLASH_SHAPES:
-            if bf16_only and dtype != torch.bfloat16:
+        for label, B, H, dh, L, only in FLASH_SHAPES:
+            if only is not None and str(dtype) != f"torch.{only}":
                 continue
             args = flash_inputs(torch, dev, dtype, label, B, H, dh, L)
             errs = flash_vs_plain(torch, fa, args, f"{label} {str(dtype)[6:]} B={B} H={H} dh={dh} L={L}")
@@ -1149,8 +1175,9 @@ def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
     """K8 and K9 at one shape beside their plain versions and SDPA with the
     additive mask (forward without autograd; backward as one autograd.grad
     over a kept graph).  Returns ({fwd, bwd: (kernel ms, plain ms, SDPA ms,
-    bound ms, bound_by)}, the profiler's device ms a call of K8 and of SDPA's
-    forward, with SDPA's kernel names)."""
+    bound ms, bound_by)}, {name: (event ms, device ms, kernels)} for K8, K9,
+    SDPA's forward and backward, and the whole flash backward: delta, K9 and
+    dq = ds k, the work SDPA's backward does)."""
     import torch.nn.functional as F
 
     q, k, v, bias, kmask, do = flash_inputs(torch, dev, dtype, label, B, H, dh, L)
@@ -1160,6 +1187,11 @@ def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
     fwd_plain, fwd_ms, _ = alternate(lambda: fa._flash_fwd_plain(*fwd_args), lambda: fa.flash_fwd(*fwd_args))
     bwd_plain, bwd_ms, _ = alternate(lambda: fa._flash_bwd_plain(*bwd_args), lambda: fa.flash_bwd(*bwd_args))
     ds, dk, dv = fa.flash_bwd(*bwd_args)
+
+    def whole_bwd():
+        d = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        ds_, _, _ = fa.flash_bwd(q, k, v, bias, kmask, do, lse, d)
+        fa.dq_from_ds(ds_, k)
 
     # the forward on inputs that require no gradient, so SDPA may pick its
     # fastest kernel (cuDNN's takes no mask gradient); the backward on leaves
@@ -1173,34 +1205,42 @@ def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
         with torch.no_grad():
             F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask_f)
 
-    lib_fwd = cuda_time_ms(sdpa_fwd)
-    k8_dev, _ = device_ms(torch, lambda: fa.flash_fwd(*fwd_args))
-    sdpa_dev, sdpa_kernels = device_ms(torch, sdpa_fwd)
     o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     g = do.transpose(1, 2)
-    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt, mask), g, retain_graph=True))
+
+    def sdpa_bwd():
+        torch.autograd.grad(o, (qt, kt, vt, mask), g, retain_graph=True)
+
+    times = {}
+    for name, fn in (("K8", lambda: fa.flash_fwd(*fwd_args)), ("SDPA forward", sdpa_fwd),
+                     ("K9", lambda: fa.flash_bwd(*bwd_args)), ("SDPA backward", sdpa_bwd),
+                     ("flash backward (delta + K9 + dq)", whole_bwd)):
+        times[name] = (cuda_time_ms(fn), *device_ms(torch, fn))
     fwd_bound = bound(nbytes(q, k, v, bias, kmask, out, lse), flash_ops(kmask, H, dh, 2), dtype)
     bwd_bound = bound(nbytes(q, k, v, bias, kmask, do, lse, delta, ds, dk, dv),
                       flash_ops(kmask, H, dh, 4), dtype)
-    return ({"fwd": (fwd_ms, fwd_plain, lib_fwd, *fwd_bound),
-             "bwd": (bwd_ms, bwd_plain, lib_bwd, *bwd_bound)}, (k8_dev, sdpa_dev, sdpa_kernels))
+    return ({"fwd": (fwd_ms, fwd_plain, times["SDPA forward"][0], *fwd_bound),
+             "bwd": (bwd_ms, bwd_plain, times["SDPA backward"][0], *bwd_bound)}, times)
+
+
+FLASH_TIMING_SHAPES = (("train", "float32", 4, 4, 32, 256), ("attn", "bfloat16", 1, 8, 32, 4096))
 
 
 def flash_phase13(torch, dev, fa, smi):
     """Phase 13's K8/K9 timings at the train and ``[attn]`` shapes, printed;
     returns {label: flash_timings' times}."""
     flash_ms = {}
-    for label, dtype, B, H, dh, L in (("train", torch.float32, 4, 4, 32, 256),
-                                      ("attn", torch.bfloat16, 1, 8, 32, 4096)):
-        flash_ms[label], (k8_dev, sdpa_dev, sdpa_kernels) = flash_timings(
-            torch, dev, fa, label, dtype, B, H, dh, L)
+    for label, dtype, B, H, dh, L in FLASH_TIMING_SHAPES:
+        dtype = getattr(torch, dtype)
+        flash_ms[label], times = flash_timings(torch, dev, fa, label, dtype, B, H, dh, L)
         torch.cuda.empty_cache()
         for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms[label].items():
             say(f"phase 13 timing K{8 if part == 'fwd' else 9} ({part}) {label} {str(dtype)[6:]} B={B} "
                 f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
                 f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-        say(f"phase 13 device time K8 {label} [{smi}]: torch.profiler {k8_dev:.4f} ms a call, SDPA forward "
-            f"{sdpa_dev:.4f} ms a call ({'; '.join(n[:50] for n in sdpa_kernels)})")
+        for name, (ev, dv, names) in times.items():
+            say(f"phase 13 device time {name} {label} [{smi}]: CUDA events {ev:.4f} ms, torch.profiler "
+                f"{dv:.4f} ms a call ({'; '.join(kernel_name(n)[:60] for n in names)})")
     return flash_ms
 
 # -- K2 and the K1 probes ------------------------------------------------------
@@ -1265,6 +1305,115 @@ def masked_map_loss(torch, g, weights):
     return loss, cots
 
 
+def k2_parity(torch, dev, pair_maps, small, xyz):
+    """Phase 14: K2 against its plain version on card tensors (ragged L,
+    the degenerate probes and batch, a NaN residue, a map subset with a
+    ``None`` cotangent, B > 65535, and B=256, L=512 twice: the same bits);
+    returns (largest error, the full-size cotangents)."""
+    import numpy as np
+    from protstruc_tpu_torch.ops.pair_maps import MAP_NAMES
+
+    t0 = time.perf_counter()
+    k2_worst = 0.0
+    for seed, label in ((2, "B2 L37"), (2, "B2 L300"), (4, "probes")):
+        k2_worst = max(k2_worst, k2_case(torch, pair_maps, small[label], cotangents(
+            torch, small[label], seed, MAP_NAMES), label))
+    deg_np = np.random.RandomState(0).randn(2, 192, 15, 3).astype(np.float32) * 5  # bench.py:445-453
+    deg_np[:, ::3, 4] = deg_np[:, ::3, 1]     # CB == CA on every third residue
+    deg_np[:, 7] = deg_np[:, 3]               # residue 7 = residue 3
+    deg = torch.from_numpy(deg_np).to(dev)
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, deg, cotangents(torch, deg, 3, MAP_NAMES),
+                                     "degenerate", finite=True))
+    nan_np = np.random.RandomState(3).randn(1, 16, 15, 3).astype(np.float32) * 5
+    nan_np[:, 5, :4] = np.nan                 # residue 5's backbone missing
+    nan_x = torch.from_numpy(nan_np).to(dev)
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, nan_x, cotangents(torch, nan_x, 5, MAP_NAMES),
+                                     "NaN residue"))
+    sub_g = cotangents(torch, small["B2 L300"], 2, ("d_cb", "phi"))
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, small["B2 L300"], dict(sub_g, d_ca=None),
+                                     "subset, d_ca None"))
+    many = torch.from_numpy(np.random.RandomState(6).randn(70000, 5, 15, 3).astype(np.float32) * 5).to(dev)
+    k2_worst = max(k2_worst, k2_case(torch, pair_maps, many, cotangents(torch, many, 6, MAP_NAMES),
+                                     "B > 65535", finite=True))
+    del many
+    g_full = cotangents(torch, xyz, 1, MAP_NAMES)
+    got = pair_maps.maps_bwd(xyz, g_full)
+    again = pair_maps.maps_bwd(xyz, g_full)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)), "K2 full: two runs differ in their bits")
+    ref = torch.cat([pair_maps._maps_bwd_plain(xyz[b0:b0 + 32], {k: v[b0:b0 + 32] for k, v in g_full.items()})
+                     for b0 in range(0, B_FULL, 32)])
+    err, top = k2_check(torch, ref, got, "K2 full")
+    check(bool(torch.isfinite(got).all()), "K2 full: non-finite gradient")
+    k2_worst = max(k2_worst, err)
+    del got, again, ref
+    say(f"phase 14 parity K2 ok in {time.perf_counter() - t0:.2f} s: full B={B_FULL} L={L_FULL} max err "
+        f"{err:.3e} (max|ref| {top:.3e}; the plain version in batch chunks of 32), the same bits on two "
+        f"runs; largest over all cases {k2_worst:.3e}")
+    return k2_worst, g_full
+
+
+def sass_loop_mix(so_path, kernel):
+    """The static instructions of ``kernel``'s largest innermost loop (a span
+    from a backward branch's target to the branch that holds no other) in
+    the SASS of library
+    ``so_path`` (``cuobjdump -sass`` from the toolkit of nvcc): (count,
+    [(opcode, count)] largest first), or None without cuobjdump."""
+    import collections
+    from protstruc_tpu_torch.ops import cuda_lib
+
+    tool = pathlib.Path(cuda_lib.find_nvcc() or "nvcc").parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        if nested_name(body.split("\n", 1)[0].strip()) != kernel:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2)) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+        loops = [(int(t.group(1), 16), a) for a, txt in ins
+                 for t in [re.search(r"BRA\s.*?0x([0-9a-f]+)", txt)] if t and int(t.group(1), 16) < a]
+        inner = [ab for ab in loops if not any(o != ab and ab[0] <= o[0] and o[1] <= ab[1] for o in loops)]
+        if not inner:
+            return None
+        lo, hi = max(inner, key=lambda ab: ab[1] - ab[0])
+        ops = collections.Counter(re.sub(r"^@!?U?P\w+\s+", "", txt).split()[0].split(".")[0]
+                                  for a, txt in ins if lo <= a <= hi)
+        return sum(ops.values()), ops.most_common()
+    return None
+
+
+def grad_timing(torch, dev, smi):
+    """``--grad-timing``: K2 alone at B=256, L=512 with six random
+    cotangents (phase 16's inputs), CUDA-event and torch.profiler device
+    times, beside its bound, with the K2 library's ptxas lines, in whatever
+    checkout holds this script."""
+    import numpy as np
+    from protstruc_tpu_torch.ops import pair_maps as pm
+
+    t0 = time.perf_counter()
+    pm.load_bwd_library()
+    say(f"grad timing of {REPO}: K2 built or loaded in {time.perf_counter() - t0:.2f} s")
+    for ln in ptxas_lines(pm.bwd_library_path().with_suffix(".log")):
+        say(f"  ptxas K2: {ln}")
+    xyz = torch.from_numpy(np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32) * 10).to(dev)
+    g_full = cotangents(torch, xyz, 1, pm.MAP_NAMES)
+    got = pm.maps_bwd(xyz, g_full)
+    b_ms, b_by = bound(slot_bytes(xyz, K2_SLOTS) + nbytes(*g_full.values(), got),
+                       K2_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
+    ev = cuda_time_ms(lambda: pm.maps_bwd(xyz, g_full))
+    dv, names = device_ms(torch, lambda: pm.maps_bwd(xyz, g_full))
+    say(f"grad timing K2 B={B_FULL} L={L_FULL} six maps [{smi}]: event {ev:.4f} ms, device {dv:.4f} ms "
+        f"({'; '.join(kernel_name(n) for n in names)}); bound {b_ms:.4f} ms ({b_by})")
+    mix = sass_loop_mix(pm.bwd_library_path(), "pair_maps_bwd_kernel")
+    if mix:
+        n, ops = mix
+        fp = sum(c for op, c in ops if op in ("FADD", "FMUL", "FFMA", "MUFU"))
+        say(f"grad timing K2 SASS: the kernel's largest inner loop (its pairs) holds {n} instructions, {fp} of them "
+            f"FADD/FMUL/FFMA/MUFU: {', '.join(f'{op} {c}' for op, c in ops[:16])}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1273,8 +1422,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    if sys.argv[1:] not in ([], ["--flash-timing"], ["--tri-timing"], ["--pair-timing"]):
-        print("usage: python3 chip_smoke.py [--flash-timing | --tri-timing | --pair-timing]", file=sys.stderr)
+    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing")
+    if sys.argv[1:] not in ([], *([m] for m in modes)):
+        print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
     flash_only = sys.argv[1:] == ["--flash-timing"]
     tri_only = sys.argv[1:] == ["--tri-timing"]
@@ -1309,10 +1459,15 @@ def main():
         flash_attn.load_library()
         say(f"flash timing of {REPO}: {flash_attn.library_path().name} built or loaded in "
             f"{time.perf_counter() - t0:.2f} s")
+        for ln in ptxas_lines(flash_attn.library_path().with_suffix(".log")):
+            say(f"  ptxas: {ln}")
         flash_phase13(torch, dev, flash_attn, smi)
         return 0
     if sys.argv[1:] == ["--pair-timing"]:
         pair_timing(torch, dev, smi)
+        return 0
+    if sys.argv[1:] == ["--grad-timing"]:
+        grad_timing(torch, dev, smi)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -1627,37 +1782,7 @@ def main():
     flash_ms = flash_phase13(torch, dev, flash_attn, smi)
 
     # -- 14. K2 parity ---------------------------------------------------------------
-    t0 = time.perf_counter()
-    k2_worst = 0.0
-    for seed, label in ((2, "B2 L37"), (2, "B2 L300"), (4, "probes")):
-        k2_worst = max(k2_worst, k2_case(torch, pair_maps, small[label], cotangents(
-            torch, small[label], seed, MAP_NAMES), label))
-    deg_np = np.random.RandomState(0).randn(2, 192, 15, 3).astype(np.float32) * 5  # bench.py:445-453
-    deg_np[:, ::3, 4] = deg_np[:, ::3, 1]     # CB == CA on every third residue
-    deg_np[:, 7] = deg_np[:, 3]               # residue 7 = residue 3
-    deg = torch.from_numpy(deg_np).to(dev)
-    k2_worst = max(k2_worst, k2_case(torch, pair_maps, deg, cotangents(torch, deg, 3, MAP_NAMES),
-                                     "degenerate", finite=True))
-    nan_np = np.random.RandomState(3).randn(1, 16, 15, 3).astype(np.float32) * 5
-    nan_np[:, 5, :4] = np.nan                 # residue 5's backbone missing
-    nan_x = torch.from_numpy(nan_np).to(dev)
-    k2_worst = max(k2_worst, k2_case(torch, pair_maps, nan_x, cotangents(torch, nan_x, 5, MAP_NAMES),
-                                     "NaN residue"))
-    sub_g = cotangents(torch, small["B2 L300"], 2, ("d_cb", "phi"))
-    k2_worst = max(k2_worst, k2_case(torch, pair_maps, small["B2 L300"], dict(sub_g, d_ca=None),
-                                     "subset, d_ca None"))
-    g_full = cotangents(torch, xyz, 1, MAP_NAMES)
-    got = pair_maps.maps_bwd(xyz, g_full)
-    torch.cuda.synchronize()
-    ref = torch.cat([pair_maps._maps_bwd_plain(xyz[b0:b0 + 32], {k: v[b0:b0 + 32] for k, v in g_full.items()})
-                     for b0 in range(0, B_FULL, 32)])
-    err, top = k2_check(torch, ref, got, "K2 full")
-    check(bool(torch.isfinite(got).all()), "K2 full: non-finite gradient")
-    k2_worst = max(k2_worst, err)
-    del got, ref
-    say(f"phase 14 parity K2 ok in {time.perf_counter() - t0:.2f} s: full B={B_FULL} L={L_FULL} max err "
-        f"{err:.3e} (max|ref| {top:.3e}; the plain version in batch chunks of 32); largest over all "
-        f"cases {k2_worst:.3e}")
+    k2_worst, g_full = k2_parity(torch, dev, pair_maps, small, xyz)
 
     # -- 15. main path: gradient through features ------------------------------------
     weights = dict(zip(MAP_NAMES, np.random.RandomState(4).randn(6).tolist()))

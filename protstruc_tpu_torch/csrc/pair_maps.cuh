@@ -1,7 +1,7 @@
 // The per-pair arithmetic of the trRosetta pair maps, shared by K1
 // (pair_maps.cu), its backward K2 (pair_maps_bwd.cu) and the roofline probes
 // (pair_maps_probe.cu), so that every library evaluates one copy of it, and
-// the tile skeleton that K1 and K3 (model_features.cu) run.  The libraries
+// the tile skeleton that K1, K2 and K3 (model_features.cu) run.  The libraries
 // that include it are built with -fmad=false (ops/cuda_lib.py): each product
 // and sum rounds once, in the order the plain PyTorch versions
 // (ops/pair_maps.py, ops/model_features.py) evaluate them.
@@ -177,15 +177,20 @@ __device__ __forceinline__ void stage_slots(float* dst, const float* base, int r
 }
 
 // ---------------------------------------------------------------------------
-// The tile skeleton of K1 and K3.
+// The tile skeleton of K1, K2 and K3.
 //
 // A block of kPairWarps warps owns tiles of kPairTileI i-rows by kPairTileJ
-// j-columns of one batch entry.  Lane l of every warp owns the kPairsJ
+// j-columns of one batch entry; warp w walks the tile's rows w, w +
+// kPairWarps, ...  In K1 and K3 lane l of every warp owns the kPairsJ
 // consecutive columns j0 + kPairsJ l ..., so a warp spans the tile's width
 // and writes 16 contiguous bytes a lane, 512 a warp, of each f32 output row;
-// warp w walks the tile's rows w, w + kPairWarps, ...  A thread builds the
-// i-side of each of its rows once (PairI) and evaluates the row's kPairsJ
-// pairs as kPairsJ independent chains.
+// a thread builds the i-side of each of its rows once (PairI) and evaluates
+// the row's kPairsJ pairs as kPairsJ independent chains.  K2 (the strided
+// walk) reads a cotangent per pair instead of writing a value: lane l owns
+// the columns j0 + l + 32 q (q < kPairsJ), so that each of a warp's loads is
+// 128 contiguous bytes, every lane walks every row (K2 sums a row over the
+// warp's lanes), and after the tile's rows the block meets at a barrier and
+// runs the caller's end-of-tile work.
 //
 // The walk is planned by the wrappers (ops/pair_maps.py tile_plan) and
 // handed to the launch as a PairPlan: the tile shape (checked against the
@@ -279,19 +284,39 @@ __device__ __forceinline__ V3 load_j_one(const float* sjl, int a, int q) {
   return V3{c[0], c[1], c[2]};
 }
 
+// Where a tile lies: batch entry b, tile row ti and column tj, first row i0
+// and column j0.
+struct PairTile {
+  int64_t b;
+  int ti, tj, i0, j0;
+};
+
+// no end-of-tile work (K1, K3)
+struct NoTileEnd {
+  __device__ __forceinline__ void operator()(const PairTile&) const {}
+};
+
 // Walk the tiles of (B, L) that plan p lays out, with a kPairThreads-thread
-// block.  NJ = 3 stages the j-side CA, CB, O (K1), NJ = 2 CA and CB (K3);
+// block.  NJ = 3 stages the j-side CA, CB, O (K1, K2), NJ = 2 CA and CB (K3);
 // `mask` selects the i-side terms to build (K1's map bitmask; K3 all of
-// them).  `row(I, sjl, o, nj, vec, wide)` evaluates and stores the pairs
-// (b, i, j .. j + nj - 1) of residue i's side I and the lane's staged
-// columns sjl (load_j_atom, load_j_one), the first at element o of a
-// (B, L, L) output, by vector stores when `vec`; `wide` (the same in every
-// lane of the warp) when the plan stores vectors and the tile is whole, so
-// that every lane of the warp holds a whole run and the warp's runs are one
-// contiguous stretch.
-template <int NJ, class Row>
+// them).
+//  * Not Strided (K1, K3): `row(I, sjl, o, nj, vec, wide)` evaluates and
+//    stores the pairs (b, i, j .. j + nj - 1) of residue i's side I and the
+//    lane's staged columns sjl (load_j_atom, load_j_one), the first at
+//    element o of a (B, L, L) output, by vector stores when `vec`; `wide`
+//    (the same in every lane of the warp) when the plan stores vectors and
+//    the tile is whole, so that every lane of the warp holds a whole run and
+//    the warp's runs are one contiguous stretch.  A lane with no column of
+//    the tile idles.
+//  * Strided (K2): `row(ri, sjl, tile, i)` takes row i of `tile` in every
+//    lane, with residue i's staged N, CA, CB at ri and the lane's first
+//    staged column at sjl (its column q at sjl + 32 q, each component
+//    kJStride floats apart); then, once every warp is done with the tile,
+//    `tile_end(tile)`.
+template <int NJ, bool Strided = false, class Row, class TileEnd = NoTileEnd>
 __device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B, int L, int A,
-                                           PairPlan p, int mask, const Row& row) {
+                                           PairPlan p, int mask, const Row& row,
+                                           const TileEnd& tile_end = TileEnd{}) {
   __shared__ float si[kPairTileI * 9];
   __shared__ __align__(16) float sj[3 * NJ * kJStride];
 
@@ -306,6 +331,7 @@ __device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B,
     const int64_t b = bi / p.tiles_i;
     const int i0 = ti * kPairTileI, j0 = tj * kPairTileJ;
     const float* base = xyz + b * L * res_stride;
+    const PairTile tile{b, ti, tj, i0, j0};
 
     __syncthreads();  // the previous tile's reads of si and sj are done
     for (int k = tid; k < kPairTileI * 9; k += kPairThreads) {
@@ -318,18 +344,26 @@ __device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B,
     }
     __syncthreads();
 
-    const int jt = j0 + kPairsJ * lane;
-    if (jt >= L) continue;
+    const int jt = j0 + (Strided ? lane : kPairsJ * lane);
+    if (!Strided && jt >= L) continue;
     const int nj = min(kPairsJ, L - jt);
-    const float* sjl = sj + kPairsJ * lane;
+    const float* sjl = sj + (jt - j0);
     const bool vec = p.vector != 0, wide = vec && j0 + kPairTileJ <= L;
 
     for (int r = warp; r < kPairTileI; r += kPairWarps) {
       const int i = i0 + r;
       if (i >= L) break;
       const float* ri = si + r * 9;
-      const PairI I = pair_i(load3(ri, 0), load3(ri, 1), load3(ri, 2), mask);
-      row(I, sjl, (b * L + i) * L + jt, nj, vec, wide);
+      if constexpr (Strided) {
+        row(ri, sjl, tile, i);
+      } else {
+        const PairI I = pair_i(load3(ri, 0), load3(ri, 1), load3(ri, 2), mask);
+        row(I, sjl, (b * L + i) * L + jt, nj, vec, wide);
+      }
+    }
+    if constexpr (Strided) {
+      __syncthreads();  // every warp's rows of the tile are done
+      tile_end(tile);
     }
   }
 }

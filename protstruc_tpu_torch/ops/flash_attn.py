@@ -9,8 +9,9 @@ allows, computed without the ``(B, H, L, L)`` probabilities in device memory:
 * K8 (forward) streams key tiles through an online softmax on the tensor
   cores (``mma.sync``: bf16, or float32 as three TF32 products) and returns
   the output and the per-row logsumexp ``lse (B, H, L)``;
-* K9 (backward) recomputes ``p = exp(s - lse)`` per tile, accumulates dk
-  and dv per key tile and streams ``ds`` (the bias gradient) out;
+* K9 (backward) recomputes ``p = exp(s - lse)`` per tile on the tensor
+  cores (``mma.sync``, as K8), accumulates dk and dv per key tile and
+  streams ``ds`` (the bias gradient) out;
   ``delta = sum(dO * out)`` before it and ``dq = ds k * scale`` after it are
   plain PyTorch, as in the JAX package.
 
@@ -49,7 +50,6 @@ __all__ = ["flash_pair_bias_attention", "pair_bias_attention_reference", "flash_
 _SOURCES = ("flash_attn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
-_MAX_GRID_Y = 65535
 NEG = -1e30          # masked-logit sentinel
 LSE_MASKED = 1e30    # logsumexp pin of a query row with no allowed key
 
@@ -155,8 +155,6 @@ def _check(q, k, v, bias, kmask, *extra):
     B, L, H, dh = q.shape
     if dh not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernels take dh in {_HEAD_DIMS}, got {dh}")
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"flash attention kernels take B*H <= {_MAX_GRID_Y}, got {B * H}")
     for name, t in (("k", k), ("v", v), *extra):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "

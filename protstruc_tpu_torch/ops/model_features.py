@@ -96,7 +96,7 @@ def model_features(xyz: torch.Tensor, n_bins: int = 36, max_dist: float = 20.0,
 
 def _model_features_cuda(xyz, n_bins, max_dist, ang_dtype):
     global LAUNCHES
-    _check_xyz(xyz, "model_features", max_batch=None)
+    _check_xyz(xyz, "model_features")
     B, L, A, _ = xyz.shape
     bins = torch.empty((B, L, L), dtype=torch.int32, device=xyz.device)
     ang = torch.empty((B, L, L, 6), dtype=ang_dtype, device=xyz.device)

@@ -20,7 +20,8 @@ f32 or, as ``pairwise_maps_pallas(out_dtype=bfloat16)``, bf16 planes.
 
 K1 and K3 (``ops/model_features.py``) share one tile skeleton
 (``csrc/pair_maps.cuh``); :func:`tile_plan` lays out the walk that their
-wrappers hand to every launch.
+wrappers hand to every launch, and :func:`bwd_plan` K2's walk over the same
+kind of tiles.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from protstruc_tpu_torch.ops import cuda_lib
 from protstruc_tpu_torch.vocab import ATOM
 
 __all__ = ["MAP_NAMES", "pairwise_maps", "pairwise_maps_forward", "maps_bwd", "trrosetta_features",
-           "load_library", "load_bwd_library", "bwd_library_path", "tile_plan", "TilePlan",
-           "LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES"]
+           "load_library", "load_bwd_library", "bwd_library_path", "tile_plan", "bwd_plan",
+           "TilePlan", "LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES"]
 
 #: The six maps, in the order of the kernel's bitmask.
 MAP_NAMES = ("d_ca", "d_cb", "d_no", "omega", "theta", "phi")
@@ -52,25 +53,26 @@ BF16_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _N, _CA, _O, _CB = int(ATOM.N), int(ATOM.CA), int(ATOM.O), int(ATOM.CB)
-_MAX_GRID_Z = 65535       # K2's grid runs B along z
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
-#: The tile shape of K1 and K3 (csrc/pair_maps.cuh): pairs a thread owns
-#: along j, the tile's j and i extent, warps a block.  The kernels refuse a
-#: plan of another shape (``plan_fits``).
+#: The tile shape of K1, K2 and K3 (csrc/pair_maps.cuh): pairs a thread
+#: owns along j, the tile's j and i extent, warps a block.  The kernels
+#: refuse a plan of another shape (``plan_fits``).
 PAIR_TILE = (4, 128, 32, 8)
 _MAX_GRID = 2**31 - 1     # blocks a launch may have along x
 
 
 class TilePlan(NamedTuple):
-    """The walk K1 and K3 take over ``(B, L, L)``: tiles of ``tile_i`` rows
-    by ``tile_j`` columns of one batch entry, numbered ``t = (b * tiles_i +
-    ti) * tiles_j + tj``; block ``k`` of ``grid`` takes ``t = k, k + grid,
-    ...``.  In a tile, lane ``l`` of every warp owns columns ``j0 + pairs_j *
-    l`` and the ``pairs_j - 1`` after it, and warp ``w`` the rows ``w, w +
-    warps, ...``.  With ``vector`` every run of ``pairs_j`` pairs is one
-    vector store (16 bytes in f32 and int32 outputs and K3's 6-plane runs, 8
-    in bf16 planes); without it every pair takes scalar stores."""
+    """The walk K1, K2 and K3 take over ``(B, L, L)``: tiles of ``tile_i``
+    rows by ``tile_j`` columns of one batch entry, numbered ``t = (b *
+    tiles_i + ti) * tiles_j + tj``; block ``k`` of ``grid`` takes ``t = k, k
+    + grid, ...``, and warp ``w`` of a block the rows ``w, w + warps, ...``
+    of a tile.  In K1 and K3 lane ``l`` of every warp owns columns ``j0 +
+    pairs_j * l`` and the ``pairs_j - 1`` after it; with ``vector`` every run
+    of ``pairs_j`` pairs is one vector store (16 bytes in f32 and int32
+    outputs and K3's 6-plane runs, 8 in bf16 planes), without it every pair
+    takes scalar stores.  In K2 lane ``l`` owns columns ``j0 + l + 32 q``
+    (``q < pairs_j``), each read by scalar loads, and ``vector`` is off."""
 
     B: int
     L: int
@@ -104,17 +106,30 @@ def tile_plan(B: int, L: int) -> TilePlan:
                     min(n_tiles, _MAX_GRID), L % pairs_j == 0)
 
 
+def bwd_plan(B: int, L: int) -> TilePlan:
+    """The walk K2 launches for ``xyz (B, L, ...)``: :func:`tile_plan`
+    without vector stores (K2 reads its cotangents by scalar loads, 128
+    contiguous bytes a warp, and stores only partials)."""
+    return tile_plan(B, L)._replace(vector=False)
+
+
+def bwd_scratch(plan: TilePlan) -> Tuple[int, int]:
+    """Floats of K2's partials under ``plan``: residue i's side per j-tile
+    ``(B, tiles_j, 9, L)``, residue j's per i-tile ``(B, tiles_i, 9, L)``."""
+    return plan.B * plan.tiles_j * 9 * plan.L, plan.B * plan.tiles_i * 9 * plan.L
+
+
 def plan_arg(plan: TilePlan) -> _PlanC:
     """``plan`` as the C entries of K1 and K3 take it."""
     return _PlanC(*(int(getattr(plan, f)) for f, _ in _PlanC._fields_))
 
 
 def launch_error(what: str, err: int) -> RuntimeError:
-    """The error of a K1 or K3 launch that returned ``err``."""
+    """The error of a K1, K2 or K3 launch that returned ``err``."""
     if err == -3:
-        return RuntimeError(f"{what} kernel refused its tile plan (pair_maps.cuh plan_fits: a tile "
-                            f"shape other than {PAIR_TILE}, tiles short of L, or vector stores at "
-                            f"L % 4 != 0)")
+        return RuntimeError(f"{what} kernel refused its tile plan (plan_fits: a tile shape other "
+                            f"than the kernel's, tiles short of L, or vector stores it cannot "
+                            f"make)")
     return RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
 
 
@@ -139,14 +154,10 @@ def load_library() -> ctypes.CDLL:
 def load_bwd_library() -> ctypes.CDLL:
     """Build (at first use) and load the K2 library; raises if it cannot."""
     lib = cuda_lib.load("pair_maps_bwd", _BWD_SOURCES)
-    lib.ps_pair_maps_bwd_scratch.restype = None
-    lib.ps_pair_maps_bwd_scratch.argtypes = [ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_longlong),
-                                             ctypes.POINTER(ctypes.c_longlong)]
     fn = lib.ps_pair_maps_bwd_f32
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_void_p] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_void_p] * 3 + [_PlanC, ctypes.c_void_p])
     return lib
 
 
@@ -230,7 +241,7 @@ def maps_bwd(xyz: torch.Tensor,
 def _pair_maps_cuda(xyz: torch.Tensor, maps: Tuple[str, ...],
                     out_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     global LAUNCHES, BF16_LAUNCHES
-    _check_xyz(xyz, "pair_maps", max_batch=None)
+    _check_xyz(xyz, "pair_maps")
     B, L, A, _ = xyz.shape
     outs = {k: torch.empty((B, L, L), dtype=out_dtype, device=xyz.device) for k in maps}
     if B == 0 or L == 0:
@@ -250,15 +261,13 @@ def _pair_maps_cuda(xyz: torch.Tensor, maps: Tuple[str, ...],
     return outs
 
 
-def _check_xyz(xyz: torch.Tensor, what: str, max_batch: Optional[int] = _MAX_GRID_Z) -> None:
+def _check_xyz(xyz: torch.Tensor, what: str) -> None:
     if xyz.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32 xyz, got {xyz.dtype}")
     if xyz.dim() != 4 or xyz.shape[-1] != 3 or xyz.shape[2] < 5:
         raise ValueError(f"{what} kernel takes xyz (B, L, A>=5, 3), got {tuple(xyz.shape)}")
     if not xyz.is_contiguous():
         raise ValueError(f"{what} kernel takes a contiguous xyz")
-    if max_batch is not None and xyz.shape[0] > max_batch:
-        raise ValueError(f"{what} kernel takes B <= {max_batch}, got {xyz.shape[0]}")
 
 
 def _maps_bwd_cuda(xyz: torch.Tensor, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -275,17 +284,18 @@ def _maps_bwd_cuda(xyz: torch.Tensor, grads: Dict[str, torch.Tensor]) -> torch.T
     if not gs or B == 0 or L == 0:
         return dxyz.zero_()
     lib = load_bwd_library()
-    n_i, n_j = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.ps_pair_maps_bwd_scratch(B, L, ctypes.byref(n_i), ctypes.byref(n_j))
-    part_i = torch.empty(n_i.value, dtype=torch.float32, device=xyz.device)
-    part_j = torch.empty(n_j.value, dtype=torch.float32, device=xyz.device)
+    plan = bwd_plan(B, L)
+    n_i, n_j = bwd_scratch(plan)
+    part_i = torch.empty(n_i, dtype=torch.float32, device=xyz.device)
+    part_j = torch.empty(n_j, dtype=torch.float32, device=xyz.device)
     bits = sum(1 << MAP_NAMES.index(k) for k in gs)
     ptrs = [gs[k].data_ptr() if k in gs else None for k in MAP_NAMES]
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     err = lib.ps_pair_maps_bwd_f32(xyz.device.index, xyz.data_ptr(), B, L, A, bits, *ptrs,
-                                   part_i.data_ptr(), part_j.data_ptr(), dxyz.data_ptr(), stream)
+                                   part_i.data_ptr(), part_j.data_ptr(), dxyz.data_ptr(),
+                                   plan_arg(plan), stream)
     if err != 0:
-        raise RuntimeError(f"pair_maps_bwd kernel launch failed with CUDA error {err}")
+        raise launch_error("pair_maps_bwd", err)
     BWD_LAUNCHES += 1
     return dxyz
 
@@ -446,24 +456,14 @@ def _pull_angle(g, a, b, c, deg):
     return ct_ba, _sub(_neg(ct_ba), ct_bc), ct_bc
 
 
-def _maps_bwd_plain(xyz: torch.Tensor,
-                    grads: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
-    """K2 in plain PyTorch: ``dxyz (B, L, A, 3)`` in ``xyz.dtype`` from up to
-    six ``(B, L, L)`` cotangents (a missing or ``None`` map contributes
-    nothing).
-
-    The JAX package's adjoint (pallas_pairwise.py ``_bwd_primal``,
-    ``_deg_masks``, ``_bwd_cotangents``) written out by hand in K2's order:
-    each pair's contributions to residue i's N, CA, CB and residue j's CA,
-    CB, O, summed map by map, then over j (i-side) and i (j-side).  Slots
-    other than N, CA, CB, O get exact zeros; NaN coordinates give NaN
-    gradients on the atoms they meet, as in the JAX package.
-    """
-    grads = {k: g for k, g in grads.items() if g is not None}
-    _check_maps(grads)
-    x = xyz.to(torch.float32)
-    B, L, A = x.shape[:3]
-    g = {k: v.to(torch.float32) for k, v in grads.items()}
+def _pair_contributions(x: torch.Tensor, g: Mapping[str, torch.Tensor]):
+    """Each pair's contributions to dxyz, map by map in K2's order, as
+    ``(side, slot, (cx, cy, cz))`` with side ``"i"`` (residue i's N, CA, CB)
+    or ``"j"`` (residue j's CA, CB, O) and each component a plane that
+    broadcasts to ``(B, L, L)``: the JAX package's adjoint
+    (pallas_pairwise.py ``_bwd_primal``, ``_deg_masks``,
+    ``_bwd_cotangents``) written out by hand.  ``x`` is f32 ``(B, L, A, 3)``,
+    ``g`` the f32 cotangents of the maps present."""
 
     def vi(slot):  # residue i -> (B, L, 1) planes
         return tuple(x[:, :, slot, k][:, :, None] for k in range(3))
@@ -473,11 +473,6 @@ def _maps_bwd_plain(xyz: torch.Tensor,
 
     n_i, ca_i, cb_i = vi(_N), vi(_CA), vi(_CB)
     ca_j, cb_j, o_j = vj(_CA), vj(_CB), vj(_O)
-    ai = {_N: None, _CA: None, _CB: None}   # per pair, summed over j below
-    aj = {_CA: None, _CB: None, _O: None}   # per pair, summed over i below
-
-    def acc(side, slot, v):
-        side[slot] = v if side[slot] is None else _add(side[slot], v)
 
     def pull_q(gq, u, v):
         return _scale(gq + gq, _sub(u, v))
@@ -486,36 +481,50 @@ def _maps_bwd_plain(xyz: torch.Tensor,
                               "d_no": (n_i, o_j, _N, _O)}.items():
         if k in g:
             c = pull_q(_d_dist(g[k], _dot(_sub(u, v), _sub(u, v))), u, v)
-            acc(ai, su, c)
-            acc(aj, sv, _neg(c))
+            yield "i", su, c
+            yield "j", sv, _neg(c)
     if "omega" in g:
         deg = ((_eq3(ca_i, ca_j) & _eq3(cb_i, cb_j)) | _eq3(ca_j, cb_j) | _eq3(ca_i, cb_i)
                | _eq3(cb_i, ca_j))
         ct = _pull_dihedral(g["omega"], ca_i, cb_i, ca_j, cb_j, deg)
-        acc(ai, _CA, ct[0])
-        acc(ai, _CB, ct[1])
-        acc(aj, _CA, ct[2])
-        acc(aj, _CB, ct[3])
+        yield from (("i", _CA, ct[0]), ("i", _CB, ct[1]), ("j", _CA, ct[2]), ("j", _CB, ct[3]))
     if "theta" in g:
         deg = ((_eq3(n_i, cb_i) & _eq3(ca_i, cb_j)) | _eq3(cb_i, cb_j) | _eq3(n_i, ca_i)
                | _eq3(ca_i, cb_i))
         ct = _pull_dihedral(g["theta"], n_i, ca_i, cb_i, cb_j, deg)
-        acc(ai, _N, ct[0])
-        acc(ai, _CA, ct[1])
-        acc(ai, _CB, ct[2])
-        acc(aj, _CB, ct[3])
+        yield from (("i", _N, ct[0]), ("i", _CA, ct[1]), ("i", _CB, ct[2]), ("j", _CB, ct[3]))
     if "phi" in g:
         deg = _eq3(ca_i, cb_i) | _eq3(cb_j, cb_i)
         ct = _pull_angle(g["phi"], ca_i, cb_i, cb_j, deg)
-        acc(ai, _CA, ct[0])
-        acc(ai, _CB, ct[1])
-        acc(aj, _CB, ct[2])
+        yield from (("i", _CA, ct[0]), ("i", _CB, ct[1]), ("j", _CB, ct[2]))
+
+
+def _maps_bwd_plain(xyz: torch.Tensor,
+                    grads: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """K2 in plain PyTorch: ``dxyz (B, L, A, 3)`` in ``xyz.dtype`` from up to
+    six ``(B, L, L)`` cotangents (a missing or ``None`` map contributes
+    nothing).
+
+    Each pair's contributions (:func:`_pair_contributions`) to residue i's
+    N, CA, CB and residue j's CA, CB, O, summed map by map, then over j
+    (i-side) and i (j-side).  Slots other than N, CA, CB, O get exact zeros;
+    NaN coordinates give NaN gradients on the atoms they meet, as in the JAX
+    package.
+    """
+    grads = {k: g for k, g in grads.items() if g is not None}
+    _check_maps(grads)
+    x = xyz.to(torch.float32)
+    B, L, A = x.shape[:3]
+    g = {k: v.to(torch.float32) for k, v in grads.items()}
+    sides = {"i": {}, "j": {}}   # per pair, summed over j (i-side) and i (j-side) below
+    for side, slot, v in _pair_contributions(x, g):
+        acc = sides[side]
+        acc[slot] = _add(acc[slot], v) if slot in acc else v
 
     dxyz = torch.zeros((B, L, A, 3), dtype=torch.float32, device=x.device)
-    for side, dim in ((ai, 2), (aj, 1)):
-        for slot, v in side.items():
-            if v is not None:
-                dxyz[:, :, slot] += torch.stack([c.expand(B, L, L).sum(dim) for c in v], -1)
+    for side, dim in (("i", 2), ("j", 1)):
+        for slot, v in sides[side].items():
+            dxyz[:, :, slot] += torch.stack([c.expand(B, L, L).sum(dim) for c in v], -1)
     return dxyz.to(xyz.dtype)
 
 

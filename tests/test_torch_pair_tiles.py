@@ -126,10 +126,14 @@ def test_tile_plan_grid_is_flat():
 
 
 def test_kernels_take_any_batch_but_k2_keeps_its_limit():
+    """All three pair kernels take any batch: K1, K3 and K2 each walk a flat
+    tile index, and no wrapper bounds B.  (The name dates from when K2 ran B
+    along a grid axis and refused B > 65535; it no longer keeps a limit.)"""
     x = torch.empty((70000, 4, 15, 3), device="meta")
-    pm._check_xyz(x, "pair_maps", max_batch=None)
-    with pytest.raises(ValueError, match="B <= 65535"):
-        pm._check_xyz(x, "pair_maps_bwd")
+    for what in ("pair_maps", "model_features", "pair_maps_bwd"):
+        pm._check_xyz(x, what)
+    for plan in (pm.tile_plan(70000, 4), pm.bwd_plan(70000, 4)):
+        assert plan.n_tiles == 70000 and plan.grid == plan.n_tiles
 
 
 def _fake_launch(monkeypatch, module, entry, err=0):
