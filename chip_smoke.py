@@ -112,6 +112,26 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     variant grid), P2 (packed outputs) and P3 (the block sweep) at B=256,
     L=512, the probe counter reset before each and read after; full
     against write-only splits K1's time into stores and the rest.
+18. the served and analysis path: ``serve_loop(device="cuda")`` over phase
+    12's checkpoint (ping, featurize of 1REX, analyze of 1REX, 4uuj, 8dtk,
+    6dc4 and 1ad0_DC, fold of 1REX, of 1ad0_DC's two chains and of 1REX
+    again, an unknown op, shutdown), the K4, K6 and K8 counters reset just
+    before the first fold (they must grow, K5, K7 and K9 must not), every
+    reply held to the same requests served on the CPU (analyze fields
+    equal, an SS difference only through H-bond energies within 1e-4 of the
+    cutoff, unrounded radius of gyration within 1e-5 max(1, |ref|); folded
+    coordinates within 1e-3 A and pLDDT within 1e-2, unrounded, and the
+    served PDBs within those plus one printed unit); ``analyze --ss8
+    --sasa`` of the bundled structures as one batch (finite), and of 1REX
+    (with SASA) and 15c8_HL against the CPU (each number within one unit of
+    its printed digit, SS8 strings equal); ``score`` of the served fold
+    against native 1REX, of 1REX and 1ad0_DC against themselves and of
+    1ad0_DC with chain 1 moved 8 A; ``convert`` 15c8_HL pdb -> cif -> pdb;
+    ``fold --relax 20``; then served request latency (p50, p90 of 20 after
+    one warm-up) of analyze (1REX, 4uuj) and fold (1REX, 1ad0_DC), one
+    fold of each under torch.profiler (K4, K6, K8 by name) and CUDA-event
+    times of ``sasa``, ``clash_energy`` and ``secondary_structure`` on the
+    bundled batch.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -164,6 +184,11 @@ has it) and K3 (bf16 and f32 planes) at B=256, L=512, CUDA-event and
 torch.profiler device times, and phase 6's featurization timing, with the
 K1 and K3 libraries' ptxas lines and the store path the launch plan gives
 each shape, and prints no result line;
+
+    python3 chip_smoke.py --serve
+
+runs phase 1, phase 12's train -> fold main path (for its checkpoint) and
+phase 18, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -1414,6 +1439,346 @@ def grad_timing(torch, dev, smi):
             f"FADD/FMUL/FFMA/MUFU: {', '.join(f'{op} {c}' for op, c in ops[:16])}")
 
 
+# -- the served and analysis path (phase 18) -------------------------------------
+SERVE_ANALYZE = ("1REX.pdb", "4uuj.pdb", "8dtk.pdb", "6dc4.pdb", "1ad0_DC.pdb")
+SERVE_FOLDS = ("1REX.pdb", "1ad0_DC.pdb", "1REX.pdb")  # held out (130), a complex (434), again
+SERVE_TIMED = 20     # timed requests of each kind, after one warm-up
+EVENT_REPS = 3       # CUDA-event repetitions of the batch analysis ops, after one warm-up
+FOLD_FWD = ("prologue_fwd", "epilogue_fwd", "fwd")   # K4, K6, K8: launched by a served fold
+FOLD_BWD = ("prologue_bwd", "epilogue_bwd", "bwd")   # K5, K7, K9: never
+# one unit of the last digit each analyze field prints (its round())
+ANALYZE_UNITS = {"radius_of_gyration_A": 1e-2, "relative_contact_order": 1e-4,
+                 "clash_energy": 1e-3, "helix_frac": 1e-3, "strand_frac": 1e-3,
+                 "rama_favored_frac": 1e-3, "rama_outlier_frac": 1e-3, "total_sasa_A2": 1e-1}
+SS_NEAR = 1e-4       # an H-bond energy this close to -0.5 kcal/mol may flip between devices
+
+
+def bundled_pdbs():
+    """The bundled structures, in name order."""
+    return sorted(str(p) for p in DATA.glob("*.pdb"))
+
+
+def fold_seq(name):
+    """A bundled structure's chains' sequences joined by ':' (the fold op's
+    multi-chain form), its non-standard residues (the parser's X, one in
+    1ad0_DC) as alanine: the PDB writer, the JAX package's too, has no
+    three-letter name for X."""
+    from protstruc_tpu_torch.pdbio.parser import parse_pdb
+
+    return ":".join(parse_pdb(str(DATA / name)).seq_dict().values()).replace("X", "A")
+
+
+class ServeClock:
+    """JSONL in and out of ``serve_loop`` with the host clock at each
+    request's read and each response's write; ``before(i, req)`` runs just
+    before request ``i`` is handed over."""
+
+    def __init__(self, reqs, before=None):
+        self.reqs, self.before = reqs, before
+        self.t_in, self.t_out, self.lines = [], [], []
+
+    def __iter__(self):
+        for i, req in enumerate(self.reqs):
+            if self.before is not None:
+                self.before(i, req)
+            self.t_in.append(time.perf_counter())
+            yield json.dumps(req)
+
+    def write(self, text):
+        if text.strip():
+            self.t_out.append(time.perf_counter())
+            self.lines.append(json.loads(text))
+
+    def flush(self):
+        pass
+
+    def ms(self):
+        """Wall ms of each request, read to response (the ready line first)."""
+        return [(b - a) * 1e3 for a, b in zip(self.t_in, self.t_out[1:])]
+
+
+def serve_clocked(serve_loop, reqs, before=None, **kw):
+    clock = ServeClock(reqs, before)
+    check(serve_loop(clock, clock, **kw) == 0, f"serve_loop({kw.get('device')}) returned non-zero")
+    check(len(clock.lines) == len(reqs) + 1, f"{len(clock.lines)} replies to {len(reqs)} requests")
+    return clock
+
+
+def served_requests(work, tag):
+    fold_out = [str(work / f"{tag}_fold{i}_{p}") for i, p in enumerate(SERVE_FOLDS)]
+    return ([{"op": "ping"},
+             {"op": "featurize", "path": str(DATA / "1REX.pdb"), "out": str(work / f"{tag}_1REX.npz")}]
+            + [{"op": "analyze", "path": str(DATA / p)} for p in SERVE_ANALYZE]
+            + [{"op": "fold", "seq": fold_seq(p), "out": o} for p, o in zip(SERVE_FOLDS, fold_out)]
+            + [{"op": "nope"}, {"op": "shutdown"}])
+
+
+def pdb_atoms(path):
+    """(record heads, xyz (n, 3), B-factors (n,)) of a PDB's ATOM lines."""
+    import numpy as np
+
+    rows = [ln for ln in open(path) if ln.startswith("ATOM")]
+    return ([ln[:30] for ln in rows],
+            np.array([[float(ln[30:38]), float(ln[38:46]), float(ln[46:54])] for ln in rows]),
+            np.array([float(ln[60:66]) for ln in rows]))
+
+
+def hbond_flips(torch, path, dev, ref_dev="cpu"):
+    """H-bond map entries that differ between two devices for one PDB, and
+    how many of those lie farther than SS_NEAR from the -0.5 cutoff."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.ops.secondary import hbond_energy_map
+
+    maps = []
+    for d in (ref_dev, dev):
+        sb = pt.StructureBatch.from_pdb(path, device=d)
+        maps.append(hbond_energy_map(*sb._backbone_nan0(), sb.residue_mask, sb.chain_idx).cpu())
+    ref, got = maps
+    diff = (ref < -0.5) != (got < -0.5)
+    return int(diff.sum()), int((diff & ((ref + 0.5).abs() >= SS_NEAR)).sum())
+
+
+def run_cli(cli, argv):
+    """``cli(argv)`` with its standard output and error captured."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a structure-conditioned checkpoint folds out of distribution
+        rc = cli(argv)
+    check(rc == 0, f"{argv[0]} returned {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def finite_numbers(obj):
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def compare_reports(torch, ref, got, paths, label, dev):
+    """Two ``analyze`` reports of the same files: every number within one
+    unit of its printed digit, strings equal (an SS8 difference must trace
+    to H-bond energies within SS_NEAR of the cutoff).  Returns the largest
+    difference of each numeric field."""
+    check(sorted(ref) == sorted(got), f"{label}: report keys {sorted(got)} vs {sorted(ref)}")
+    worst = {}
+    for key, unit in ANALYZE_UNITS.items():
+        if key in ref:
+            d = max(abs(a - b) for a, b in zip(ref[key], got[key]))
+            check(d <= unit * (1 + 1e-6), f"{label}: {key} {got[key]} vs {ref[key]}")
+            worst[key] = d
+    check(ref["n_residues"] == got["n_residues"] and ref["n_structures"] == got["n_structures"],
+          f"{label}: sizes {got['n_residues']} vs {ref['n_residues']}")
+    for i, (a, b) in enumerate(zip(ref.get("dssp8", []), got.get("dssp8", []))):
+        if a != b:
+            flips, far = hbond_flips(torch, paths[i], dev)
+            check(far == 0, f"{label}: dssp8 of {paths[i]} differs with {far} H-bond flips far "
+                            f"from the cutoff")
+            say(f"  phase 18 {label}: dssp8 of {paths[i]} differs through {flips} H-bond energies "
+                f"within {SS_NEAR} of the cutoff")
+    return worst
+
+
+def percentiles(ms):
+    s = sorted(ms)
+    return s[len(s) // 2], s[min(len(s) - 1, int(0.9 * len(s)))]
+
+
+def event_ms(torch, fn, reps=EVENT_REPS):
+    """CUDA-event ms of one call of ``fn`` over ``reps`` calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def served_path(torch, dev, smi, ck, work):
+    """Phase 18: the server's analyze and fold ops, the analyze, score and
+    convert commands and fold --relax on the card, each held to the CPU;
+    then their request latencies.  ``ck`` is phase 12's checkpoint."""
+    import numpy as np
+
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.__main__ import main as cli, serve_loop
+    from protstruc_tpu_torch.ops import flash_attn, tri_mul
+    from protstruc_tpu_torch.pdbio.parser import parse_pdb
+    from protstruc_tpu_torch.pdbio.writer import structure_batch_to_pdb
+    from protstruc_tpu_torch.train import fold_with_model, load_fold_model
+
+    def fold_launches():
+        return {**{k: tri_mul.LAUNCHES[k] for k in FOLD_FWD[:2] + FOLD_BWD[:2]},
+                **{f"flash_{k}": flash_attn.LAUNCHES[k] for k in ("fwd", "bwd")}}
+
+    # 1. the server on the card, then the same requests on the CPU
+    def reset_at_first_fold(i, req):
+        if req["op"] == "fold" and not any(r["op"] == "fold" for r in reqs[:i]):
+            reset_launches(tri_mul, flash_attn)
+
+    t0 = time.perf_counter()
+    reqs = served_requests(work, "card")
+    card = serve_clocked(serve_loop, reqs, reset_at_first_fold, checkpoint_dir=str(ck),
+                         buckets=(256, 512), device=str(dev))
+    launches = fold_launches()
+    card_s = time.perf_counter() - t0
+    for k in ("prologue_fwd", "epilogue_fwd", "flash_fwd"):
+        check(launches[k] > 0, f"the served fold launched {k} no time: {launches}")
+    for k in ("prologue_bwd", "epilogue_bwd", "flash_bwd"):
+        check(launches[k] == 0, f"the served fold launched {k} {launches[k]} times: {launches}")
+    cpu = serve_clocked(serve_loop, served_requests(work, "cpu"), checkpoint_dir=str(ck),
+                        buckets=(256, 512), device="cpu")
+    for i, (r, g) in enumerate(zip(cpu.lines, card.lines)):
+        req = reqs[i - 1] if i else {"op": "ready"}
+        if req["op"] in ("fold", "featurize"):
+            check(g.get("ok") and sorted(g) == sorted(r), f"{req['op']} reply {g} vs CPU {r}")
+        elif req["op"] == "analyze":
+            same = {k: g.get(k) == r.get(k) for k in ("ok", "n_residues", "helix_frac", "strand_frac")}
+            if not all(same.values()):
+                flips, far = hbond_flips(torch, req["path"], dev)
+                check(g.get("ok") and same["n_residues"] and far == 0,
+                      f"analyze {req['path']}: {g} vs CPU {r} ({far} H-bond flips far from the cutoff)")
+                say(f"  phase 18 analyze {req['path']}: SS fractions differ through {flips} H-bond "
+                    f"energies within {SS_NEAR} of the cutoff")
+        else:  # ready, ping, the unknown op's error, shutdown
+            check(g == r, f"{req['op']} reply {g} vs CPU {r}")
+    rg_err = 0.0
+    for p in SERVE_ANALYZE:
+        ref = float(pt.StructureBatch.from_pdb(str(DATA / p), device="cpu").radius_of_gyration()[0])
+        got = float(pt.StructureBatch.from_pdb(str(DATA / p), device=dev).radius_of_gyration()[0])
+        check(abs(got - ref) <= 1e-5 * max(1.0, abs(ref)), f"Rg of {p}: card {got!r} vs CPU {ref!r}")
+        rg_err = max(rg_err, abs(got - ref))
+    pdb_err = [0.0, 0.0]
+    for r, g in zip(cpu.lines, card.lines):
+        if "mean_plddt" in g:
+            (hr, xr, br), (hg, xg, bg) = pdb_atoms(r["out"]), pdb_atoms(g["out"])
+            check(hr == hg, f"folded {g['out']}: atom records differ from the CPU's")
+            # the PDB prints 3 and 2 decimals: one more unit of each beside the bound
+            pdb_err = [max(pdb_err[0], float(np.abs(xg - xr).max())), max(pdb_err[1], float(np.abs(bg - br).max()))]
+    check(pdb_err[0] <= 2e-3 and pdb_err[1] <= 2e-2, f"served PDBs card vs CPU: max |dxyz| "
+          f"{pdb_err[0]}, max |dpLDDT| {pdb_err[1]}")
+    models = {d: load_fold_model(str(ck), device=d) for d in ("cpu", dev)}
+    fold_err = [0.0, 0.0]
+    for p in SERVE_FOLDS[:2]:
+        ref, got = ([t.float().cpu() for t in fold_with_model(*models[d], fold_seq(p), return_confidence=True)[:2]]
+                    for d in ("cpu", dev))
+        fold_err = [max(fold_err[0], float((got[0] - ref[0]).abs().max())),
+                    max(fold_err[1], float((got[1] - ref[1]).abs().max()))]
+    check(fold_err[0] <= 1e-3 and fold_err[1] <= 1e-2, f"fold card vs CPU: max |dxyz| {fold_err[0]} A, "
+          f"max |dpLDDT| {fold_err[1]}")
+    say(f"phase 18 server: ok in {card_s:.2f} s on the card; {len(reqs)} requests (ping, featurize, "
+        f"analyze {SERVE_ANALYZE}, fold {SERVE_FOLDS}, an unknown op, shutdown); served fold launches "
+        f"{launches} (K4 prologue_fwd, K6 epilogue_fwd, K8 flash_fwd; K5, K7, K9 none); card vs CPU: "
+        f"analyze replies equal, Rg max |d| {rg_err:.3e}; fold max |dxyz| {fold_err[0]:.3e} A, max "
+        f"|dpLDDT| {fold_err[1]:.3e}; served PDBs max |dxyz| {pdb_err[0]:.3e}, max |dB| {pdb_err[1]:.3e}")
+
+    # 2. analyze: the bundled structures as one batch on the card; two against the CPU
+    paths = bundled_pdbs()
+    t0 = time.perf_counter()
+    report = json.loads(run_cli(cli, ["analyze", *paths, "--ss8", "--sasa", "--device", str(dev)])[0])
+    analyze_s = time.perf_counter() - t0
+    check(report["n_structures"] == len(paths) and finite_numbers(report),
+          f"analyze of {len(paths)} structures: {report['n_structures']} reported, finite "
+          f"{finite_numbers(report)}")
+    worst = {}
+    for files, flags in (([str(DATA / "1REX.pdb")], ["--ss8", "--sasa"]),
+                         ([str(DATA / "15c8_HL.pdb")], ["--ss8"])):
+        reps = [json.loads(run_cli(cli, ["analyze", *files, *flags, "--device", d])[0])
+                for d in ("cpu", str(dev))]
+        for k, v in compare_reports(torch, *reps, files, f"analyze {files[0]}", dev).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    say(f"phase 18 analyze: ok; {len(paths)} structures as one batch (--ss8 --sasa) in "
+        f"{analyze_s:.2f} s on the card [{smi}], every value finite; 1REX (--ss8 --sasa) and 15c8_HL "
+        f"(--ss8) card vs CPU: SS8 strings equal, largest differences {worst}")
+
+    # 3. score
+    folded = card.lines[1 + reqs.index(next(r for r in reqs if r["op"] == "fold"))]["out"]
+    rex = str(DATA / "1REX.pdb")
+    vs_native = json.loads(run_cli(cli, ["score", folded, rex, "--device", str(dev)])[0])
+    self_rex = json.loads(run_cli(cli, ["score", rex, rex, "--device", str(dev)])[0])
+    check(self_rex["tm_score"] > 0.999 and self_rex["ca_rmsd"] < 1e-3, f"1REX against itself: {self_rex}")
+    cpx = str(DATA / "1ad0_DC.pdb")
+    self_cpx = json.loads(run_cli(cli, ["score", cpx, cpx, "--device", str(dev)])[0])
+    check(self_cpx["dockq"] > 0.999 and self_cpx["capri_band"] == "high", f"1ad0_DC against itself: {self_cpx}")
+    sb = pt.StructureBatch.from_pdb(cpx, device=dev)
+    moved_path = str(work / "1ad0_DC_moved.pdb")
+    structure_batch_to_pdb(sb.replace(xyz=torch.where((sb.chain_idx == 1)[:, :, None, None],
+                                                      sb.xyz + 8.0, sb.xyz)), moved_path)
+    moved = json.loads(run_cli(cli, ["score", moved_path, cpx, "--device", str(dev)])[0])
+    check(moved["dockq"] < self_cpx["dockq"] - 0.2, f"1ad0_DC, chain 1 moved 8 A: {moved}")
+    say(f"phase 18 score: ok; folded 1REX (phase 12's 8-step checkpoint) vs native {vs_native}; "
+        f"1REX vs itself {self_rex}; 1ad0_DC vs itself {self_cpx}; chain 1 moved 8 A {moved}")
+
+    # 4. convert
+    cif, back = str(work / "15c8_HL.cif"), str(work / "15c8_HL_back.pdb")
+    run_cli(cli, ["convert", str(DATA / "15c8_HL.pdb"), cif, "--device", str(dev)])
+    run_cli(cli, ["convert", cif, back, "--device", str(dev)])
+    a, b = parse_pdb(str(DATA / "15c8_HL.pdb")), parse_pdb(back)
+    m = a.atom_mask & b.atom_mask
+    conv_err = float(np.abs(a.atom_xyz[m] - b.atom_xyz[m]).max())
+    check(a.n_residues == b.n_residues and m.sum() == a.atom_mask.sum() and conv_err <= 5e-4 + 1e-6,
+          f"15c8_HL pdb -> cif -> pdb: {b.n_residues} residues for {a.n_residues}, "
+          f"{int(m.sum())} of {int(a.atom_mask.sum())} atoms, max |d| {conv_err}")
+    say(f"phase 18 convert: ok; 15c8_HL.pdb -> .cif -> .pdb, {int(m.sum())} atoms, max |d| "
+        f"{conv_err:.3e} A")
+
+    # 5. fold --relax on the card
+    relaxed = str(work / "relaxed_1REX.pdb")
+    t0 = time.perf_counter()
+    _, err = run_cli(cli, ["fold", "--checkpoint-dir", str(ck), "--seq", fold_seq("1REX.pdb"),
+                           "--out", relaxed, "--relax", "20", "--device", str(dev)])
+    relax_s = time.perf_counter() - t0
+    line = next(ln for ln in err.splitlines() if ln.startswith("relaxed 20 steps"))
+    e0, e1 = (float(x) for x in line.split("energy")[1].split("->"))
+    _, xyz, _ = pdb_atoms(relaxed)
+    check(e1 < e0 and bool(np.isfinite(xyz).all()), f"fold --relax 20: {line}; finite {np.isfinite(xyz).all()}")
+    say(f"phase 18 fold --relax 20: ok in {relax_s:.2f} s (model load, fold, 20 Adam steps, write) "
+        f"[{smi}]; {line}; {len(xyz)} atoms, all finite")
+
+    # 6. timing
+    analyze_reqs = {p: {"op": "analyze", "path": str(DATA / p)} for p in ("1REX.pdb", "4uuj.pdb")}
+    fold_reqs = {p: {"op": "fold", "seq": fold_seq(p), "out": str(work / f"timed_{p}")}
+                 for p in ("1REX.pdb", "1ad0_DC.pdb")}
+    timed = [r for r in (*analyze_reqs.values(), *fold_reqs.values()) for _ in range(SERVE_TIMED + 1)]
+    clock = serve_clocked(serve_loop, timed + [{"op": "shutdown"}], checkpoint_dir=str(ck),
+                          buckets=(256, 512), device=str(dev))
+    check(all(ln["ok"] for ln in clock.lines), "a timed request failed")
+    ms = clock.ms()
+    latency = {}
+    for k, name in enumerate([f"analyze {p}" for p in analyze_reqs] + [f"fold {p}" for p in fold_reqs]):
+        block = ms[k * (SERVE_TIMED + 1):(k + 1) * (SERVE_TIMED + 1)]
+        latency[name] = (block[0], *percentiles(block[1:]))
+    first_fold = latency["fold 1REX.pdb"][0]
+    for name, (first, p50, p90) in latency.items():
+        say(f"phase 18 timing served {name} [{smi}]: p50 {p50:.3f} ms, p90 {p90:.3f} ms wall per request "
+            f"over {SERVE_TIMED} after one warm-up ({first:.3f} ms)")
+    say(f"phase 18 timing served first fold [{smi}]: {first_fold:.3f} ms (loads the checkpoint onto the "
+        f"card, then folds 1REX)")
+    model = load_fold_model(str(ck), device=dev)
+    for p in ("1REX.pdb", "1ad0_DC.pdb"):
+        seq = fold_seq(p)
+        fold_with_model(*model, seq, return_confidence=True)
+        wall, busy, every = device_profile(torch, lambda: fold_with_model(*model, seq, return_confidence=True),
+                                           top=None)
+        named = [(kernel_name(n), t, c) for n, t, c in every
+                 if re.search(r"(prologue_fwd|epilogue_fwd|flash_fwd)\w*_kernel<", n)]
+        say(f"phase 18 profile fold {p} ({len(seq.replace(':', ''))} residues) under torch.profiler "
+            f"[{smi}]: device busy {busy:.3f} of {wall:.3f} ms wall (idle {100 * (1 - busy / wall):.1f}%); "
+            + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in named)
+            + "; top " + "; ".join(f"{n[:50]} {t:.3f} ms x{c}" for n, t, c in every[:4]))
+    sb = pt.StructureBatch.from_pdb(paths, device=dev)
+    ops = {"sasa": sb.sasa, "clash_energy": sb.clash_energy, "secondary_structure": sb.secondary_structure}
+    op_ms = {name: event_ms(torch, fn) for name, fn in ops.items()}
+    say(f"phase 18 timing analysis ops on the {len(paths)}-structure batch B={sb.batch_size} "
+        f"L={sb.n_residues} [{smi}]: " + "; ".join(f"{k} {v:.3f} ms" for k, v in op_ms.items())
+        + f" (CUDA events, {EVENT_REPS} calls after one)")
+    return latency
+
+
 def main():
     import numpy as np
     import torch
@@ -1422,7 +1787,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing")
+    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -1468,6 +1833,12 @@ def main():
         return 0
     if sys.argv[1:] == ["--grad-timing"]:
         grad_timing(torch, dev, smi)
+        return 0
+    if sys.argv[1:] == ["--serve"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            work_dir = pathlib.Path(tmp)
+            say(f"serve: phase 12's checkpoint: {fold_main_path(dev, work_dir)[0]}")
+            served_path(torch, dev, smi, work_dir / "ck", work_dir)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -1602,7 +1973,7 @@ def main():
             compare_maps(ref, {k: torch.from_numpy(npz[k]) for k in ref}, f"served {p}")
         check(not lines[4]["ok"] and lines[4]["error"].startswith("FileNotFoundError"),
               f"bad path reply {lines[4]}")
-        check(not lines[5]["ok"] and "not yet ported" in lines[5]["error"],
+        check(lines[5].get("ok") and lines[5]["n_residues"] == singles[PDBS[0]].n_residues,
               f"analyze reply {lines[5]}")
         check(lines[6] == {"ok": True, "bye": True}, f"shutdown reply {lines[6]}")
     check(launches > 0, "the main path launched K1 no time")
@@ -1683,15 +2054,16 @@ def main():
 
     # -- 12. main path of the FoldModel slice -------------------------------------
     counters = (model_features, tri_mul, flash_attn)
-    with tempfile.TemporaryDirectory() as tmp:
-        reset_launches(*counters)
-        t0 = time.perf_counter()
-        metrics, fold_losses, evals, fold_cfg, fold_line = fold_main_path(dev, pathlib.Path(tmp))
-        torch.cuda.synchronize()
-        fold_s = time.perf_counter() - t0
-        fold_launches = {"model_features": model_features.LAUNCHES,
-                         **{f"tri_mul_{k}": n for k, n in tri_mul.LAUNCHES.items()},
-                         **{f"flash_attn_{k}": n for k, n in flash_attn.LAUNCHES.items()}}
+    work = tempfile.TemporaryDirectory()  # phase 12's checkpoint, served again in phase 18
+    work_dir = pathlib.Path(work.name)
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    metrics, fold_losses, evals, fold_cfg, fold_line = fold_main_path(dev, work_dir)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    fold_launches = {"model_features": model_features.LAUNCHES,
+                     **{f"tri_mul_{k}": n for k, n in tri_mul.LAUNCHES.items()},
+                     **{f"flash_attn_{k}": n for k, n in flash_attn.LAUNCHES.items()}}
     for k, n in fold_launches.items():
         check(n > 0, f"the FoldModel main path launched {k} no time")
     say(f"phase 12 main path train -> fold: ok in {fold_s:.2f} s; {metrics}; losses {fold_losses}; "
@@ -1929,6 +2301,12 @@ def main():
         f"arithmetic and atan2f beyond the stores {p1['full'] - p1['write-only']:.4f} ms")
     del g_full
     torch.cuda.empty_cache()
+
+    # -- 18. the served and analysis path ------------------------------------------------
+    t0 = time.perf_counter()
+    served_path(torch, dev, smi, work_dir / "ck", work_dir)
+    work.cleanup()
+    say(f"phase 18 served and analysis path: ok in {time.perf_counter() - t0:.2f} s")
 
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)

@@ -1,17 +1,17 @@
 """Command-line interface: ``python -m protstruc_tpu_torch <command>``.
 
     python -m protstruc_tpu_torch featurize 1rex.pdb --out feats.npz
+    python -m protstruc_tpu_torch analyze 1rex.pdb --ss8 --sasa
+    python -m protstruc_tpu_torch convert in.pdb out.cif
+    python -m protstruc_tpu_torch score model.pdb native.pdb
     python -m protstruc_tpu_torch info
-    python -m protstruc_tpu_torch serve --buckets 256,512
+    python -m protstruc_tpu_torch serve --buckets 256,512 --checkpoint-dir ck
     python -m protstruc_tpu_torch train tests/data --checkpoint-dir ck --steps 8
-    python -m protstruc_tpu_torch fold --checkpoint-dir ck --seq MKV... --out fold.pdb
+    python -m protstruc_tpu_torch fold --checkpoint-dir ck --seq MKV... --out fold.pdb --relax 20
 
 Commands run on ``--device`` (default ``cuda``, which raises without a card;
-pass ``--device cpu`` for host runs).  Ported so far: ``featurize``, ``info``,
-``train``, ``fold`` and ``serve`` with its ``ping``, ``featurize`` and
-``shutdown`` ops; the server answers ``analyze`` and ``fold`` with ``{"ok":
-false, ...}``.  ``train --mesh``/``--zero1`` and ``fold --relax`` raise
-``NotImplementedError``.
+pass ``--device cpu`` for host runs).  The JAX CLI's ``renumber`` is not
+ported, and ``train --mesh``/``--zero1`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,10 +19,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: serve ops of the JAX package that this package does not have yet
-_NOT_PORTED_OPS = ("analyze", "fold")
-
 
 def _features_to_numpy(g, d, m, frames):
     out = {k: v.cpu().numpy() for k, v in g.items()}
@@ -46,6 +42,111 @@ def cmd_featurize(args) -> int:
     return 0
 
 
+def _frac(hits, valid) -> float:
+    """Mean of ``hits`` over ``valid`` positions; 0.0 when none are valid
+    (a mean over an empty slice is NaN, which json.dumps emits as invalid
+    JSON, e.g. single-residue chains have no defined phi AND psi)."""
+    import numpy as np
+
+    n = int(np.sum(valid))
+    if n == 0:
+        return 0.0
+    return float(np.sum(hits & valid) / n)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def cmd_analyze(args) -> int:
+    import protstruc_tpu_torch as ps
+
+    sb = ps.StructureBatch.from_pdb(list(args.inputs), device=args.device)
+    ss, rmask = _np(sb.secondary_structure()), _np(sb.residue_mask)
+    rama, rv = map(_np, sb.ramachandran_classes())
+    n = sb.batch_size
+    report = {
+        "n_structures": n,
+        "n_residues": [int(x) for x in _np(sb.get_total_lengths())],
+        "radius_of_gyration_A": [round(float(x), 2) for x in _np(sb.radius_of_gyration())],
+        "relative_contact_order": [round(float(x), 4) for x in _np(sb.contact_order())],
+        "clash_energy": [round(float(x), 3) for x in _np(sb.clash_energy())],
+        "helix_frac": [round(_frac(ss[i] == 1, rmask[i]), 3) for i in range(n)],
+        "strand_frac": [round(_frac(ss[i] == 2, rmask[i]), 3) for i in range(n)],
+        "rama_favored_frac": [round(_frac(rama[i] == 0, rv[i]), 3) for i in range(n)],
+        "rama_outlier_frac": [round(_frac(rama[i] == 2, rv[i]), 3) for i in range(n)],
+    }
+    if args.ss8:
+        from protstruc_tpu_torch.ops.secondary import SS8_LETTERS
+
+        ss8 = _np(sb.secondary_structure_8())
+        report["dssp8"] = ["".join(SS8_LETTERS[k] for k in ss8[i][rmask[i]]) for i in range(n)]
+    if args.sasa:
+        report["total_sasa_A2"] = [round(float(x), 1) for x in _np(sb.sasa().sum(1))]
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    import protstruc_tpu_torch as ps
+    from protstruc_tpu_torch.pdbio.writer import structure_batch_to_cif, structure_batch_to_pdb
+
+    sb = ps.StructureBatch.from_pdb([args.input], device=args.device)
+    writer = structure_batch_to_cif if args.output.endswith(".cif") else structure_batch_to_pdb
+    writer(sb, args.output)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_score(args) -> int:
+    """Model-vs-native structure metrics (lDDT, TM-score, GDT-TS, RMSD, and
+    DockQ for complexes)."""
+    import numpy as np
+    import torch
+
+    import protstruc_tpu_torch as ps
+    from protstruc_tpu_torch.ops import metrics as M
+
+    model = ps.StructureBatch.from_pdb([args.model], device=args.device)
+    native = ps.StructureBatch.from_pdb([args.native], device=args.device)
+    if model.n_residues != native.n_residues:
+        raise SystemExit(
+            f"residue count mismatch: model has {model.n_residues}, "
+            f"native has {native.n_residues} — score needs a 1:1 mapping")
+    ca_m, ca_n = model.xyz[:, :, 1], native.xyz[:, :, 1]
+    mask = (model.residue_mask & native.residue_mask
+            & torch.isfinite(ca_m).all(-1) & torch.isfinite(ca_n).all(-1))
+    ca_m, ca_n = torch.nan_to_num(ca_m, nan=1e6), torch.nan_to_num(ca_n, nan=1e6)
+    report = {
+        "n_residues": int(mask.sum()),
+        "ca_rmsd": round(float(M.rmsd(ca_m, ca_n, mask=mask)[0]), 3),
+        "ca_lddt": round(float(M.lddt(ca_m, ca_n, mask=mask)[0]), 4),
+        "tm_score": round(float(M.tm_score(ca_m, ca_n, mask=mask)[0]), 4),
+        "gdt_ts": round(float(M.gdt_ts(ca_m, ca_n, mask=mask)[0]), 4),
+    }
+    if int(native.chain_idx.max()) + 1 >= 2:
+        rec_ids = {int(x) for x in args.receptor_chains.split(",")}
+        # validate the split BEFORE computing: an empty receptor or ligand
+        # group gives masked_kabsch a zero weight sum and DockQ NaN, which
+        # json.dumps would emit as an unparseable token
+        present = {int(x) for x in np.unique(_np(native.chain_idx)) if x >= 0}
+        if not (rec_ids & present):
+            print(f"--receptor-chains {sorted(rec_ids)} matches no chain "
+                  f"(present: {sorted(present)})", file=sys.stderr)
+            return 2
+        if not (present - rec_ids):
+            print(f"--receptor-chains {sorted(rec_ids)} leaves no ligand "
+                  f"chain (present: {sorted(present)})", file=sys.stderr)
+            return 2
+        in_rec = torch.isin(native.chain_idx, torch.tensor(sorted(rec_ids), device=mask.device))
+        q = float(M.dockq(model.xyz, native.xyz, model.atom_mask & native.atom_mask,
+                          in_rec & mask, ~in_rec & mask)[0])
+        report["dockq"] = round(q, 4)
+        report["capri_band"] = M.capri_band(q)
+    print(json.dumps(report))
+    return 0
+
+
 def cmd_info(args) -> int:
     import torch
 
@@ -65,19 +166,23 @@ def cmd_info(args) -> int:
     return 0
 
 
-def serve_loop(infile, outfile, batch_sizes=(1,), buckets=(256, 512),
-               device="cuda") -> int:
+def serve_loop(infile, outfile, checkpoint_dir=None, batch_sizes=(1,), buckets=(256, 512),
+               step=None, use_ema=True, device="cuda") -> int:
     """JSONL request/response loop (one JSON object per line).
 
     Requests:
       {"op": "ping"}
       {"op": "featurize", "path": PDB, "out": NPZ}   # warmed bucketed path
+      {"op": "analyze", "path": PDB}                 # inline stats
+      {"op": "fold", "seq": SEQ, "out": PDB}         # needs checkpoint_dir
       {"op": "shutdown"}
     Responses: {"ok": true, ...} / {"ok": false, "error": ...} per line.
 
     The featurizer is built and warmed for the given (batch, bucket) grid at
     startup (utils/aot.py), on ``device``: its pair maps go through K1 on a
-    CUDA device and through the arccos form on the CPU.
+    CUDA device and through the arccos form on the CPU.  The fold model
+    (checkpoint ``step``, EMA weights when ``use_ema``) is loaded once, on
+    the first ``fold``, onto the same device.
     """
     import numpy as np
 
@@ -86,6 +191,7 @@ def serve_loop(infile, outfile, batch_sizes=(1,), buckets=(256, 512),
 
     feat = precompile_featurizer(batch_sizes=batch_sizes, buckets=buckets,
                                  device=device)
+    fold_model = None  # (model, params, cfg), loaded on the first fold op
     print(json.dumps({"ok": True, "ready": True,
                       "shapes": sorted(map(list, feat.shapes))}),
           file=outfile, flush=True)
@@ -105,12 +211,34 @@ def serve_loop(infile, outfile, batch_sizes=(1,), buckets=(256, 512),
                 np.savez_compressed(req["out"], **out)
                 resp = {"ok": True, "out": req["out"],
                         "n_residues": int(sb.get_total_lengths()[0])}
+            elif op == "analyze":
+                sb = ps.StructureBatch.from_pdb(req["path"], device=feat.device)
+                ss, rm = _np(sb.secondary_structure())[0], _np(sb.residue_mask)[0]
+                resp = {"ok": True,
+                        "n_residues": int(sb.get_total_lengths()[0]),
+                        "helix_frac": round(_frac(ss == 1, rm), 3),
+                        "strand_frac": round(_frac(ss == 2, rm), 3),
+                        "rg": round(float(sb.radius_of_gyration()[0]), 2)}
+            elif op == "fold":
+                if checkpoint_dir is None:
+                    raise ValueError("fold requires --checkpoint-dir")
+                from protstruc_tpu_torch.pdbio.writer import to_pdb
+                from protstruc_tpu_torch.train import fold_with_model, load_fold_model
+
+                if fold_model is None:
+                    fold_model = load_fold_model(checkpoint_dir, step=step, use_ema=use_ema,
+                                                 device=feat.device)
+                coords, plddt, _pae = map(_np, fold_with_model(*fold_model, req["seq"],
+                                                               return_confidence=True))
+                chains = req["seq"].upper().split(":")
+                cids = [chr(ord("A") + i) for i in range(len(chains))]
+                to_pdb(req["out"], coords.transpose(1, 0, 2), chains, cids, bfactors=plddt)
+                resp = {"ok": True, "out": req["out"],
+                        "mean_plddt": round(float(plddt.mean()), 1)}
             elif op == "shutdown":
                 print(json.dumps({"ok": True, "bye": True}),
                       file=outfile, flush=True)
                 return 0
-            elif op in _NOT_PORTED_OPS:
-                raise NotImplementedError(f"op {op!r} is not yet ported")
             else:
                 raise ValueError(f"unknown op {op!r}")
         except Exception as e:  # report per-request, keep serving
@@ -120,9 +248,9 @@ def serve_loop(infile, outfile, batch_sizes=(1,), buckets=(256, 512),
 
 
 def cmd_serve(args) -> int:
-    return serve_loop(sys.stdin, sys.stdout, batch_sizes=(1,),
-                      buckets=tuple(int(b) for b in args.buckets.split(",")),
-                      device=args.device)
+    return serve_loop(sys.stdin, sys.stdout, checkpoint_dir=args.checkpoint_dir,
+                      batch_sizes=(1,), buckets=tuple(int(b) for b in args.buckets.split(",")),
+                      step=args.step, use_ema=not args.raw_params, device=args.device)
 
 
 def cmd_train(args) -> int:
@@ -168,20 +296,32 @@ def _step_arg(s):
 
 
 def cmd_fold(args) -> int:
-    import numpy as np
+    import torch
 
     from protstruc_tpu_torch.pdbio.writer import to_pdb
     from protstruc_tpu_torch.train import fold_sequence
 
-    if args.relax:
-        raise NotImplementedError("fold --relax (gradient relaxation) is not yet ported")
     coords, plddt, pae = fold_sequence(args.checkpoint_dir, args.seq, n_recycle=args.recycle,
                                        return_confidence=True, step=args.step,
                                        use_ema=not args.raw_params, device=args.device)
-    coords, plddt, pae = (t.cpu().numpy() for t in (coords, plddt, pae))
     chains = args.seq.upper().split(":")
     chain_ids = [chr(ord("A") + i) for i in range(len(chains))]
     n_res = sum(len(c) for c in chains)
+    if args.relax:
+        import protstruc_tpu_torch as ps
+
+        L = coords.shape[0]
+        full = torch.full((1, L, 15, 3), torch.nan, dtype=torch.float32, device=coords.device)
+        full[0, :, :5] = coords
+        cidx = [[k for k, ch in enumerate(chains) for _ in ch]]
+        sb = ps.StructureBatch.from_xyz(full, chain_idx=cidx, chain_ids=[chain_ids],
+                                        seq=[dict(zip(chain_ids, chains))],
+                                        device=coords.device)
+        relaxed, e = sb.relax(n_steps=args.relax)
+        coords = relaxed.xyz[0, :, :5]
+        print(f"relaxed {args.relax} steps: energy "
+              f"{float(e['initial'][0]):.1f} -> {float(e['final'][0]):.1f}", file=sys.stderr)
+    coords, plddt, pae = map(_np, (coords, plddt, pae))
     # writer layout: (5, L, 3) N/CA/C/O/CB; pLDDT in the B-factor column
     to_pdb(args.out, coords.transpose(1, 0, 2), chains, chain_ids, bfactors=plddt)
     print(f"wrote {args.out} ({n_res} residues, {len(chains)} chain(s), "
@@ -206,12 +346,31 @@ def main(argv=None) -> int:
     device_arg(f)
     f.set_defaults(fn=cmd_featurize)
 
+    a = sub.add_parser("analyze", help="structure statistics as JSON")
+    a.add_argument("inputs", nargs="+")
+    a.add_argument("--sasa", action="store_true", help="include Shrake-Rupley SASA (slower)")
+    a.add_argument("--ss8", action="store_true",
+                   help="include the per-residue 8-class DSSP string")
+    device_arg(a)
+    a.set_defaults(fn=cmd_analyze)
+
+    c = sub.add_parser("convert", help="PDB <-> mmCIF conversion")
+    c.add_argument("input")
+    c.add_argument("output")
+    device_arg(c)
+    c.set_defaults(fn=cmd_convert)
+
     i = sub.add_parser("info", help="torch / CUDA / nvcc status")
     i.set_defaults(fn=cmd_info)
 
     sv = sub.add_parser("serve", help="JSONL request loop over the warmed featurizer")
+    sv.add_argument("--checkpoint-dir", default=None, help="enables the fold op")
     sv.add_argument("--buckets", default="256,512",
                     help="length buckets to warm")
+    sv.add_argument("--step", default=None, type=_step_arg,
+                    help="checkpoint step for the fold op: int or 'best' (default: latest)")
+    sv.add_argument("--raw-params", action="store_true",
+                    help="load raw params instead of EMA weights")
     device_arg(sv)
     sv.set_defaults(fn=cmd_serve)
 
@@ -272,9 +431,18 @@ def main(argv=None) -> int:
     fd.add_argument("--raw-params", action="store_true",
                     help="load the raw last-step params instead of the EMA weights")
     fd.add_argument("--relax", type=int, default=0, metavar="STEPS",
-                    help="gradient-relax the output (not yet ported)")
+                    help="gradient-relax the output for STEPS steps")
     device_arg(fd)
     fd.set_defaults(fn=cmd_fold)
+
+    sc = sub.add_parser("score", help="model-vs-native metrics (lDDT/TM/GDT/DockQ)")
+    sc.add_argument("model", help="predicted-structure PDB/mmCIF")
+    sc.add_argument("native", help="reference-structure PDB/mmCIF")
+    sc.add_argument("--receptor-chains", default="0",
+                    help="comma-separated chain indices forming the DockQ receptor "
+                         "(default: chain 0; the rest is the ligand)")
+    device_arg(sc)
+    sc.set_defaults(fn=cmd_score)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -8,6 +8,8 @@ manipulators (``to``) return a new batch, as in the JAX package.
   card that raises, see :func:`resolve_device`);
 * ``chain_idx``/``residue_idx`` are int32 with ``-1`` padding; missing-atom
   coordinates are NaN with ``atom_mask`` False.
+* the analysis methods (``secondary_structure``, ``sasa``, ``clash_energy``,
+  ``relax``, ...) run the plain PyTorch ops of ``ops/`` on the batch's device.
 * ``inter_residue_geometry`` computes each ``(B, L, L)`` map directly: by
   default through the arccos-form broadcast path (``ops/pairwise.py``), the
   port of the JAX package's jnp path and its default, or with
@@ -210,6 +212,10 @@ class StructureBatch:
             seq=seq,
         )
 
+    def replace(self, **changes) -> "StructureBatch":
+        """A new batch with the given fields replaced (functional update)."""
+        return dataclasses.replace(self, **changes)
+
     def to(self, device: DeviceLike) -> "StructureBatch":
         """A new batch with every tensor on ``device``."""
         dev = resolve_device(device)
@@ -382,6 +388,92 @@ class StructureBatch:
 
             return trrosetta_features(self.xyz, self.atom_mask)
         return _inter_residue_geometry(self.xyz, self.atom_mask)
+
+    # ------------------------------------------------------------------
+    # analysis (plain PyTorch ops on the batch's device)
+    # ------------------------------------------------------------------
+
+    def _backbone_nan0(self):
+        xyz = torch.nan_to_num(self.xyz, nan=0.0)
+        return [xyz[:, :, int(ATOM[a])] for a in ("N", "CA", "C", "O")]
+
+    def secondary_structure(self) -> torch.Tensor:
+        """DSSP-style 3-class secondary structure per residue, ``(B, L)``
+        int32: 0 coil, 1 helix, 2 strand (``ops/secondary.py``)."""
+        from protstruc_tpu_torch.ops.secondary import assign_secondary_structure
+
+        ss, _ = assign_secondary_structure(*self._backbone_nan0(), self.residue_mask,
+                                           chain_idx=self.chain_idx)
+        return ss
+
+    def secondary_structure_8(self) -> torch.Tensor:
+        """Full 8-class DSSP assignment per residue, ``(B, L)`` int32, codes
+        per ``ops.secondary.SS8_LETTERS`` ("CHEGIBTS")."""
+        from protstruc_tpu_torch.ops.secondary import assign_secondary_structure_8
+
+        return assign_secondary_structure_8(*self._backbone_nan0(), self.residue_mask,
+                                            chain_idx=self.chain_idx)
+
+    def sasa(self, probe: float = 1.4, n_points: int = 92,
+             per_atom: bool = False) -> torch.Tensor:
+        """Shrake-Rupley solvent-accessible surface area, ``(B, L)`` A^2
+        (``ops/surface.py``); needs sequences for the per-slot radii."""
+        from protstruc_tpu_torch.ops.surface import sasa as _sasa
+
+        return _sasa(self.xyz, self.atom_mask, self.get_seq_idx(), probe=probe,
+                     n_points=n_points, per_atom=per_atom)
+
+    def radius_of_gyration(self) -> torch.Tensor:
+        """Radius of gyration over valid atoms, ``(B,)`` angstrom."""
+        from protstruc_tpu_torch.ops.surface import radius_of_gyration as _rg
+
+        return _rg(self.xyz, self.atom_mask)
+
+    def contact_order(self, cutoff: float = 8.0, relative: bool = True) -> torch.Tensor:
+        """(Relative) contact order from CA coordinates, ``(B,)``, same-chain
+        pairs only."""
+        from protstruc_tpu_torch.ops.surface import contact_order as _co
+
+        return _co(self.xyz[:, :, int(ATOM.CA)], self.residue_mask, cutoff=cutoff,
+                   relative=relative, chain_idx=self.chain_idx)
+
+    def lddt_to(self, other: "StructureBatch", per_residue: bool = False,
+                cutoff: float = 15.0) -> torch.Tensor:
+        """CA lDDT of self against a reference batch (superposition-free)."""
+        from protstruc_tpu_torch.ops.metrics import lddt as _lddt
+
+        ca_s, ca_o = self.xyz[:, :, int(ATOM.CA)], other.xyz[:, :, int(ATOM.CA)]
+        mask = (self.get_residue_mask() & other.get_residue_mask()
+                & torch.isfinite(ca_s).all(-1) & torch.isfinite(ca_o).all(-1))
+        return _lddt(torch.nan_to_num(ca_s, nan=1e6), torch.nan_to_num(ca_o, nan=1e6),
+                     mask=mask, cutoff=cutoff, per_residue=per_residue)
+
+    def ramachandran_classes(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-residue Ramachandran classes (``ops/rama.py``): ``(classes
+        (B, L) int32, valid (B, L) bool)``, 0 favored / 1 allowed / 2
+        outlier over residues with defined phi AND psi."""
+        from protstruc_tpu_torch.ops.rama import ramachandran_classes as _rama
+
+        d, m = self.backbone_dihedrals()
+        phi, psi = d[..., 0], d[..., 1]
+        valid = m[..., 0] & m[..., 1] & torch.isfinite(phi) & torch.isfinite(psi)
+        cls = _rama(torch.nan_to_num(phi), torch.nan_to_num(psi), self.get_seq_idx(), valid)
+        return cls, valid
+
+    def clash_energy(self, tolerance: float = 0.4) -> torch.Tensor:
+        """Inter-residue vdW-overlap clash energy, ``(B,)`` (``ops/pack.py``)."""
+        from protstruc_tpu_torch.ops.pack import clash_energy as _clash
+
+        return _clash(self.xyz, self.atom_mask, self.get_seq_idx(), tolerance=tolerance)
+
+    def relax(self, **kwargs) -> Tuple["StructureBatch", dict]:
+        """Gradient-relax coordinates against bonded + clash energy
+        (``ops/relax.py``); returns ``(relaxed_batch, energies)``."""
+        from protstruc_tpu_torch.ops.relax import relax_structure
+
+        xyz, energies = relax_structure(self.xyz, self.atom_mask, self.get_seq_idx(),
+                                        self.chain_idx, **kwargs)
+        return self.replace(xyz=xyz), energies
 
 
 def _to_numpy(x):

@@ -202,12 +202,15 @@ def masked_kabsch(a, b, weights) -> Tuple[torch.Tensor, torch.Tensor]:
     a_c = (a - centroid_a) * w
     b_c = b - centroid_b
     h = torch.einsum("...ki,...kj->...ij", a_c, b_c)
-    u, _, vt = torch.linalg.svd(h, full_matrices=False)
+    # no weight at all (0/0 centroids): NaN out, as XLA's SVD gives, where
+    # torch.linalg.svd would raise
+    bad = ~torch.isfinite(h).all(-1).all(-1)[..., None, None]
+    u, _, vt = torch.linalg.svd(torch.where(bad, 0.0, h), full_matrices=False)
     v = vt.transpose(-2, -1)
     d = torch.sign(torch.linalg.det(v @ u.transpose(-2, -1)))
     diag = torch.ones(h.shape[:-2] + (3,), dtype=a.dtype, device=a.device)
     diag = torch.cat([diag[..., :2], d[..., None]], dim=-1)
-    r = torch.einsum("...ij,...j,...kj->...ik", v, diag, u)
+    r = torch.where(bad, torch.nan, torch.einsum("...ij,...j,...kj->...ik", v, diag, u))
     t = centroid_b.squeeze(-2) - torch.einsum("...ij,...j->...i", r, centroid_a.squeeze(-2))
     return r, t
 

@@ -261,12 +261,15 @@ def test_cli_train_and_fold(tmp_path, capsys):
                      "--device", "cpu"]) == 0
     lines = [ln for ln in open(out) if ln.startswith("ATOM")]
     assert len(lines) == 5 * 5 - 1  # no CB for the glycine
-    for argv in (["train", pdb_path(PDBS[0]), "--checkpoint-dir", ck, "--mesh", "1,1,1",
-                  "--device", "cpu"],
-                 ["fold", "--checkpoint-dir", ck, "--seq", "MKV", "--relax", "5",
-                  "--device", "cpu"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            main(argv)
+    capsys.readouterr()
+    with pytest.warns(UserWarning):
+        assert main(["fold", "--checkpoint-dir", ck, "--seq", "MKV", "--out", out,
+                     "--relax", "2", "--device", "cpu"]) == 0
+    assert "relaxed 2 steps: energy" in capsys.readouterr().err
+    assert len([ln for ln in open(out) if ln.startswith("ATOM")]) == 3 * 5
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        main(["train", pdb_path(PDBS[0]), "--checkpoint-dir", ck, "--mesh", "1,1,1",
+              "--device", "cpu"])
 
 
 def test_unported_options_raise():
