@@ -131,7 +131,36 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     one warm-up) of analyze (1REX, 4uuj) and fold (1REX, 1ad0_DC), one
     fold of each under torch.profiler (K4, K6, K8 by name) and CUDA-event
     times of ``sasa``, ``clash_energy`` and ``secondary_structure`` on the
-    bundled batch.
+    bundled batch;
+19. the batch API at BASELINE sizes (BASELINE.md:39-45, at bench.py:700-821's
+    sizes), float32 matmuls without TF32 checked first, each configuration
+    timed by CUDA events and held against the port's CPU path on the same
+    inputs (coordinates and distances within 1e-5 + 1e-5 |ref|, masks
+    bitwise): (1) 15c8_HL CA-CA distances and backbone dihedrals; (2) the
+    8 PDBs padded to 512: ``pairwise_distance_matrix`` (B=8, 15 x 15 atoms,
+    two structures against the CPU), orientations and translations, and
+    ``from_backbone_orientations_translations`` back to the same frames
+    (1e-5); (3) ``AntibodyStructureBatch.from_pdb`` of 6dc4 (H/L) x8 padded
+    and tiled to B=64: omega, theta, phi, the heavy pair mask and the nine
+    named masks; (4) B=256 (the 8 PDBs x32, NaN -> 0): ``standardize`` and
+    a T=300 cosine-schedule ``diffusion_trajectory`` from a seeded card
+    generator, structures 0-7 against the CPU core on the same draws, x_T
+    std within 0.1 of 1; (5) B=1024, L=1024 uniform torsions (numpy seed
+    1): ``from_dihedrals`` (the NeRF chain, error by residue against the CPU
+    port and a float64 chain: the card no further from it than twice the
+    CPU + 1e-5 A), the actual CB, the A=15 layout, K1 with ``maps=("d_cb",)``
+    (its launch counter reset just before and read after: one launch),
+    bitwise equal to its plain version on 16 structures, only d_cb written
+    into six sentinel planes, timed against its plain version (16 calls of
+    64) and its bound; then the reconstruction path on 1REX and 15c8_HL
+    (``inter_residue_geometry(use_kernel=True)``, K1's counter reset before
+    and grown after -> distmat -> ``initialize_backbone_with_mds``, 200
+    SMACOF iterations): the CA distance-matrix RMS against the native under
+    tests/test_reconstruct.py's 1.5 and 2.5 A, the distmat against the CPU
+    port's, the MDS coordinates within 1e-3 A of the CPU's after a proper
+    Kabsch fit; last ``renumber`` of 6dc4 to IMGT through the CLI, the file
+    ingested on the card and the CPU (masks equal, CDR sizes as the Chothia
+    file converted at ingest).
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -156,7 +185,8 @@ FoldModel kernel vs plain path: loss within
 
 The line before the last is one JSON object describing each kernel: its
 launches on its slice's main path (K1 phase 5, with its bf16 mode's own
-count from the same run, K4-K7 phase 8, K3 and K8/K9
+count from the same run and its ``d_cb``-only launch of phase 19's config 5
+as ``dcb_subset``, K4-K7 phase 8, K3 and K8/K9
 phase 12, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
@@ -189,6 +219,10 @@ each shape, and prints no result line;
 
 runs phase 1, phase 12's train -> fold main path (for its checkpoint) and
 phase 18, and prints no result line;
+
+    python3 chip_smoke.py --batch-api
+
+runs phase 1, builds K1 and runs phase 19 alone, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -237,21 +271,26 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def compare(ref, out, name):
-    """Max |ref - out| of one map pair (or bitwise for masks) under the
-    stated tolerance; returns (max_err, count above 1e-5)."""
+def compare(ref, out, name, atol=None, rtol=0.0):
+    """Max |ref - out| of one tensor pair, ``out`` brought to ``ref``'s
+    device: masks bitwise, the same NaN pattern, |d| <= atol + rtol |ref|
+    (without ``atol``, the map tolerance that the name's last word picks);
+    returns (max_err, count above 1e-5)."""
     import torch
 
+    out = out.detach().to(ref.device)
     check(ref.shape == out.shape, f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     if ref.dtype == torch.bool:
-        check(torch.equal(ref, out), f"{name}: masks differ")
+        check(torch.equal(ref, out), f"{name}: masks differ at {int((ref != out).sum())} entries")
         return 0.0, 0
     nan_r, nan_o = torch.isnan(ref), torch.isnan(out)
     check(torch.equal(nan_r, nan_o),
           f"{name}: NaN patterns differ at {int((nan_r != nan_o).sum())} entries")
     diff = (ref - out).abs().masked_fill(nan_r, 0)
     err = float(diff.max()) if diff.numel() else 0.0
-    if name.rsplit(" ", 1)[-1] in DIST_MAPS:
+    if atol is not None:
+        bad = diff > atol + rtol * ref.abs().masked_fill(nan_r, 0)
+    elif name.rsplit(" ", 1)[-1] in DIST_MAPS:
         bad = diff > DIST_ATOL + DIST_RTOL * ref.abs().masked_fill(nan_r, 0)
     else:
         bad = diff > ANGLE_ATOL
@@ -1779,6 +1818,319 @@ def served_path(torch, dev, smi, ck, work):
     return latency
 
 
+# -- the batch API at BASELINE sizes (phase 19) -----------------------------------
+# BASELINE.md:39-45, at the sizes bench.py:700-821 gives them
+CFG2_FILES = ("15c8_HL.pdb", "1a3r_HL.pdb", "1a6v_HL.pdb", "1a6v_JN.pdb", "1ad0_DC.pdb",
+              "5cjx_HL.pdb", "6dc4.pdb", "1REX.pdb")
+CFG2_CPU_ROWS = (0, 6)       # structures of config 2's (L, L, A, A) tensor held against the CPU
+CFG3_FILES, CFG3_B = 8, 64  # 6dc4 x8 in one batch, tiled to 64
+CFG4_B, CFG4_T, CFG4_CPU_ROWS = 256, 300, 8
+CFG5_B = CFG5_L = 1024
+# K1 d_cb held bitwise to its plain version on 16 structures from both ends of the batch, so
+# that the smallest and the largest output offsets ((b L + i) L + j up to 2^30) are both read
+CFG5_PLAIN_ROWS = (*range(8), *range(CFG5_B - 8, CFG5_B))
+CFG5_PLAIN_CALLS = 16        # the plain version timed as 16 calls of 64 structures
+NERF_RESIDUES = (1, 10, 100, 300, 1000, 1023)   # residues (0-based) whose NeRF error is printed
+RECONSTRUCT = (("1REX.pdb", 1.5), ("15c8_HL.pdb", 2.5))   # tests/test_reconstruct.py:150-153
+MDS_ITERS = 200
+COORD_ATOL = COORD_RTOL = 1e-5   # card vs CPU: coordinates, distances (one ulp past 64 A is 7.6e-6)
+MDS_FIT_ATOL = 1e-3              # card vs CPU MDS coordinates after a proper Kabsch fit
+
+
+def batch_api_phase(torch, np, dev, smi):
+    """Phase 19: BASELINE configs 1-5 on the card, each held against the
+    port's CPU path, then the reconstruction path and ``renumber``.
+    Returns the kernels line's record of K1's d_cb-only launch."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.ops import pair_maps
+    from protstruc_tpu_torch.utils.buckets import concat_batches, pad_batch_to_bucket
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and torch.get_float32_matmul_precision() == "highest",
+          "phase 19 needs float32 matmuls without TF32 (the JAX package's precision='highest')")
+    say(f"phase 19 precision: torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}")
+    cpu = torch.device("cpu")
+
+    # -- config 1: one antibody, CA-CA distances and backbone dihedrals
+    path = str(DATA / "15c8_HL.pdb")
+    sb, sb_cpu = pt.StructureBatch.from_pdb(path, device=dev), pt.StructureBatch.from_pdb(path, device="cpu")
+
+    def cfg1(b):
+        return (*b.pairwise_atom_distance("CA", "CA"), *b.backbone_dihedrals())
+
+    errs = [compare(r, g, f"config 1 {n}", COORD_ATOL, COORD_RTOL)[0]
+            for n, r, g in zip(("d_ca", "mask", "dihedrals", "dihedral mask"), cfg1(sb_cpu), cfg1(sb))]
+    ms = cuda_time_ms(lambda: cfg1(sb))
+    say(f"phase 19 config 1 [{smi}]: 15c8_HL (L={sb.n_residues}) CA-CA distances + backbone dihedrals "
+        f"{ms:.4f} ms (CUDA events); card vs CPU max err {max(errs):.3e}, masks equal")
+
+    # -- config 2: 8 PDBs padded to their bucket
+    paths = [str(DATA / f) for f in CFG2_FILES]
+    sb8 = pad_batch_to_bucket(pt.StructureBatch.from_pdb(paths, device=dev))
+    sb8_cpu = sb8.to("cpu")
+    d, m = sb8.pairwise_distance_matrix()
+    rows = list(CFG2_CPU_ROWS)
+    d_ref, m_ref = pt.StructureBatch(xyz=sb8_cpu.xyz[rows], atom_mask=sb8_cpu.atom_mask[rows],
+                                     chain_idx=sb8_cpu.chain_idx[rows],
+                                     residue_idx=sb8_cpu.residue_idx[rows]).pairwise_distance_matrix()
+    err_d = compare(d_ref, d[rows], "config 2 distance matrix", COORD_ATOL, COORD_RTOL)[0]
+    compare(m_ref, m[rows], "config 2 distance mask")
+    shape, gb = tuple(d.shape), (d.numel() * 4 + m.numel()) / 1e9
+    del d, m, d_ref, m_ref
+    ms_d = cuda_time_ms(lambda: sb8.pairwise_distance_matrix())
+    torch.cuda.empty_cache()
+    rot, trans = sb8.backbone_orientations(), sb8.backbone_translations()
+    err_f = max(compare(sb8_cpu.backbone_orientations(), rot, "config 2 orientations", COORD_ATOL, COORD_RTOL)[0],
+                compare(sb8_cpu.backbone_translations(), trans, "config 2 translations", COORD_ATOL,
+                        COORD_RTOL)[0])
+    ms_f = cuda_time_ms(lambda: (sb8.backbone_orientations(), sb8.backbone_translations()))
+    ok = sb8.get_residue_mask() & torch.isfinite(rot).all(-1).all(-1)
+    kw = dict(chain_idx=sb8.chain_idx, chain_ids=sb8.chain_ids, residue_idx=sb8.residue_idx,
+              include_cb=True)
+    back = pt.StructureBatch.from_backbone_orientations_translations(
+        torch.nan_to_num(rot), torch.nan_to_num(trans), device=dev, **kw)
+    back_cpu = pt.StructureBatch.from_backbone_orientations_translations(
+        torch.nan_to_num(rot).cpu(), torch.nan_to_num(trans).cpu(), device="cpu", **kw)
+    err_b = compare(back_cpu.xyz, back.xyz, "config 2 round trip xyz", COORD_ATOL, COORD_RTOL)[0]
+    compare(back_cpu.atom_mask, back.atom_mask, "config 2 round trip mask")
+    rt = float((back.backbone_orientations() - rot).abs()[ok].max())
+    check(rt < 1e-5, f"config 2: frames after the round trip off by {rt:.3e}")
+    ms_b = cuda_time_ms(lambda: pt.StructureBatch.from_backbone_orientations_translations(
+        torch.nan_to_num(rot), torch.nan_to_num(trans), device=dev, **kw))
+    say(f"phase 19 config 2 [{smi}]: {len(CFG2_FILES)} PDBs B={sb8.batch_size} L={sb8.n_residues}: pairwise_distance_matrix "
+        f"{shape} ({gb:.2f} GB with its mask) {ms_d:.4f} ms, structures {rows} vs CPU max err {err_d:.3e}; "
+        f"orientations + translations {ms_f:.4f} ms (max err {err_f:.3e}); "
+        f"from_backbone_orientations_translations {ms_b:.4f} ms (vs CPU {err_b:.3e}, frames back within {rt:.3e})")
+    del back, back_cpu, rot, trans
+    torch.cuda.empty_cache()
+
+    # -- config 3: antibody batch B=64, pair angles and chain/CDR masks
+    ab_path = str(DATA / "6dc4.pdb")
+    ab8 = pad_batch_to_bucket(pt.AntibodyStructureBatch.from_pdb([ab_path] * CFG3_FILES, "H", "L",
+                                                                 device=dev))
+    ab = concat_batches([ab8] * (CFG3_B // CFG3_FILES))
+    ab_cpu = pt.AntibodyStructureBatch.from_pdb(ab_path, "H", "L", device="cpu")
+    ab_cpu = pad_batch_to_bucket(ab_cpu)
+
+    def cfg3(b):
+        h = b.get_heavy_chain_mask()
+        return (b.pairwise_dihedrals(("CA", "CB"), ("CA", "CB")),
+                b.pairwise_dihedrals(("N", "CA", "CB"), ("CB",)),
+                b.pairwise_planar_angles(("CA", "CB"), ("CB",)),
+                h[:, :, None] & h[:, None, :], b.get_cdr_mask())
+
+    out, ref = cfg3(ab), cfg3(ab_cpu)
+    names = ("omega", "theta", "phi", "heavy pair mask", "CDR mask")
+    errs = [compare(r[0], g[0], f"config 3 {n}", COORD_ATOL, COORD_RTOL)[0]
+            for n, r, g in zip(names, ref, out)]
+    for n, g in zip(names, out):
+        same = (g == g[:1]) | (torch.isnan(g) & torch.isnan(g[:1])) if g.is_floating_point() else g == g[:1]
+        check(bool(same.all()), f"config 3 {n}: the {CFG3_B} copies differ")
+    for k, v in ab_cpu.residue_masks.items():
+        compare(v.expand(CFG3_B, -1), ab.residue_masks[k], f"config 3 mask {k}")
+    ms = cuda_time_ms(lambda: cfg3(ab))
+    say(f"phase 19 config 3 [{smi}]: AntibodyStructureBatch 6dc4 (H/L) x{CFG3_FILES} padded to {ab.n_residues}, "
+        f"tiled to B={ab.batch_size}: omega, theta, phi + heavy pair mask + CDR mask {ms:.4f} ms "
+        f"({ab.batch_size / ms * 1e3:.0f} structures/s); vs CPU max err {max(errs):.3e}; the nine "
+        f"named masks equal to the CPU port's ({int(ab.get_cdr_mask()[0].sum())} CDR residues)")
+    del out, ab, ab8
+    torch.cuda.empty_cache()
+
+    # -- config 4: standardize + the T=300 forward trajectory at B=256
+    from protstruc_tpu_torch.ops import diffusion as td
+
+    rep = CFG4_B // sb8.batch_size
+    sb4 = pt.StructureBatch.from_xyz(torch.nan_to_num(sb8.xyz).repeat(rep, 1, 1, 1),
+                                     sb8.atom_mask.repeat(rep, 1, 1), device=dev)
+    betas = td.cosine_variance_schedule(CFG4_T, device=dev)
+    g = torch.Generator(device=dev)
+    std_b = sb4.standardize()
+    std_cpu = sb4.to("cpu").standardize()
+    err_s = max(compare(std_cpu.xyz, std_b.xyz, "config 4 standardized xyz", COORD_ATOL, COORD_RTOL)[0],
+                compare(std_cpu.mu, std_b.mu, "config 4 mu", COORD_ATOL, COORD_RTOL)[0],
+                compare(std_cpu.std, std_b.std, "config 4 std", COORD_ATOL, COORD_RTOL)[0])
+    captured = []
+
+    def noise():
+        for _ in range(CFG4_T):
+            e = torch.randn(std_b.xyz.shape, generator=g, device=dev)
+            captured.append(e[:CFG4_CPU_ROWS].cpu())
+            yield e
+
+    g.manual_seed(1)
+    x_t = td._diffusion_trajectory(std_b.xyz, noise(), betas)
+    g.manual_seed(1)
+    check(torch.equal(td.diffusion_trajectory(std_b.xyz, betas, generator=g), x_t),
+          "config 4: diffusion_trajectory differs from its core on the same draws")
+    ref = td._diffusion_trajectory(std_cpu.xyz[:CFG4_CPU_ROWS], captured, betas.cpu())
+    err_t = compare(ref, x_t[:CFG4_CPU_ROWS], "config 4 trajectory", COORD_ATOL, COORD_RTOL)[0]
+    del captured
+    sd, mean = float(x_t.std()), float(x_t.mean())
+    check(abs(sd - 1.0) < 0.1 and abs(mean) < 0.05, f"config 4: x_T std {sd}, mean {mean}")
+
+    def cfg4():
+        g.manual_seed(1)
+        return td.diffusion_trajectory(sb4.standardize().xyz, betas, generator=g)
+
+    ms = cuda_time_ms(cfg4)
+    say(f"phase 19 config 4 [{smi}]: standardize + diffusion_trajectory B={CFG4_B} L={sb4.n_residues} "
+        f"T={CFG4_T} {ms:.4f} ms ({ms / CFG4_T * 1e3:.2f} us/step); standardize vs CPU {err_s:.3e}, "
+        f"x_T of structures 0-{CFG4_CPU_ROWS - 1} vs CPU on the same draws {err_t:.3e}; x_T std {sd:.4f}, "
+        f"mean {mean:.2e}")
+    del sb4, std_b, std_cpu, x_t, ref
+    torch.cuda.empty_cache()
+
+    # -- config 5: B=1024 x L=1024 torsions -> NeRF -> actual CB -> A=15 -> K1 d_cb only
+    from protstruc_tpu_torch.ops.nerf import backbone_from_dihedrals
+
+    tor = np.random.RandomState(1).uniform(-3.1, 3.1, (CFG5_B, CFG5_L, 3)).astype(np.float32)
+    pt.StructureBatch.from_dihedrals(tor[:2, :8], device=dev)  # warm-up
+    reset_launches(pair_maps)
+    t0 = time.perf_counter()
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    sb5 = pt.StructureBatch.from_dihedrals(tor, device=dev)
+    n, ca, c = (sb5.xyz[:, :, k] for k in range(3))
+    b_v, c_v = ca - n, c - ca
+    cb = -0.58273431 * torch.linalg.cross(b_v, c_v) + 0.56802827 * b_v - 0.54067466 * c_v + ca
+    xyz15 = sb5.xyz.clone()
+    xyz15[:, :, 4] = cb
+    mid.record()
+    d_cb = pair_maps.pairwise_maps_forward(xyz15, maps=("d_cb",))
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = pair_maps.LAUNCHES
+    check(launches == 1 and tuple(d_cb) == ("d_cb",), f"config 5: K1 launches {launches}, maps {tuple(d_cb)}")
+    nerf_ms, k1_first_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    d_cb = d_cb["d_cb"]
+
+    x_cpu = backbone_from_dihedrals(torch.from_numpy(tor))[:, :, :3].double()
+    x_64 = backbone_from_dihedrals(torch.from_numpy(tor).double())[:, :, :3]
+    card = sb5.xyz[:, :, :3].cpu().double()
+    check(bool(torch.isfinite(card).all()), "config 5: NeRF coordinates not finite")
+    by_res = [(card - x_cpu).abs().amax(dim=(0, 2, 3)), (card - x_64).abs().amax(dim=(0, 2, 3)),
+              (x_cpu - x_64).abs().amax(dim=(0, 2, 3))]
+    err_card, err_cpu = float(by_res[1].max()), float(by_res[2].max())
+    say(f"phase 19 config 5 NeRF [{smi}]: from_dihedrals B={CFG5_B} L={CFG5_L} {nerf_ms:.1f} ms "
+        f"(CUDA events, with the CB and A=15 layout; the loop is host-bound: about 100 small ops a residue); "
+        "max err by residue (card vs CPU port / card vs float64 / CPU vs float64) "
+        + ", ".join(f"{r}: {float(by_res[0][r]):.2e} / {float(by_res[1][r]):.2e} / {float(by_res[2][r]):.2e}"
+                    for r in NERF_RESIDUES)
+        + f"; gate: card within 2x the CPU's distance from float64 + 1e-5 A ({err_card:.3e} vs {err_cpu:.3e})")
+    check(err_card <= 2 * err_cpu + 1e-5,
+          f"config 5: the card's NeRF chain is {err_card:.3e} from float64, the CPU's {err_cpu:.3e}")
+    del x_cpu, x_64, card
+
+    rows = list(CFG5_PLAIN_ROWS)
+    plain = pair_maps._pair_maps_plain(xyz15[rows], maps=("d_cb",))["d_cb"]
+    n_bad = unequal(plain, d_cb[rows])
+    check(n_bad == 0, f"config 5: K1 d_cb differs from its plain version at {n_bad} entries")
+    err = float((plain - d_cb[rows]).abs().nan_to_num().max())
+    del plain
+    k1_subset_writes(torch, pair_maps, xyz15, ("d_cb",), torch.float32)   # the whole batch
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(d_cb).all()), "config 5: d_cb not finite")
+    # the library call for the same function: d_cb is |CB_i - CB_j| over the CB slot; its
+    # matmul form (|a|^2 + |b|^2 - 2 a.b) is faster and rounds differently
+    cb_slot = xyz15[:, :, 4]
+
+    def library(mode="donot_use_mm_for_euclid_dist"):
+        return torch.cdist(cb_slot, cb_slot, compute_mode=mode)
+
+    lib_err = compare(d_cb, library(), "config 5 cdist d_cb")[0]
+    mm_err = float((library("use_mm_for_euclid_dist") - d_cb).abs().max())
+    torch.cuda.empty_cache()
+    chunk = CFG5_B // CFG5_PLAIN_CALLS
+    kernel = lambda: pair_maps.pairwise_maps_forward(xyz15, maps=("d_cb",))  # noqa: E731
+    ms_plain, ms_k1, _ = alternate(
+        lambda: [pair_maps._pair_maps_plain(xyz15[i:i + chunk], maps=("d_cb",))
+                 for i in range(0, CFG5_B, chunk)], kernel)
+    ms_lib = event_ms(torch, library, reps=1)   # over a second a call
+    ms_mm = event_ms(torch, lambda: library("use_mm_for_euclid_dist"), reps=ITERS)
+    out_bytes = d_cb.numel() * d_cb.element_size()
+    b = bound(slot_bytes(xyz15, 1) + out_bytes, 8 * d_cb.numel(), torch.float32)
+    b_all_xyz = (nbytes(xyz15) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    say(f"phase 19 config 5 K1 d_cb only [{smi}]: B={CFG5_B} L={CFG5_L} ({d_cb.numel()} pairs, "
+        f"{out_bytes / 1e9:.2f} GB out, {pair_maps.tile_plan(CFG5_B, CFG5_L).n_tiles} tiles) kernel {ms_k1:.4f} ms "
+        f"(first call {k1_first_ms:.4f}), plain {ms_plain:.4f} ms ({CFG5_PLAIN_CALLS} calls of {chunk}); "
+        f"library torch.cdist over the CB slot {ms_lib:.4f} ms (within {lib_err:.3e} of K1; its matmul "
+        f"form {ms_mm:.4f} ms, within {mm_err:.3e}); "
+        f"bound {b[0]:.4f} ms ({b[1]}: the CB slot in, d_cb out; {b_all_xyz:.4f} ms reading all of xyz), "
+        f"{b[0] / ms_k1 * 100:.1f}% of it; launches {launches}; bitwise equal to the plain version on "
+        f"structures {rows[0]}-{rows[7]} and {rows[8]}-{rows[-1]}, only d_cb written over the whole batch "
+        f"(sentinel planes); host {host_s:.2f} s for the path")
+    dcb_entry = {"launches": launches, "max_abs_err": err, "unequal_vs_plain": n_bad, "ms": ms_k1,
+                 "plain_ms": ms_plain, "bound_ms": b[0], "bound_by": b[1], "library_ms": ms_lib,
+                 "shape": [CFG5_B, CFG5_L, CFG5_L]}
+    del d_cb, xyz15, sb5, cb
+    torch.cuda.empty_cache()
+
+    # -- the reconstruction path: K1's six maps -> distmat -> MDS
+    from protstruc_tpu_torch.ops import reconstruct as trec
+
+    def reconstruct(b):
+        g6 = b.inter_residue_geometry(use_kernel=True)
+        ci = b.chain_idx[0]
+        dist = trec.reconstruct_backbone_distmat_from_interresidue_geometry(
+            g6["d_cb"][0], g6["omega"][0], g6["theta"][0], g6["phi"][0], mask=g6["d_cb_mask"][0],
+            chain_break_mask=ci[1:] != ci[:-1])
+        return dist, trec.initialize_backbone_with_mds(dist, max_iter=MDS_ITERS)
+
+    def ca_rms(coords, b):
+        ca, true = coords[1].double(), b.xyz[0, :, 1].double()
+        m = b.get_residue_mask()[0]
+        pair = m[:, None] & m[None]
+        return float(((torch.cdist(ca, ca) - torch.cdist(true, true))[pair] ** 2).mean().sqrt())
+
+    for name, gate in RECONSTRUCT:
+        p = str(DATA / name)
+        b, b_cpu = pt.StructureBatch.from_pdb(p, device=dev), pt.StructureBatch.from_pdb(p, device="cpu")
+        reset_launches(pair_maps)
+        t0 = time.perf_counter()
+        dist, coords = reconstruct(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_r = pair_maps.LAUNCHES
+        check(launches_r >= 1, f"reconstruction {name}: K1 not launched")
+        dist_cpu, coords_cpu = reconstruct(b_cpu)
+        err_dist = compare(dist_cpu, dist, f"reconstruction {name} distmat", COORD_ATOL, COORD_RTOL)[0]
+        a, r_ = coords.cpu().reshape(-1, 3).double(), coords_cpu.reshape(-1, 3).double()
+        rot, t = pt.geometry.kabsch(a, r_)
+        fit = float((a @ rot.T + t - r_).abs().max())
+        check(float(torch.linalg.det(rot)) > 0 and fit < MDS_FIT_ATOL,
+              f"reconstruction {name}: card MDS off the CPU's by {fit:.3e} after the fit")
+        rms, rms_cpu = ca_rms(coords, b), ca_rms(coords_cpu, b_cpu)
+        check(rms < gate, f"reconstruction {name}: CA distance-matrix RMS {rms:.3f} >= {gate}")
+        ms = event_ms(torch, lambda: reconstruct(b), reps=1)
+        say(f"phase 19 reconstruction {name} (L={b.n_residues}) [{smi}]: inter_residue_geometry(use_kernel=True) "
+            f"-> distmat -> MDS ({MDS_ITERS} SMACOF iterations) {ms:.1f} ms (first call {wall * 1e3:.1f} ms wall); "
+            f"K1 launches {launches_r}; CA distance-matrix RMS vs native {rms:.4f} A (CPU {rms_cpu:.4f}; gate "
+            f"{gate}); distmat vs CPU {err_dist:.3e}, MDS coordinates vs CPU after a proper Kabsch fit {fit:.3e}")
+
+    # -- renumber through the CLI, the renumbered file ingested on the card and on the CPU
+    from protstruc_tpu_torch.__main__ import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_pdb = str(pathlib.Path(tmp) / "6dc4_imgt.pdb")
+        line, _ = run_cli(cli, ["renumber", ab_path, out_pdb, "--heavy", "H", "--light", "L", "--to", "imgt"])
+        rep = json.loads(line)
+        check(rep["chains"] == {"H": {"from": "chothia", "to": "imgt"}, "L": {"from": "chothia", "to": "imgt"}},
+              f"renumber: {line.strip()}")
+        got = pt.AntibodyStructureBatch.from_pdb(out_pdb, "H", "L", numbering_scheme="imgt", device=dev)
+        want = pt.AntibodyStructureBatch.from_pdb(out_pdb, "H", "L", numbering_scheme="imgt", device="cpu")
+        direct = pt.AntibodyStructureBatch.from_pdb(ab_path, "H", "L", numbering_scheme="imgt", device="cpu")
+        for k, v in want.residue_masks.items():
+            compare(v, got.residue_masks[k], f"renumber mask {k}")
+        counts = {k: int((got.get_cdr_mask(k) & got.residue_mask).sum()) for k in pt.CDR_NAMES}
+        direct_counts = {k: int((direct.get_cdr_mask(k) & direct.residue_mask).sum()) for k in pt.CDR_NAMES}
+        check(counts == direct_counts, f"renumber: CDR sizes {counts} != {direct_counts}")
+    say(f"phase 19 renumber: ok; {line.strip()}; the IMGT file's masks on the card equal the CPU's, "
+        f"CDR sizes {counts} as the Chothia file converted at ingest")
+    return dcb_entry
+
+
 def main():
     import numpy as np
     import torch
@@ -1787,7 +2139,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve")
+    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -1839,6 +2191,12 @@ def main():
             work_dir = pathlib.Path(tmp)
             say(f"serve: phase 12's checkpoint: {fold_main_path(dev, work_dir)[0]}")
             served_path(torch, dev, smi, work_dir / "ck", work_dir)
+        return 0
+    if sys.argv[1:] == ["--batch-api"]:
+        t0 = time.perf_counter()
+        pair_maps.load_library()
+        batch_api_phase(torch, np, dev, smi)
+        say(f"phase 19 batch API at BASELINE sizes: ok in {time.perf_counter() - t0:.2f} s (K1 built or loaded)")
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -2308,6 +2666,11 @@ def main():
     work.cleanup()
     say(f"phase 18 served and analysis path: ok in {time.perf_counter() - t0:.2f} s")
 
+    # -- 19. the batch API at BASELINE sizes ---------------------------------------------
+    t0 = time.perf_counter()
+    dcb_entry = batch_api_phase(torch, np, dev, smi)
+    say(f"phase 19 batch API at BASELINE sizes: ok in {time.perf_counter() - t0:.2f} s")
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -2319,7 +2682,7 @@ def main():
     kernels = [dict(entry("pair_maps", "pair_maps.cu", "protstruc_tpu/ops/pallas_pairwise.py:146", launches,
                           max(worst_small, worst_full), kernel_ms, plain_ms, *k1_bound, None),
                     bf16_mode={"launches": bf16_launches, "unequal_vs_f32_cast": bf16_unequal, "ms": bf16_ms, "bound_ms": bf16_bound[0],
-                               "bound_by": bf16_bound[1]}),
+                               "bound_by": bf16_bound[1]}, dcb_subset=dcb_entry),
                entry("model_features", "model_features.cu", "protstruc_tpu/ops/pallas_pairwise.py:671",
                      fold_launches["model_features"], k3_worst, k3_ms, k3_plain_ms, *k3_bound, None)]
     kernels += [entry(f"tri_mul_{name}", "tri_mul.cu", TRI_REPLACES[name], train_launches[name],

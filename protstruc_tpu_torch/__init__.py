@@ -11,15 +11,22 @@ featurizer (``utils/aot.py``) and the JSONL server
 (``python -m protstruc_tpu_torch serve``); and the TrFold train step
 (``models/trfold.py``: ``featurize_for_model`` -> ``make_train_state`` ->
 ``train_step``), whose triangle updates run through the K4-K7 kernels
-(``ops/tri_mul.py``) with ``fused_tri=True``.
+(``ops/tri_mul.py``) with ``fused_tri=True``; the FoldModel trainer and
+fold; the server and analysis commands; and the rest of the batch API:
+constructors from dihedrals (NeRF), frames and sequences, rigid moves and
+standardization, selections, diffusion (``ops/diffusion.py``),
+reconstruction from the pair maps (``ops/reconstruct.py``), and the
+antibody batch (``AntibodyStructureBatch``) with numbering-scheme
+conversion (``numbering.py``, the ``renumber`` command).
 """
 
 from protstruc_tpu_torch import geometry, vocab
+from protstruc_tpu_torch.antibody import AntibodyStructureBatch
 from protstruc_tpu_torch.batch import StructureBatch
 from protstruc_tpu_torch.constants import MAX_N_ATOMS_PER_RESIDUE
-from protstruc_tpu_torch.vocab import AA, ATOM
+from protstruc_tpu_torch.vocab import AA, ATOM, CDR_NAMES
 
-__all__ = ["StructureBatch", "ATOM", "AA", "geometry", "vocab",
-           "MAX_N_ATOMS_PER_RESIDUE"]
+__all__ = ["StructureBatch", "AntibodyStructureBatch", "ATOM", "AA", "CDR_NAMES", "geometry",
+           "vocab", "MAX_N_ATOMS_PER_RESIDUE"]
 
 __version__ = "0.1.0"

@@ -3,6 +3,7 @@
     python -m protstruc_tpu_torch featurize 1rex.pdb --out feats.npz
     python -m protstruc_tpu_torch analyze 1rex.pdb --ss8 --sasa
     python -m protstruc_tpu_torch convert in.pdb out.cif
+    python -m protstruc_tpu_torch renumber in.pdb out.pdb --heavy H --light L --to imgt
     python -m protstruc_tpu_torch score model.pdb native.pdb
     python -m protstruc_tpu_torch info
     python -m protstruc_tpu_torch serve --buckets 256,512 --checkpoint-dir ck
@@ -10,8 +11,8 @@
     python -m protstruc_tpu_torch fold --checkpoint-dir ck --seq MKV... --out fold.pdb --relax 20
 
 Commands run on ``--device`` (default ``cuda``, which raises without a card;
-pass ``--device cpu`` for host runs).  The JAX CLI's ``renumber`` is not
-ported, and ``train --mesh``/``--zero1`` raise ``NotImplementedError``.
+pass ``--device cpu`` for host runs); ``renumber`` runs on the host alone.
+``train --mesh``/``--zero1`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -95,6 +96,19 @@ def cmd_convert(args) -> int:
     writer = structure_batch_to_cif if args.output.endswith(".cif") else structure_batch_to_pdb
     writer(sb, args.output)
     print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_renumber(args) -> int:
+    from protstruc_tpu_torch.numbering import renumber_pdb
+
+    if args.heavy is None and args.light is None:
+        raise SystemExit("renumber needs --heavy and/or --light chain ids")
+    summary = renumber_pdb(
+        args.input, args.output,
+        heavy_chain_id=args.heavy, light_chain_id=args.light,
+        to_scheme=args.to_scheme, source_scheme=args.source_scheme)
+    print(json.dumps({"output": args.output, "chains": summary}))
     return 0
 
 
@@ -359,6 +373,19 @@ def main(argv=None) -> int:
     c.add_argument("output")
     device_arg(c)
     c.set_defaults(fn=cmd_convert)
+
+    rn = sub.add_parser(
+        "renumber",
+        help="convert antibody numbering scheme (chothia/kabat <-> imgt)")
+    rn.add_argument("input")
+    rn.add_argument("output")
+    rn.add_argument("--heavy", default=None, help="heavy chain id")
+    rn.add_argument("--light", default=None, help="light chain id")
+    rn.add_argument("--to", dest="to_scheme", default="imgt",
+                    choices=["chothia", "kabat", "imgt"])
+    rn.add_argument("--from", dest="source_scheme", default="auto",
+                    choices=["auto", "chothia", "kabat", "imgt"])
+    rn.set_defaults(fn=cmd_renumber)
 
     i = sub.add_parser("info", help="torch / CUDA / nvcc status")
     i.set_defaults(fn=cmd_info)

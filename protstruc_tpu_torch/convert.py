@@ -1,8 +1,10 @@
 """State carried between the JAX package and the port.
 
 * The batch: :func:`structure_batch_from_numpy` builds the port's batch from
-  the JAX batch's arrays taken as numpy (``np.asarray(sb.xyz)``, ...), and
-  :func:`to_numpy` goes back, returning the same keyword arguments.
+  the JAX batch's arrays taken as numpy (``np.asarray(sb.xyz)``, ...), with
+  its standardization state and, for an antibody batch, its named masks and
+  chain roles, and :func:`to_numpy` goes back, returning the same keyword
+  arguments.
 * TrFold parameters: :func:`trfold_params_from_flax` turns a flax parameter
   tree (nested dicts of numpy arrays) into a ``state_dict`` of
   ``protstruc_tpu_torch.models.trfold.TrFold``, and
@@ -23,6 +25,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -40,31 +43,78 @@ __all__ = ["structure_batch_from_numpy", "to_numpy", "trfold_params_from_flax",
            "trfold_params_to_flax", "foldmodel_params_from_flax", "foldmodel_params_to_flax"]
 
 
+#: The antibody batch's host metadata, carried as it is.
+_ANTIBODY_META = ("heavy_chain_id", "light_chain_id", "antigen_chain_ids",
+                  "numbering_scheme", "keep_fv_only")
+
+
 def structure_batch_from_numpy(xyz, atom_mask, chain_idx, residue_idx,
-                               chain_ids=None, seq=None,
-                               device: DeviceLike = "cuda") -> StructureBatch:
+                               chain_ids=None, seq=None, mu=None, std=None,
+                               standardized: bool = False, residue_masks=None,
+                               device: DeviceLike = "cuda", **antibody) -> StructureBatch:
     """The port's batch holding exactly these arrays (no re-validation).
 
-    ``xyz`` is cast to float32, ``atom_mask`` to bool and the index arrays to
-    int32; values, NaNs and padding are kept as given.
+    ``xyz`` (and ``mu``/``std`` when given) is cast to float32,
+    ``atom_mask`` to bool and the index arrays to int32; values, NaNs and
+    padding are kept as given.  With ``residue_masks`` (a dict of ``(B, L)``
+    bool arrays) the result is an ``AntibodyStructureBatch``, and
+    ``antibody`` takes its ``heavy_chain_id``, ``light_chain_id``,
+    ``antigen_chain_ids``, ``numbering_scheme`` and ``keep_fv_only``.
     """
-    return StructureBatch._from_numpy(
+    dev = resolve_device(device)
+    unknown = set(antibody) - set(_ANTIBODY_META)
+    if unknown or (antibody and residue_masks is None):
+        raise TypeError(f"unexpected keyword arguments {sorted(antibody)}")
+    sb = StructureBatch._from_numpy(
         np.asarray(xyz), np.asarray(atom_mask), np.asarray(chain_idx),
-        np.asarray(residue_idx), _freeze_chain_ids(chain_ids), _freeze_seq(seq),
-        resolve_device(device))
+        np.asarray(residue_idx), _freeze_chain_ids(chain_ids), _freeze_seq(seq), dev)
+
+    def f32(a):
+        return None if a is None else torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev)
+
+    sb = sb.replace(mu=f32(mu), std=f32(std), standardized=bool(standardized))
+    if residue_masks is None:
+        return sb
+    from protstruc_tpu_torch.antibody import AntibodyStructureBatch
+
+    masks = {k: torch.from_numpy(np.asarray(v, bool).copy()).to(dev)
+             for k, v in residue_masks.items()}
+    meta = {k: _freeze_meta(k, v) for k, v in antibody.items()}
+    return AntibodyStructureBatch(**{f.name: getattr(sb, f.name)
+                                     for f in dataclasses.fields(sb)},
+                                  residue_masks=masks, **meta)
+
+
+def _freeze_meta(name, value):
+    if name == "antigen_chain_ids" and value is not None:
+        return tuple(tuple(a) for a in value)
+    if name in ("heavy_chain_id", "light_chain_id") and value is not None:
+        return tuple(value)
+    return value
 
 
 def to_numpy(sb: StructureBatch) -> Dict[str, Any]:
     """The batch's arrays on the host, as keyword arguments of
-    :func:`structure_batch_from_numpy`."""
-    return {
-        "xyz": sb.xyz.cpu().numpy(),
-        "atom_mask": sb.atom_mask.cpu().numpy(),
-        "chain_idx": sb.chain_idx.cpu().numpy(),
-        "residue_idx": sb.residue_idx.cpu().numpy(),
+    :func:`structure_batch_from_numpy` (an antibody batch's masks and
+    metadata included)."""
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    out = {
+        "xyz": host(sb.xyz),
+        "atom_mask": host(sb.atom_mask),
+        "chain_idx": host(sb.chain_idx),
+        "residue_idx": host(sb.residue_idx),
         "chain_ids": sb.chain_ids,
         "seq": sb.seq,
+        "mu": host(sb.mu),
+        "std": host(sb.std),
+        "standardized": sb.standardized,
     }
+    if getattr(sb, "residue_masks", None) is not None:
+        out["residue_masks"] = {k: host(v) for k, v in sb.residue_masks.items()}
+        out.update({k: getattr(sb, k) for k in _ANTIBODY_META})
+    return out
 
 
 def trfold_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

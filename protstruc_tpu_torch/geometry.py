@@ -14,10 +14,12 @@ sum of products into fused multiply-adds and rounds ``sqrt`` correctly.
 root taken in float64), because ``angle``'s arccos amplifies a one-ulp
 difference in the cosine to more than 1e-5 near ``|cos| = 1``.
 
-Ported so far: what the featurization path needs (``dot``, ``norm``,
-``unit``, ``angle``, ``dihedral``, ``gram_schmidt``) and what the FoldModel
-trainer needs (``place_fourth_atom``, ``ideal_backbone_coordinates``,
-``ideal_carbonyl_oxygen``, ``kabsch``, ``masked_kabsch``).
+Every function of the JAX module is ported: the featurization path's
+(``dot``, ``norm``, ``unit``, ``angle``, ``dihedral``, ``gram_schmidt``),
+the FoldModel trainer's (``place_fourth_atom``,
+``ideal_backbone_coordinates``, ``ideal_carbonyl_oxygen``, ``kabsch``,
+``masked_kabsch``) and the reconstruction path's (``ideal_local_frame``,
+``fix_chirality``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 from protstruc_tpu_torch.constants import ideal
 
 __all__ = ["dot", "norm", "unit", "angle", "dihedral", "gram_schmidt", "place_fourth_atom",
-           "ideal_backbone_coordinates", "ideal_carbonyl_oxygen", "kabsch", "masked_kabsch"]
+           "ideal_local_frame", "ideal_backbone_coordinates", "ideal_carbonyl_oxygen",
+           "fix_chirality", "kabsch", "masked_kabsch"]
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -140,17 +143,37 @@ def gram_schmidt(a, b, c) -> torch.Tensor:
 
 def place_fourth_atom(a, b, c, length, planar, dihedral_angle) -> torch.Tensor:
     """NeRF placement of X from A, B, C: bond ``|CX| = length``, angle
-    X-C-B ``planar`` and dihedral X-C-B-A ``dihedral_angle`` (Python floats)."""
+    X-C-B ``planar`` and dihedral X-C-B-A ``dihedral_angle``, each a Python
+    float or a tensor with a trailing singleton axis ``(..., 1)``."""
     bc = unit(b - c)
     n = unit(_cross(b - a, bc))
     d1, d2, d3 = bc, _cross(n, bc), n
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=a.device)  # noqa: E731
+
+    def f32(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.tensor(v, dtype=torch.float32, device=a.device)
+
     cos_p, sin_p = torch.cos(f32(planar)), torch.sin(f32(planar))
     cos_d, sin_d = torch.cos(f32(dihedral_angle)), torch.sin(f32(dihedral_angle))
     m1 = length * cos_p
     m2 = length * sin_p * cos_d
     m3 = -length * sin_p * sin_d
     return c + m1 * d1 + m2 * d2 + m3 * d3
+
+
+def ideal_local_frame(device="cuda") -> torch.Tensor:
+    """Ideal N-centered local coordinates of (N, CA, C, CB), ``(4, 3)``
+    float32 on ``device``: CA on +z, CB in the yz-plane, C placed from them."""
+    from protstruc_tpu_torch.batch import resolve_device
+
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
+    n = torch.zeros(3, **f32)
+    ca = torch.tensor([0.0, 0.0, ideal.NA], **f32)
+    cb = torch.tensor([0.0, ideal.AB * math.sin(ideal.NAB),
+                       ideal.NA - ideal.AB * math.cos(ideal.NAB)], **f32)
+    c = place_fourth_atom(cb, ca, n, ideal.NC, ideal.ANC, ideal.BANC)
+    return torch.stack([n, ca, c, cb])
 
 
 def ideal_backbone_coordinates(size, include_cb: bool = False, device="cuda") -> torch.Tensor:
@@ -187,6 +210,21 @@ def ideal_carbonyl_oxygen(n, ca, c, chain_idx=None) -> torch.Tensor:
     o_mid = place_fourth_atom(n_next, ca, c, ideal.CO, ideal.ACO, ideal.NACO)
     o_term = place_fourth_atom(n, ca, c, ideal.CO, ideal.ACO, math.radians(135.0) - math.pi)
     return torch.where(is_last[..., None], o_term, o_mid)
+
+
+def fix_chirality(coords: torch.Tensor) -> torch.Tensor:
+    """Mirror the z axis iff the backbone is left-handed.
+
+    ``coords``: ``(3, L, 3)`` N/CA/C coordinates (an MDS embedding, whose
+    handedness is an arbitrary sign).  Natural backbones have mostly
+    negative phi, so a positive mean phi (NaN ignored) means a mirror image
+    and z is flipped; otherwise the coordinates come back as they are.
+    """
+    n, ca, c = coords[0], coords[1], coords[2]
+    phi = dihedral(c[:-1], n[1:], ca[1:], c[1:])
+    left_handed = torch.nanmean(phi) > 0.0
+    flip = torch.tensor([1.0, 1.0, -1.0], dtype=coords.dtype, device=coords.device)
+    return torch.where(left_handed, coords * flip, coords)
 
 
 def masked_kabsch(a, b, weights) -> Tuple[torch.Tensor, torch.Tensor]:

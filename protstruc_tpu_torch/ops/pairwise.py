@@ -3,8 +3,10 @@
 Port of ``protstruc_tpu/ops/pairwise.py``: every pair feature is a fused
 ``(B, L, L)`` map computed by broadcasting residue-i atom columns
 ``(B, L, 1, 3)`` against residue-j columns ``(B, 1, L, 3)``; the
-``(B, L, L, A, A)`` all-atom tensor is never built.  This is the arccos-form
-path behind ``StructureBatch.inter_residue_geometry(use_kernel=False)``.
+``(B, L, L, A, A)`` all-atom tensor is built only by
+:func:`full_pairwise_distance_matrix`, the parity escape hatch behind
+``StructureBatch.pairwise_distance_matrix``.  This is the arccos-form path
+behind ``StructureBatch.inter_residue_geometry(use_kernel=False)``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ __all__ = [
     "pairwise_atom_distance",
     "pairwise_dihedral_maps",
     "pairwise_planar_angle_maps",
+    "full_pairwise_distance_matrix",
 ]
 
 
@@ -92,3 +95,31 @@ def pairwise_planar_angle_maps(
     cols_j = [c[:, None, :, :] for c in _atom_cols(xyz, atoms_j)]
     a, b, c = cols_i + cols_j
     return geom.angle(a, b, c)
+
+
+def full_pairwise_distance_matrix(
+    xyz: torch.Tensor, atom_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full all-atom pair tensor ``(B, L, L, A, A)`` + validity mask.
+
+    Memory is O(B L^2 A^2); prefer ``pairwise_atom_distance`` slices.  The
+    output is filled one structure at a time, a coordinate axis at a time,
+    so nothing larger than one structure's ``(L, L, A, A)`` planes is built
+    beside it.
+    """
+    B, L, A = xyz.shape[:3]
+    elements = B * L * L * A * A
+    if elements > 2**33:  # ~8G elements = 32 GB f32
+        raise ValueError(
+            f"full_pairwise_distance_matrix would materialize {elements:.2e} "
+            f"elements (B={B}, L={L}, A={A}). Use pairwise_atom_distance / "
+            "inter_residue_geometry (fused (B, L, L) maps) instead."
+        )
+    dist = torch.empty((B, L, L, A, A), dtype=xyz.dtype, device=xyz.device)
+    for b in range(B):
+        x = xyz[b]
+        d = [x[:, None, :, None, k] - x[None, :, None, :, k] for k in range(3)]
+        sq = torch.addcmul(torch.addcmul(d[0] * d[0], d[1], d[1]), d[2], d[2])
+        dist[b] = geom._exact_sqrt(sq)
+    mask = atom_mask[:, :, None, :, None] & atom_mask[:, None, :, None, :]
+    return dist, mask

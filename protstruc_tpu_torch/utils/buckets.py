@@ -30,8 +30,8 @@ def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
 
 def pad_batch_to_bucket(batch, buckets: Sequence[int] = DEFAULT_BUCKETS):
     """A StructureBatch with its residue axis padded up to its bucket: zero
-    coordinates, False masks, -1 indices.  The batch itself when L already is
-    a bucket length."""
+    coordinates, False masks (an antibody batch's named masks too), -1
+    indices.  The batch itself when L already is a bucket length."""
     from protstruc_tpu_torch.batch import PAD_IDX
 
     L = batch.n_residues
@@ -43,20 +43,31 @@ def pad_batch_to_bucket(batch, buckets: Sequence[int] = DEFAULT_BUCKETS):
         widths = [0, 0] * (x.dim() - 2) + [0, extra]
         return torch.nn.functional.pad(x, widths, value=value)
 
-    return dataclasses.replace(
+    out = dataclasses.replace(
         batch,
         xyz=pad(batch.xyz, 0.0),
         atom_mask=pad(batch.atom_mask, False),
         chain_idx=pad(batch.chain_idx, PAD_IDX),
         residue_idx=pad(batch.residue_idx, PAD_IDX),
     )
+    if getattr(batch, "residue_masks", None):
+        out = dataclasses.replace(
+            out, residue_masks={k: pad(v, False) for k, v in batch.residue_masks.items()})
+    return out
 
 
 def concat_batches(batches, buckets: Sequence[int] = DEFAULT_BUCKETS):
     """StructureBatches concatenated along B, L padded to a common bucket.
-    ``chain_ids``/``seq`` concatenate when every input has them, else None."""
+
+    ``chain_ids``/``seq`` concatenate when every input has them, else None;
+    ``mu``/``std`` concatenate, and standardized batches cannot be mixed
+    with raw ones.  Antibody batches concatenate their named masks and
+    chain-role tuples; they cannot be mixed with plain batches.
+    """
     if not batches:
         raise ValueError("concat_batches needs at least one batch")
+    if len({b.standardized for b in batches}) > 1:
+        raise ValueError("cannot concat standardized with unstandardized batches")
     target = bucket_length(max(b.n_residues for b in batches), buckets)
     padded = [pad_batch_to_bucket(b, (target,)) if b.n_residues != target else b
               for b in batches]
@@ -64,9 +75,32 @@ def concat_batches(batches, buckets: Sequence[int] = DEFAULT_BUCKETS):
     def cat(field):
         return torch.cat([getattr(b, field) for b in padded], dim=0)
 
-    chain_ids = (sum((b.chain_ids for b in batches), ())
-                 if all(b.chain_ids is not None for b in batches) else None)
-    seq = sum((b.seq for b in batches), ()) if all(b.seq is not None for b in batches) else None
-    return dataclasses.replace(padded[0], xyz=cat("xyz"), atom_mask=cat("atom_mask"),
-                               chain_idx=cat("chain_idx"), residue_idx=cat("residue_idx"),
-                               chain_ids=chain_ids, seq=seq)
+    first = padded[0]
+    out = dataclasses.replace(
+        first, xyz=cat("xyz"), atom_mask=cat("atom_mask"), chain_idx=cat("chain_idx"),
+        residue_idx=cat("residue_idx"),
+        mu=cat("mu") if first.mu is not None else None,
+        std=cat("std") if first.std is not None else None,
+        chain_ids=_cat_tuples(batches, "chain_ids"), seq=_cat_tuples(batches, "seq"))
+    # antibody batches: either every input carries residue_masks or none
+    have_masks = [bool(getattr(b, "residue_masks", None)) for b in padded]
+    if any(have_masks):
+        if not all(have_masks):
+            raise ValueError("cannot concat antibody batches with plain batches")
+        out = dataclasses.replace(
+            out,
+            residue_masks={k: torch.cat([b.residue_masks[k] for b in padded], dim=0)
+                           for k in first.residue_masks},
+            heavy_chain_id=_cat_tuples(padded, "heavy_chain_id"),
+            light_chain_id=_cat_tuples(padded, "light_chain_id"),
+            antigen_chain_ids=_cat_tuples(padded, "antigen_chain_ids"),
+        )
+    return out
+
+
+def _cat_tuples(batches, field):
+    """Concatenate per-structure tuple metadata; None if absent anywhere."""
+    vals = [getattr(b, field, None) for b in batches]
+    if any(v is None for v in vals):
+        return None
+    return sum(vals, ())

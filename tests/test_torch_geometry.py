@@ -107,12 +107,18 @@ def test_backbone_orientations_match_jax():
 
 def test_import_pulls_in_no_jax():
     # every module of the package, and the card's smoke script
+    # (the batch API's and the antibody batch's modules named, so that a
+    # missing one fails here too)
+    needed = ["protstruc_tpu_torch." + m for m in (
+        "antibody", "numbering", "ops.nerf", "ops.diffusion", "ops.reconstruct",
+        "utils.buckets", "convert")]
     code = ("import importlib, pkgutil, sys, chip_smoke, protstruc_tpu_torch; "
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "protstruc_tpu_torch.__path__, 'protstruc_tpu_torch.')]; "
+            f"missing = [m for m in {needed!r} if m not in sys.modules]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'protstruc_tpu')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(bad, missing); sys.exit(1 if bad or missing else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
                           cwd=pathlib.Path(__file__).resolve().parents[1])
