@@ -160,7 +160,28 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     port's, the MDS coordinates within 1e-3 A of the CPU's after a proper
     Kabsch fit; last ``renumber`` of 6dc4 to IMGT through the CLI, the file
     ingested on the card and the CPU (masks equal, CDR sizes as the Chothia
-    file converted at ingest).
+    file converted at ingest);
+20. the design and generation path: (a) the AR InverseFold train step at
+    ``experiments/r5_flash_if_ab.py``'s width (bf16, D=256, P=32, 8 heads,
+    3 encoder + 3 decoder blocks) on 8gpi's first 2048 residues, flash
+    (K8/K9 under the folded causal bias) against the einsum path: losses
+    within 2e-2 relative, ms/step and peak memory, each path's device busy
+    share in one profiled step, K8/K9 launches a step (counters reset just
+    before); (b) K8/K9 against their plain versions at that shape on the
+    folded causal bias with k/v from a second projection: out, lse, ds, dk,
+    dv at the bf16 budget, the rows without an allowed key post-zeroed, their
+    ds exactly 0 and dk/dv bitwise unchanged when their q and bias change;
+    (c) each stage on the card against the port on the CPU from the same
+    inputs and host-made draws: FrameDiff loss and one reverse step, IF
+    logits (f32, einsum and flash), the AR-sampled sequence (equal),
+    chi_angles, build_sidechains, pack_sidechains' energies,
+    predict_structure's heads on a random-init TrFold (and the whole call
+    on the card, finite), then its decode on heads that carry 1REX's own
+    maps: d_cb, angles, MDS after a fit, idealize_backbone from the CPU's
+    MDS start and the whole decode after a fit; (d) ms per decoded
+    position of ``ar_sample_sequence`` at that width on L=256 and ms per
+    reverse step of ``framediff_sample`` at ``FrameDiffConfig()`` on B=8,
+    L=128; (e) the five example drivers on the card at their own sizes.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -187,7 +208,8 @@ The line before the last is one JSON object describing each kernel: its
 launches on its slice's main path (K1 phase 5, with its bf16 mode's own
 count from the same run and its ``d_cb``-only launch of phase 19's config 5
 as ``dcb_subset``, K4-K7 phase 8, K3 and K8/K9
-phase 12, K2 phase 15, each probe site its phase 17 run, with its fastest
+phase 12, K8/K9's launches a phase 20 IF train step as
+``design_if_step_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
@@ -223,6 +245,10 @@ phase 18, and prints no result line;
     python3 chip_smoke.py --batch-api
 
 runs phase 1, builds K1 and runs phase 19 alone, and prints no result line;
+
+    python3 chip_smoke.py --design
+
+runs phase 1, builds K8/K9 and runs phase 20 alone, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -2096,11 +2122,8 @@ def batch_api_phase(torch, np, dev, smi):
         check(launches_r >= 1, f"reconstruction {name}: K1 not launched")
         dist_cpu, coords_cpu = reconstruct(b_cpu)
         err_dist = compare(dist_cpu, dist, f"reconstruction {name} distmat", COORD_ATOL, COORD_RTOL)[0]
-        a, r_ = coords.cpu().reshape(-1, 3).double(), coords_cpu.reshape(-1, 3).double()
-        rot, t = pt.geometry.kabsch(a, r_)
-        fit = float((a @ rot.T + t - r_).abs().max())
-        check(float(torch.linalg.det(rot)) > 0 and fit < MDS_FIT_ATOL,
-              f"reconstruction {name}: card MDS off the CPU's by {fit:.3e} after the fit")
+        fit = proper_fit(coords, coords_cpu)
+        check(fit < MDS_FIT_ATOL, f"reconstruction {name}: card MDS off the CPU's by {fit:.3e} after the fit")
         rms, rms_cpu = ca_rms(coords, b), ca_rms(coords_cpu, b_cpu)
         check(rms < gate, f"reconstruction {name}: CA distance-matrix RMS {rms:.3f} >= {gate}")
         ms = event_ms(torch, lambda: reconstruct(b), reps=1)
@@ -2131,6 +2154,443 @@ def batch_api_phase(torch, np, dev, smi):
     return dcb_entry
 
 
+# -- the design and generation path (phase 20) -----------------------------------
+# experiments/r5_flash_if_ab.py:27-45: the repo's own A/B of flash attention in
+# InverseFold: bf16, D=256, P=32, 8 heads (dh 32), 3 encoder and 3 decoder
+# blocks, B=1, the teacher-forced AR train step; here on 8gpi's first 2048
+# residues (real backbones, 178 of them missing)
+IF_WIDTH = dict(node_dim=256, pair_dim=32, n_heads=8, n_blocks=3, n_decoder_blocks=3)
+IF_L, IF_STEPS, AR_L = 2048, 3, 256
+FD_B, FD_L = 8, 128                # FrameDiffConfig's defaults on B=8, L=128
+STAGE_ATOL = 1e-4                  # card vs CPU: FrameDiff, IF logits (f32), pack energies (rel)
+CHI_ATOL = 1e-5                    # chi_angles and build_sidechains, card vs CPU
+# idealize_backbone's Adam divides each coordinate's step by its own gradient
+# scale, so rounding noise on a near-0 gradient entry becomes a +-lr step:
+# 1.2e-3 A from the loss's reduction order alone on the CPU
+# (tests/test_torch_idealize_predict.py)
+IDEALIZE_ATOL = 2e-3
+# predict_structure's whole decode after a proper fit: its idealize stage
+# moves a coordinate by up to lr = 1e-2 A a step on the sign of its
+# gradient, so its end is fixed to within that step (the phase reports the
+# CPU's own spread from heads off by 1e-6 relative)
+DECODE_ATOL = 1e-2
+EXAMPLES = (("design_pipeline", "1REX.pdb"), ("design_cdr", "6dc4.pdb"),
+            ("framediff_backbones", "1REX.pdb"), ("generate_backbones", "1REX.pdb"),
+            ("reconstruct_pipeline", "1REX.pdb"))
+
+
+def proper_fit(coords, ref) -> float:
+    """Largest coordinate error of ``coords`` (any device) against ``ref``
+    (CPU) after a Kabsch fit in float64; fails on a mirror image."""
+    import torch
+    from protstruc_tpu_torch.geometry import kabsch
+
+    a, b = coords.detach().cpu().reshape(-1, 3).double(), ref.reshape(-1, 3).double()
+    rot, t = kabsch(a, b)
+    check(float(torch.linalg.det(rot)) > 0, "the card's coordinates are a mirror image of the CPU's")
+    return float((a @ rot.T + t - b).abs().max())
+
+
+def map_heads(sb, cfg):
+    """TrFold heads that carry ``sb``'s own 6D maps (B = 1): each distogram
+    row a Gaussian one bin wide about the true d_cb, each angle as (sin,
+    cos); with the pair mask of ``featurize_for_model``."""
+    import torch
+    g = sb.inter_residue_geometry()
+    w = cfg.max_dist / cfg.n_dist_bins
+    centers = (torch.arange(cfg.n_dist_bins, dtype=torch.float32) + 0.5) * w
+    out = {"distogram_logits": -((centers - g["d_cb"].nan_to_num(0)[..., None]) / w) ** 2 / 2}
+    for k in ("omega", "theta", "phi"):
+        a = g[k].nan_to_num(0)
+        out[f"{k}_sincos"] = torch.stack([torch.sin(a), torch.cos(a)], -1)
+    return out, g["d_cb_mask"] & torch.isfinite(g["d_cb"])
+
+
+def design_inputs(dev):
+    """8gpi's backbone features cut to IF_L residues, with its sequence as the
+    target, on ``dev``."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.models.inverse_fold import featurize_backbone
+
+    f = featurize_backbone(pt.StructureBatch.from_pdb(str(DATA / "8gpi.pdb"), device=dev))
+    cut = {}
+    for k, v in f.items():
+        v = v[:, :IF_L]
+        cut[k] = v[:, :, :IF_L] if k in ("d_ca", "d_mask") else v
+    return cut
+
+
+def if_models(torch, dev, flash_paths=(True, False)):
+    """The full-width AR InverseFold, flash and einsum paths, on one init."""
+    from protstruc_tpu_torch.models.inverse_fold import InverseFold, InverseFoldConfig
+
+    models = {}
+    for flash in flash_paths:
+        m = InverseFold(InverseFoldConfig(**IF_WIDTH, dtype=torch.bfloat16, use_flash_attn=flash),
+                        device=dev)
+        if models:
+            m.load_state_dict(next(iter(models.values())).state_dict())
+        else:
+            m.reset_parameters(torch.Generator(dev).manual_seed(0))
+        models[flash] = m
+    return models
+
+
+def if_stepper(model, feats, rank):
+    """One teacher-forced AR train step (loss, backward, AdamW) from the
+    model's parameters as they stand; returns the loss, detached."""
+    from protstruc_tpu_torch.models.inverse_fold import _if_ar_loss
+    from protstruc_tpu_torch.models.trfold import adamw
+
+    params = dict(model.named_parameters())
+    opt = adamw(params.values(), 1e-3)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _if_ar_loss(params, model, feats, rank)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def folded_causal_bias(torch, fa, dev, rank, smi):
+    """(b) K8/K9 against their plain versions at the IF shape (bf16, B=1,
+    H=8, dh=32, L=IF_L) on the folded causal bias, the k/v stream a second
+    projection; the rows with no allowed key post-zeroed."""
+    gen = torch.Generator(dev).manual_seed(20)
+    B, H, dh, L = 1, IF_WIDTH["n_heads"], IF_WIDTH["node_dim"] // IF_WIDTH["n_heads"], IF_L
+    bf = torch.bfloat16
+    qkv = torch.randn((B, L, 3, H, dh), generator=gen, device=dev).to(bf)
+    kv3 = torch.randn((B, L, 3, H, dh), generator=gen, device=dev).to(bf)
+    q, k, v = qkv[:, :, 0], kv3[:, :, 1], kv3[:, :, 2]
+    check(k.stride() == q.stride() and k.stride(-1) == 1, f"kv strides {k.stride()} vs q {q.stride()}")
+    bias = torch.randn((B, L, L, H), generator=gen, device=dev).to(bf).permute(0, 3, 1, 2)
+    causal = rank[:, None, :] < rank[:, :, None]
+    kmask = torch.ones((B, L), dtype=torch.bool, device=dev)
+    kmask[:, -37:] = False  # a padded tail
+    fbias = (bias.float() + torch.where(causal[:, None], 0.0, -1e9)).to(bf)
+    no_row = ~(causal & kmask[:, None, :]).any(-1)  # (B, L): the rank-0 row, at least
+    check(bool(no_row.any()), "no query row without an allowed key")
+    out, lse = fa.flash_fwd(q, k, v, fbias, kmask)
+    torch.cuda.synchronize()
+    r_out, r_lse = fa._flash_fwd_plain(q, k, v, fbias, kmask)
+    do = torch.randn((B, L, H, dh), generator=gen, device=dev).to(bf)
+    do = torch.where(no_row[:, :, None, None], 0.0, do).to(bf)  # the post-zero's cotangent
+    delta = (do.float() * r_out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    ds, dk, dv = fa.flash_bwd(q, k, v, fbias, kmask, do, r_lse, delta)
+    torch.cuda.synchronize()
+    r_ds, r_dk, r_dv = fa._flash_bwd_plain(q, k, v, fbias, kmask, do, r_lse, delta)
+    live = (~no_row)[:, None, :].expand_as(r_lse)
+    errs = {"out": flash_budget(torch, r_out[~no_row], out[~no_row], "folded out", "out"),
+            "lse": flash_budget(torch, r_lse, lse, "folded lse", "lse", live),
+            "ds": flash_budget(torch, r_ds, ds, "folded ds", "ds"),
+            "dk": flash_budget(torch, r_dk, dk, "folded dk", "dk"),
+            "dv": flash_budget(torch, r_dv, dv, "folded dv", "dv")}
+    check(bool((ds.permute(0, 2, 1, 3)[no_row] == 0).all()), "ds of a post-zeroed row is not 0")
+    # the post-zeroed rows add exactly nothing to dk and dv: replacing their q
+    # and their bias rows leaves both bitwise unchanged (K9 from K8's lse both times)
+    _, dk1, dv1 = fa.flash_bwd(q, k, v, fbias, kmask, do, lse, delta)
+    q2 = torch.where(no_row[:, :, None, None], 7.0, q.float()).to(bf)
+    f2 = fbias.clone()
+    f2.permute(0, 2, 1, 3)[no_row] = -3.0e4
+    _, lse2 = fa.flash_fwd(q2, k, v, f2, kmask)
+    _, dk2, dv2 = fa.flash_bwd(q2, k, v, f2, kmask, do, lse2, delta)
+    check(torch.equal(dk2, dk1) and torch.equal(dv2, dv1),
+          "dk/dv moved when the post-zeroed rows' q and bias changed")
+    n_rows = int(no_row.sum())
+    say(f"phase 20 (b) folded causal bias K8/K9 vs plain bf16 B={B} H={H} dh={dh} L={L} [{smi}]: "
+        + ", ".join(f"{key} {e:.2e} ({rel:.2e} of max|ref|)" for key, (e, rel) in errs.items())
+        + f"; {n_rows} rows without an allowed key: ds exactly 0, dk and dv bitwise unchanged "
+          f"with their q and bias replaced")
+    return {"fwd": max(errs["out"][0], errs["lse"][0]),
+            "bwd": max(errs[key][0] for key in ("ds", "dk", "dv"))}
+
+
+def card_vs_cpu(torch, dev, smi):
+    """(c) Each design stage on the card against the port on the CPU, from
+    the same inputs and the same draws, made on the host and copied."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.examples import fragments
+    from protstruc_tpu_torch.models import framediff as fd
+    from protstruc_tpu_torch.models import inverse_fold as tif
+    from protstruc_tpu_torch.models.ipa import frames_from_backbone
+    from protstruc_tpu_torch.models.trfold import (TrFold, TrFoldConfig, _decode_structure, _mds_backbone,
+                                                     featurize_for_model, predict_structure)
+    from protstruc_tpu_torch.ops import chi, graft, pack
+    from protstruc_tpu_torch.ops.idealize import idealize_backbone
+    from protstruc_tpu_torch.ops.so3 import igso3_draws
+
+    cpu = torch.device("cpu")
+    host = torch.Generator().manual_seed(21)
+    res = {}
+
+    def both(fn, *args):
+        """``fn`` on the CPU, then on the card with every tensor argument copied."""
+        def move(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev)
+            if isinstance(a, (tuple, list)):
+                return type(a)(move(x) for x in a)
+            if isinstance(a, dict):
+                return {k: move(x) for k, x in a.items()}
+            return a
+        return fn(*args), fn(*move(args))
+
+    def err(ref, got, rel=False):
+        ref, got = ref.float(), got.detach().cpu().float()
+        check(torch.equal(torch.isnan(ref), torch.isnan(got)), "NaN patterns differ")
+        d = float((ref - got).abs().nan_to_num(0).max())
+        return d / max(float(ref.abs().nan_to_num(0).max()), 1e-30) if rel else d
+
+    # FrameDiff at the design example's width, on 1REX's fragments
+    sb = pt.StructureBatch.from_pdb(str(DATA / "1REX.pdb"), device=cpu)
+    frags = torch.from_numpy(fragments(sb.xyz[0, :, :4].numpy(), 32))
+    cfg = fd.FrameDiffConfig(node_dim=48, pair_dim=24, n_heads=4, n_iter=1, T=48)
+    ca = frags[:, :, 1]
+    center = ca.mean(1, keepdim=True)
+    x0 = (ca - center) / cfg.trans_scale
+    r0, _ = frames_from_backbone(frags - center[:, :, None])
+    mask = torch.ones(x0.shape[:2], dtype=torch.bool)
+    models = {d: fd.FrameDenoiser(cfg, device=d) for d in (cpu, dev)}
+    models[cpu].reset_parameters(host)
+    models[dev].load_state_dict(models[cpu].state_dict())
+    B, L = x0.shape[:2]
+    t = torch.randint(0, cfg.T, (B,), generator=host)
+    eps = torch.randn(x0.shape, generator=host)
+    rot = igso3_draws((B, L), host)
+    losses = {}
+    for d, m in models.items():
+        move = (lambda a: a.to(d))
+        losses[d] = fd._framediff_loss(dict(m.named_parameters()), m, move(r0), move(x0), move(mask),
+                                       cfg, move(t), move(eps), tuple(map(move, rot)))
+    lc, ld = float(losses[cpu].detach()), float(losses[dev].detach())
+    res["framediff loss"] = abs(lc - ld) / abs(lc)
+    x_T = torch.randn((2, 32, 3), generator=host)
+    rT = igso3_draws((2, 32), host)
+    step = [(torch.randn((2, 32, 3), generator=host), igso3_draws((2, 32), host))]
+    outs = {}
+    for d, m in models.items():
+        move = (lambda a: a.to(d))
+        outs[d] = fd._framediff_sample(dict(m.named_parameters()), m, cfg, move(x_T),
+                                       tuple(map(move, rT)),
+                                       [(move(step[0][0]), tuple(map(move, step[0][1])))])
+    res["framediff step r"] = err(outs[cpu][0], outs[dev][0])
+    res["framediff step x"] = err(outs[cpu][1], outs[dev][1])
+
+    # InverseFold logits, f32, on 1REX: the einsum path and the flash path (K8
+    # on the card, its plain version on the CPU); the example's width with 64
+    # node channels, so the 4 heads are 16 wide (K8 takes dh 16, 32, 64, 128)
+    f_cpu = tif.featurize_backbone(sb)
+    Lr = f_cpu["residue_mask"].shape[1]
+    perm = torch.stack([torch.randperm(Lr, generator=host)])
+    f_cpu = dict(f_cpu, prev_seq=f_cpu["target_seq"], decode_rank=tif._ranks(perm))
+    for flash in (False, True):
+        icfg = tif.InverseFoldConfig(node_dim=64, pair_dim=24, n_heads=4, n_blocks=1,
+                                     n_decoder_blocks=1, use_flash_attn=flash)
+        ims = {d: tif.InverseFold(icfg, device=d) for d in (cpu, dev)}
+        ims[cpu].reset_parameters(torch.Generator().manual_seed(3))
+        ims[dev].load_state_dict(ims[cpu].state_dict())
+        with torch.no_grad():
+            ref = ims[cpu](f_cpu)
+            got = ims[dev]({k: v.to(dev) for k, v in f_cpu.items()})
+        res[f"IF logits {'flash' if flash else 'einsum'}"] = err(ref, got)
+    # the AR-sampled sequence on the same permutation and Gumbel noise
+    gumbel = -torch.log(-torch.log(torch.rand((Lr, 1, 21), generator=host).clamp_min(1e-38)))
+    seqs = {}
+    for d, m in ims.items():
+        f = {k: v.to(d) for k, v in f_cpu.items()}
+        seqs[d] = tif._ar_sample_sequence(dict(m.named_parameters()), m, f, perm.to(d),
+                                          gumbel.to(d), 0.2).cpu()
+    check(torch.equal(seqs[cpu], seqs[dev]),
+          f"AR sequence differs at {int((seqs[cpu] != seqs[dev]).sum())} positions")
+    res["AR sequence (positions differing)"] = 0
+
+    # chi angles, grafting and packing on 1REX and 4EOT
+    sb2 = pt.StructureBatch.from_pdb([str(DATA / "1REX.pdb"), str(DATA / "4EOT.pdb")], device=cpu)
+    xyz, seq, am = sb2.xyz, sb2.get_seq_idx(), sb2.atom_mask
+    (c_ref, m_ref), (c_got, m_got) = both(chi.chi_angles, xyz, seq, am)
+    check(torch.equal(m_ref, m_got.cpu()), "chi masks differ")
+    res["chi_angles"] = err(c_ref, c_got)
+    lib = graft.sidechain_library(sb2)
+    design_seq = torch.randint(0, 20, seq.shape, generator=host, dtype=torch.int32)
+    (g_ref, gm_ref), (g_got, gm_got) = both(graft.build_sidechains, xyz[:, :, :5], design_seq, lib,
+                                            sb2.residue_mask)
+    check(torch.equal(gm_ref, gm_got.cpu()), "build_sidechains masks differ")
+    res["build_sidechains"] = err(g_ref, g_got)
+    Lp = 64
+    start = g_ref[:1, :Lp]  # grafted side chains: they clash
+    noise = torch.randn((10, 6, 1, Lp, 4), generator=host)
+    (_, e_ref), (_, e_got) = both(pack._pack_sidechains, start, design_seq[:1, :Lp], gm_ref[:1, :Lp], noise)
+    res["pack energies (rel)"] = err(e_ref, e_got, rel=True)
+
+    # predict_structure: the forward it decodes, on a random-init TrFold
+    tms = {d: TrFold(TrFoldConfig(), device=d) for d in (cpu, dev)}
+    tms[cpu].reset_parameters(torch.Generator().manual_seed(4))
+    tms[dev].load_state_dict(tms[cpu].state_dict())
+    feats = {d: featurize_for_model(sb.to(d)) for d in (cpu, dev)}
+    with torch.no_grad():
+        heads = {d: m(feats[d]) for d, m in tms.items()}
+    res["predict_structure heads"] = max(err(heads[cpu][k], heads[dev][k]) for k in (
+        "distogram_logits", "omega_sincos", "theta_sincos", "phi_sincos"))
+    coords, _ = predict_structure(dict(tms[dev].named_parameters()), tms[dev], feats[dev])
+    check(coords.shape == (5, Lr, 3) and bool(torch.isfinite(coords).all()),
+          f"predict_structure on the card: {tuple(coords.shape)}, finite {bool(torch.isfinite(coords).all())}")
+    # ... and its decode, on heads that carry 1REX's own maps: a random
+    # model's distogram is near uniform, its distance matrix near degenerate
+    # (MDS of one such matrix lands 3.4e-3 A apart on the two devices)
+    out, pm = map_heads(sb, TrFoldConfig())
+    (m_ref, p_ref), (m_got, p_got) = both(lambda o, m: _mds_backbone(o, m, TrFoldConfig()), out, pm)
+    res["decode d_cb"] = err(p_ref["d_cb"], p_got["d_cb"])
+    res["decode angles (rad)"] = max(
+        float((torch.remainder(p_got[k].cpu() - p_ref[k] + math.pi, 2 * math.pi) - math.pi).abs().max())
+        for k in ("omega", "theta", "phi"))
+    res["decode MDS (fit)"] = proper_fit(m_got, m_ref)
+    # idealize_backbone from the CPU's MDS coordinates on both devices
+    (i_ref, _), (i_got, _) = both(lambda c: idealize_backbone(c, n_steps=150),
+                                  m_ref[:4].transpose(0, 1).contiguous())
+    res["idealize_backbone"] = err(i_ref, i_got)
+    (c_ref, _), (c_got, _) = both(lambda o, m: _decode_structure(o, m, TrFoldConfig()), out, pm)
+    res["decode coordinates (fit)"] = proper_fit(c_got, c_ref)
+    # the decode's own spread: the CPU again, on heads off by 1e-6 relative
+    noisy = {k: v * (1 + 1e-6 * torch.randn(v.shape, generator=host)) for k, v in out.items()}
+    spread = proper_fit(_decode_structure(noisy, pm, TrFoldConfig())[0], c_ref)
+
+    limits = {"framediff loss": STAGE_ATOL, "framediff step r": STAGE_ATOL,
+              "framediff step x": STAGE_ATOL, "IF logits einsum": STAGE_ATOL,
+              "IF logits flash": STAGE_ATOL, "AR sequence (positions differing)": 0,
+              "chi_angles": CHI_ATOL, "build_sidechains": CHI_ATOL,
+              "pack energies (rel)": STAGE_ATOL, "predict_structure heads": STAGE_ATOL,
+              "decode d_cb": STAGE_ATOL, "decode angles (rad)": CHI_ATOL,
+              "decode MDS (fit)": MDS_FIT_ATOL, "idealize_backbone": IDEALIZE_ATOL,
+              "decode coordinates (fit)": DECODE_ATOL}
+    say(f"phase 20 (c) stages, card vs CPU [{smi}]: "
+        + "; ".join(f"{k} {v:.3e} (limit {limits[k]:.0e})" for k, v in res.items())
+        + f"; reported: the decode on the CPU from heads off by 1e-6 relative {spread:.3e} A "
+          "after a fit")
+    for k, lim in limits.items():
+        check(res[k] <= lim, f"phase 20 (c) {k}: card vs CPU {res[k]:.3e} > {lim:.0e}")
+    return res
+
+
+def design_phase(torch, dev, smi):
+    """Phase 20: the design and generation path.  Returns the K8/K9 launches
+    of one full-width IF train step on the flash path and the folded-bias
+    errors, for the kernels line."""
+    from protstruc_tpu_torch.models import framediff as fd
+    from protstruc_tpu_torch.models import inverse_fold as tif
+    from protstruc_tpu_torch.ops import flash_attn as fa
+    from protstruc_tpu_torch.ops.rigid import random_rotations
+
+    # -- (a) the IF train step at full width, flash against einsum -----------------
+    feats = design_inputs(dev)
+    rank = tif.random_decode_order((1, IF_L), torch.Generator(dev).manual_seed(1))
+    models = if_models(torch, dev)
+    init = {k: v.detach().clone() for k, v in models[True].state_dict().items()}
+    steppers = {flash: if_stepper(m, feats, rank) for flash, m in models.items()}
+    losses, launches = {}, {}
+    for flash, step in steppers.items():
+        reset_launches(fa)
+        losses[flash] = [float(step()) for _ in range(IF_STEPS)]
+        torch.cuda.synchronize()
+        launches[flash] = {k: v / IF_STEPS for k, v in fa.LAUNCHES.items()}
+    check(all(math.isfinite(x) for ls in losses.values() for x in ls), f"IF losses {losses}")
+    check(launches[True]["fwd"] > 0 and launches[True]["bwd"] > 0, "the IF step launched K8/K9 no time")
+    check(launches[False] == {"fwd": 0, "bwd": 0}, f"the einsum path launched {launches[False]}")
+    compare_losses(losses[True], losses[False], 2e-2, f"IF bf16 B=1 L={IF_L}")
+    step_ms, peak, busy = {}, {}, {}
+    for flash, m in models.items():
+        m.load_state_dict(init)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steppers[flash]()
+        torch.cuda.synchronize()
+        peak[flash] = torch.cuda.max_memory_allocated() / 2**30
+        step_ms[flash] = cuda_time_ms(steppers[flash])
+        busy[flash] = device_profile(torch, steppers[flash])
+    for flash in (True, False):
+        wall, dev_ms, top = busy[flash]
+        say(f"phase 20 (a) profile IF train step, {'flash' if flash else 'einsum'} path, one step under "
+            f"torch.profiler: device busy {dev_ms:.2f} of {wall:.2f} ms wall (idle "
+            f"{100 * (1 - dev_ms / wall):.1f}%); top kernels "
+            + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in top))
+    say(f"phase 20 (a) IF train step bf16 B=1 L={IF_L} {IF_WIDTH} on 8gpi [{smi}]: flash "
+        f"{step_ms[True]:.4f} ms/step (peak {peak[True]:.2f} GiB), einsum {step_ms[False]:.4f} ms/step "
+        f"(peak {peak[False]:.2f} GiB); losses flash {losses[True]}, einsum {losses[False]}; K8/K9 "
+        f"launches a step {launches[True]}")
+    del steppers, models, init
+    torch.cuda.empty_cache()
+
+    # -- (b) K8/K9 on the folded causal bias at that shape -------------------------
+    folded = folded_causal_bias(torch, fa, dev, rank, smi)
+
+    # -- (c) stage by stage, card against CPU ------------------------------------------
+    card_vs_cpu(torch, dev, smi)
+
+    # -- (d) speeds ---------------------------------------------------------------------
+    model = if_models(torch, dev, (True,))[True]
+    f = {k: (v[:, :AR_L, :AR_L] if k in ("d_ca", "d_mask") else v[:, :AR_L]) for k, v in feats.items()}
+    params = dict(model.named_parameters())
+    gen = torch.Generator(dev).manual_seed(2)
+    tif.ar_sample_sequence(params, model, f, temperature=0.1, generator=gen)  # warm-up
+    reset_launches(fa)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    seq = tif.ar_sample_sequence(params, model, f, temperature=0.1, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    ar_ms = start.elapsed_time(end) / AR_L
+    check(bool(((seq < 20) == f["residue_mask"]).all()), "AR sample: UNK at a valid position")
+    say(f"phase 20 (d) ar_sample_sequence bf16 L={AR_L} {IF_WIDTH} flash [{smi}]: {ar_ms:.4f} ms per "
+        f"decoded position ({AR_L} positions); K8 launches {fa.LAUNCHES['fwd']}")
+    del model, params, feats, f
+    cfg = fd.FrameDiffConfig()
+    den = fd.FrameDenoiser(cfg, device=dev)
+    den.reset_parameters(torch.Generator(dev).manual_seed(3))
+    fparams = dict(den.named_parameters())
+    gen = torch.Generator(dev).manual_seed(4)
+    x0 = torch.randn((FD_B, FD_L, 3), generator=gen, device=dev)
+    loss = fd.framediff_loss(fparams, den, random_rotations((FD_B, FD_L), gen), x0,
+                             torch.ones((FD_B, FD_L), dtype=torch.bool, device=dev), cfg, generator=gen)
+    loss.backward()
+    check(math.isfinite(float(loss)), f"FrameDiff loss {float(loss)}")
+    fd.framediff_sample(fparams, den, (FD_B, FD_L), cfg, generator=gen)  # warm-up (and the tables)
+    start.record()
+    r, x = fd.framediff_sample(fparams, den, (FD_B, FD_L), cfg, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(r).all() and torch.isfinite(x).all()), "framediff_sample: non-finite")
+    say(f"phase 20 (d) framediff_sample B={FD_B} L={FD_L} FrameDiffConfig() T={cfg.T} [{smi}]: "
+        f"{start.elapsed_time(end) / cfg.T:.4f} ms per reverse step; loss at that size "
+        f"{float(loss):.4f}")
+    del den, fparams, r, x, loss
+    torch.cuda.empty_cache()
+
+    # -- (e) the example drivers on the card at their own sizes ---------------------------
+    import importlib
+    import os
+
+    for name, pdb in EXAMPLES:
+        mod = importlib.import_module(f"protstruc_tpu_torch.examples.{name}")
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()) as log:
+                    written = mod.main([str(DATA / pdb)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                for f in written:
+                    check(pathlib.Path(f).stat().st_size > 0, f"{name}: {f} is empty")
+            finally:
+                os.chdir(cwd)
+        last = log.getvalue().strip().splitlines()[-2:]
+        say(f"phase 20 (e) example {name} on {pdb}, default steps, on the card: {wall:.2f} s; "
+            f"wrote {written}; {' | '.join(last)}")
+    return {"launches": launches[True], "folded": folded}
+
+
 def main():
     import numpy as np
     import torch
@@ -2139,7 +2599,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 1
-    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api")
+    modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api",
+             "--design")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -2197,6 +2658,12 @@ def main():
         pair_maps.load_library()
         batch_api_phase(torch, np, dev, smi)
         say(f"phase 19 batch API at BASELINE sizes: ok in {time.perf_counter() - t0:.2f} s (K1 built or loaded)")
+        return 0
+    if sys.argv[1:] == ["--design"]:
+        t0 = time.perf_counter()
+        flash_attn.load_library()
+        design_phase(torch, dev, smi)
+        say(f"phase 20 design path: ok in {time.perf_counter() - t0:.2f} s (K8/K9 built or loaded)")
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -2671,6 +3138,11 @@ def main():
     dcb_entry = batch_api_phase(torch, np, dev, smi)
     say(f"phase 19 batch API at BASELINE sizes: ok in {time.perf_counter() - t0:.2f} s")
 
+    # -- 20. the design and generation path ----------------------------------------------
+    t0 = time.perf_counter()
+    design = design_phase(torch, dev, smi)
+    say(f"phase 20 design path: ok in {time.perf_counter() - t0:.2f} s")
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -2688,9 +3160,10 @@ def main():
     kernels += [entry(f"tri_mul_{name}", "tri_mul.cu", TRI_REPLACES[name], train_launches[name],
                       tri_worst[name], *tri_ms[name], None) for name in TRI_KERNELS]
     train_flash = flash_ms["train"]
-    kernels += [entry(f"flash_attn_{part}", "flash_attn.cu", replaces,
-                      fold_launches[f"flash_attn_{part}"], flash_worst[part], *train_flash[part][:2],
-                      *train_flash[part][3:], train_flash[part][2])
+    kernels += [dict(entry(f"flash_attn_{part}", "flash_attn.cu", replaces,
+                           fold_launches[f"flash_attn_{part}"], max(flash_worst[part], design["folded"][part]),
+                           *train_flash[part][:2], *train_flash[part][3:], train_flash[part][2]),
+                     design_if_step_launches=design["launches"][part])
                 for part, replaces in (("fwd", "protstruc_tpu/ops/flash_attn.py:79"),
                                        ("bwd", "protstruc_tpu/ops/flash_attn.py:184"))]
     kernels.append(entry("pair_maps_bwd", "pair_maps_bwd.cu", "protstruc_tpu/ops/pallas_pairwise.py:453",

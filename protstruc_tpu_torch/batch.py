@@ -835,6 +835,28 @@ class StructureBatch:
 
         return _clash(self.xyz, self.atom_mask, self.get_seq_idx(), tolerance=tolerance)
 
+    def chi_angles(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sidechain chi1-chi4 torsions ``(B, L, 4)`` and their mask (``ops/chi.py``)."""
+        from protstruc_tpu_torch.ops.chi import chi_angles as _chi
+
+        return _chi(self.xyz, self.get_seq_idx(), self.atom_mask)
+
+    def rotate_chi(self, delta: torch.Tensor) -> "StructureBatch":
+        """Rigidly rotate sidechains by ``delta (B, L, 4)`` radians per chi;
+        returns a new batch."""
+        from protstruc_tpu_torch.ops.chi import rotate_chi as _rot
+
+        return self.replace(xyz=_rot(self.xyz, self.get_seq_idx(), delta, self.atom_mask))
+
+    def pack_sidechains(self, generator: Optional[torch.Generator] = None,
+                        **kwargs) -> "StructureBatch":
+        """Repack sidechain chis against clashes (``ops/pack.py``), proposals
+        from ``generator``; returns a new batch."""
+        from protstruc_tpu_torch.ops.pack import pack_sidechains as _pack
+
+        xyz, _ = _pack(self.xyz, self.get_seq_idx(), self.atom_mask, generator=generator, **kwargs)
+        return self.replace(xyz=xyz)
+
     def relax(self, **kwargs) -> Tuple["StructureBatch", dict]:
         """Gradient-relax coordinates against bonded + clash energy
         (``ops/relax.py``); returns ``(relaxed_batch, energies)``."""

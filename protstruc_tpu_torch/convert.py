@@ -21,6 +21,14 @@
   ``structure.ipa.point_weight``, ...), ``recycle_node_ln``,
   ``recycle_pair_ln``, ``recycle_dist_embed``, ``plddt_head`` and
   ``pae_head``.
+* The design models' parameters: :func:`inverse_fold_params_from_flax`
+  (``InverseFold``: ``node_in``, ``rbf_embed``, ``attn_0``, ``LayerNorm_0``,
+  ``seq_ctx``, ``dec_attn_0``, ``logits``, ...),
+  :func:`framediff_params_from_flax` (``FrameDenoiser``: ``t_in``,
+  ``summ_in``, ``pos_in``, ``dist_embed``, ``relpos_embed``, ``structure``)
+  and :func:`diffusion_denoiser_params_from_flax` (``DiffusionDenoiser``:
+  ``seq_embed``, ``coord_in``, ``t_in``, ``dist_in``, ``attn_0``, ...), each
+  with its inverse: the same leaf-for-leaf walk.
 """
 
 from __future__ import annotations
@@ -40,7 +48,10 @@ from protstruc_tpu_torch.batch import (
 )
 
 __all__ = ["structure_batch_from_numpy", "to_numpy", "trfold_params_from_flax",
-           "trfold_params_to_flax", "foldmodel_params_from_flax", "foldmodel_params_to_flax"]
+           "trfold_params_to_flax", "foldmodel_params_from_flax", "foldmodel_params_to_flax",
+           "inverse_fold_params_from_flax", "inverse_fold_params_to_flax",
+           "framediff_params_from_flax", "framediff_params_to_flax",
+           "diffusion_denoiser_params_from_flax", "diffusion_denoiser_params_to_flax"]
 
 
 #: The antibody batch's host metadata, carried as it is.
@@ -158,3 +169,10 @@ def foldmodel_params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tenso
 def foldmodel_params_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`foldmodel_params_from_flax`."""
     return trfold_params_to_flax(state)
+
+
+#: The design models keep flax's tree as TrFold does: the same walk.
+inverse_fold_params_from_flax = framediff_params_from_flax = trfold_params_from_flax
+diffusion_denoiser_params_from_flax = trfold_params_from_flax
+inverse_fold_params_to_flax = framediff_params_to_flax = trfold_params_to_flax
+diffusion_denoiser_params_to_flax = trfold_params_to_flax

@@ -1,1 +1,2 @@
-"""Ported models (``trfold``) and their flax-semantics layers (``_nn``)."""
+"""Ported models (``trfold``, ``ipa``, ``framediff``, ``inverse_fold``) and
+their flax-semantics layers (``_nn``)."""

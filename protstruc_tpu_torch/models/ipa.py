@@ -184,7 +184,8 @@ class BackboneUpdate(nn.Module):
 
 class StructureModule(nn.Module):
     """``n_iter`` shared-weight iterations of IPA -> transition -> backbone
-    update from identity frames; rotation gradients stop between iterations
+    update from identity frames, or from ``initial_frames`` ``(r, t)`` (``t``
+    in angstroms) when given; rotation gradients stop between iterations
     (the AF2 stabiliser).  Returns final frames, backbone ``xyz (B, L, 4, 3)``
     N/CA/C/CB, the node stream and the frame trajectory (in angstroms)."""
 
@@ -201,12 +202,16 @@ class StructureModule(nn.Module):
         self.ln_in = LayerNorm(D, dt, device)
         self.ln_pair = LayerNorm(cfg.pair_dim, dt, device)
 
-    def forward(self, node, pair, mask):
+    def forward(self, node, pair, mask, initial_frames=None):
         cfg = self.cfg
         B, L = node.shape[:2]
         scale = cfg.position_scale
-        r = torch.eye(3, device=node.device).expand(B, L, 3, 3)
-        t = torch.zeros((B, L, 3), device=node.device)
+        if initial_frames is None:
+            r = torch.eye(3, device=node.device).expand(B, L, 3, 3)
+            t = torch.zeros((B, L, 3), device=node.device)
+        else:
+            r, t = initial_frames
+            t = t / scale  # internal units: 1 = position_scale angstroms
         node = self.ln_in(node)
         pair = self.ln_pair(pair)
         traj_r, traj_t = [], []

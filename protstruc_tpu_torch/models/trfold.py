@@ -26,11 +26,16 @@ plain PyTorch.  ``remat=True`` checkpoints each block
 (``ops/flash_attn.py``), and ``featurize_for_model(fused=True)`` the
 featurization through K3 (``ops/model_features.py``).
 
+``featurize_for_model(include_chi=True)`` adds the sidechain chi angles,
+embedded by ``chi_embed``, which ``TrFold(chi=True)`` builds (flax
+creates it at init from such features).  ``DiffusionDenoiser`` is the
+epsilon-prediction model over noisy CA coordinates, and
+``predict_structure`` decodes the heads to a backbone
+(distogram expectation, ``ops/reconstruct.py``, ``ops/idealize.py``).
+
 Not ported yet (constructing a model that needs them raises
 ``NotImplementedError``): ``remat_policy`` other than ``"none"``, MoE blocks,
-ring attention, chi features, ``extra_mask``/``kv`` attention,
-``DiffusionDenoiser``, ``predict_structure``, ``pipeline_apply`` and the
-sharding rules.
+ring attention, ``pipeline_apply`` and the sharding rules.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ __all__ = [
     "loss_fn",
     "featurize_for_model",
     "featurize_from_sequence",
+    "DiffusionDenoiser",
+    "predict_structure",
 ]
 
 
@@ -119,10 +126,9 @@ def featurize_for_model(batch, use_kernel: bool = False, fused: bool = False,
     ``fused=True`` is the training ingest's path: the K3 kernel
     (``ops/model_features.py``; its plain version on a CPU batch) emits
     ``d_cb_bins`` and ``ang_sincos (B, L, L, 6)`` in ``ang_dtype`` in place of
-    the raw maps.  ``include_chi`` is not ported yet.
+    the raw maps.  ``include_chi`` adds ``chi (B, L, 4)`` and ``chi_mask``
+    (``StructureBatch.chi_angles``) as node-level torsion features.
     """
-    if include_chi:
-        raise NotImplementedError("featurize_for_model(include_chi=True) is not yet ported")
     torsions, torsion_mask = batch.backbone_dihedrals()
     torsion_mask = torsion_mask & torch.isfinite(torsions)
     torsions = torch.nan_to_num(torsions, nan=0.0)
@@ -137,6 +143,8 @@ def featurize_for_model(batch, use_kernel: bool = False, fused: bool = False,
         "residue_mask": batch.residue_mask,
         "chain_idx": batch.chain_idx,
     }
+    if include_chi:
+        common["chi"], common["chi_mask"] = batch.chi_angles()
     if fused:
         return {**common, **model_inputs(batch.xyz, batch.atom_mask, n_dist_bins, max_dist,
                                          ang_dtype)}
@@ -178,6 +186,13 @@ def featurize_from_sequence(seq_idx, chain_idx=None, n_dist_bins: int = 36,
     }
 
 
+def _sincos(ang, mask, dt):
+    """``[sin, cos]`` of the angles, masked by the mask doubled in the same
+    (concatenated, not interleaved) layout, cast to ``dt``."""
+    sc = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return torch.where(torch.cat([mask, mask], dim=-1), sc, 0.0).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -191,6 +206,17 @@ class PairBiasAttention(nn.Module):
     k, v as views of the ``qkv`` projection and the bias as the permuted view
     of the pair-bias Dense output, with no copy; otherwise the einsum path.
     Both give zeros on a query row with no allowed key.
+
+    ``extra_mask`` (optional ``(B, L, L)`` bool, True = attend) composes with
+    the key mask: the AR InverseFold decoder's causal decoding-order mask.
+    ``kv`` (optional) is a separate key/value stream through the same
+    ``qkv`` projection: queries from ``node``, keys and values from ``kv``.
+    On the flash path the extra mask is folded into the bias as the einsum
+    path's -1e9 (in float32, cast back to the bias dtype: a fresh dense
+    ``(B, H, L, L)``) and the kernels run unchanged; rows whose every key is
+    disallowed by ``extra_mask`` and the key mask are zeroed after the
+    kernel, so their cotangent, and their ``ds``, ``dk`` and ``dv`` through
+    K9, are exactly 0.
     """
 
     def __init__(self, cfg: TrFoldConfig, device="cuda"):
@@ -201,17 +227,26 @@ class PairBiasAttention(nn.Module):
         self.pair_bias = Dense(cfg.pair_dim, h, cfg.dtype, device)
         self.out = Dense((h, dh), cfg.node_dim, cfg.dtype, device)
 
-    def forward(self, node, pair, mask):
+    def forward(self, node, pair, mask, extra_mask=None, kv=None):
         dt = self.cfg.dtype
         dh = self.cfg.node_dim // self.cfg.n_heads
         qkv = self.qkv(node)
-        q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+        q = qkv[..., 0, :, :]
+        kv3 = qkv if kv is None else self.qkv(kv)  # same projection, second stream
+        k, v = kv3[..., 1, :, :], kv3[..., 2, :, :]
         bias = self.pair_bias(pair).permute(0, 3, 1, 2)  # (B, h, L, L)
         if self.cfg.use_flash_attn:
-            return self.out(flash_pair_bias_attention(q, k, v, bias, mask))
+            if extra_mask is None:
+                return self.out(flash_pair_bias_attention(q, k, v, bias, mask))
+            fbias = (bias.float() + torch.where(extra_mask[:, None], 0.0, -1e9)).to(bias.dtype)
+            out = flash_pair_bias_attention(q, k, v, fbias, mask)
+            row_ok = (extra_mask & mask[:, None, :]).any(-1)
+            return self.out(torch.where(row_ok[:, :, None, None], out, 0.0))
         scale = torch.tensor(math.sqrt(dh), dtype=dt, device=node.device)
         logits = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + bias
         allowed = mask[:, None, None, :]
+        if extra_mask is not None:
+            allowed = allowed & extra_mask[:, None]
         neg = torch.tensor(-1e9, dtype=dt, device=node.device)
         attn = torch.softmax(torch.where(allowed, logits, neg), dim=-1)
         # a row with no allowed key would softmax to uniform weights over the
@@ -346,15 +381,19 @@ class TrFoldBlock(nn.Module):
         return node, pair
 
 
+_CHI_NEEDS_FLAG = "chi features need TrFold(chi=True)"
+
+
 class TrFold(nn.Module):
     """6D geometry + sequence -> distogram logits + torsion and angle heads.
 
     Parameters are created on ``device`` (float32, flax's names and shapes);
     :func:`make_train_state` or :meth:`reset_parameters` initialises them from
-    an explicit generator.
+    an explicit generator.  ``chi=True`` adds ``chi_embed``, the embedding of
+    the ``include_chi`` features.
     """
 
-    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda"):
+    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda", chi: bool = False):
         super().__init__()
         _check_ported(cfg)
         device = resolve_device(device)
@@ -362,6 +401,8 @@ class TrFold(nn.Module):
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
         self.seq_embed = Embed(cfg.vocab, D, dt, device)
         self.torsion_embed = Dense(6, D, dt, device)
+        if chi:
+            self.chi_embed = Dense(8, D, dt, device)
         self.dist_embed = Embed(cfg.n_dist_bins, P, dt, device)
         self.ang_embed = Dense(6, P, dt, device)
         self.relpos_embed = Embed(2 * cfg.relpos_clip + 2, P, dt, device)
@@ -390,14 +431,12 @@ class TrFold(nn.Module):
     def embed(self, feats: Dict[str, torch.Tensor]):
         """Feature dict -> initial (node, pair) representations."""
         cfg, dt = self.cfg, self.cfg.dtype
-        if "chi" in feats:
-            raise NotImplementedError("chi features (include_chi=True) are not yet ported")
         node = self.seq_embed(feats["seq_idx"])
-        tor = feats["torsions"]
-        tor = torch.cat([torch.sin(tor), torch.cos(tor)], dim=-1)
-        tm = feats["torsion_mask"]
-        tor = torch.where(torch.cat([tm, tm], dim=-1), tor, 0.0).to(dt)
-        node = node + self.torsion_embed(tor)
+        node = node + self.torsion_embed(_sincos(feats["torsions"], feats["torsion_mask"], dt))
+        if "chi" in feats:
+            if not hasattr(self, "chi_embed"):
+                raise ValueError(_CHI_NEEDS_FLAG)
+            node = node + self.chi_embed(_sincos(feats["chi"], feats["chi_mask"], dt))
 
         if "d_cb_bins" in feats:
             bins = feats["d_cb_bins"]
@@ -519,11 +558,13 @@ def make_train_state(model: TrFold, feats: Dict[str, torch.Tensor], generator: t
     Returns ``(params, opt_state, tx)``: the model's parameters by flax path
     (``block_0.attn.qkv.kernel``), the optimizer's state, and
     ``torch.optim.AdamW`` with optax ``adamw``'s defaults (:func:`adamw`).
-    ``feats`` is taken for the JAX signature; the shapes come from the config.
+    The shapes come from the config; ``feats`` carrying ``chi`` need a
+    ``TrFold(chi=True)``.
     """
-    if "chi" in feats:
-        raise NotImplementedError("chi features (include_chi=True) are not yet ported")
-    model.to(resolve_device(device))
+    device = resolve_device(device)
+    if "chi" in feats and not hasattr(model, "chi_embed"):
+        raise ValueError(_CHI_NEEDS_FLAG)
+    model.to(device)
     model.reset_parameters(generator)
     params = dict(model.named_parameters())
     tx = adamw(params.values(), learning_rate)
@@ -550,3 +591,101 @@ def train_step(params, opt_state, feats, model: TrFold, tx: torch.optim.Optimize
     loss.backward()
     tx.step()
     return params, opt_state, loss.detach()
+
+
+# ---------------------------------------------------------------------------
+# the diffusion denoiser and the structure decode
+# ---------------------------------------------------------------------------
+
+
+class DiffusionDenoiser(nn.Module):
+    """Epsilon-prediction denoiser over noisy CA coordinates (pairs with
+    ``ops/diffusion.py``): ``(noisy_ca (B, L, 3), t_embed (B, t_dim), seq_idx,
+    mask) -> eps_hat (B, L, 3)``.
+
+    Two blocks of pair-bias attention and MLP over the node stream, the bias
+    from the noisy CA-CA distances.  flax sizes ``t_in`` from its first
+    input; here it is ``t_dim`` wide (8, the examples' embedding).
+    """
+
+    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda", t_dim: int = 8):
+        super().__init__()
+        _check_ported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
+        self.seq_embed = Embed(cfg.vocab, D, dt, device)
+        self.coord_in = Dense(3, D, dt, device)
+        self.t_in = Dense(t_dim, D, dt, device)
+        self.dist_in = Dense(1, P, dt, device)
+        for i in range(2):
+            self.add_module(f"LayerNorm_{2 * i}", LayerNorm(D, dt, device))
+            self.add_module(f"attn_{i}", PairBiasAttention(cfg, device))
+            self.add_module(f"LayerNorm_{2 * i + 1}", LayerNorm(D, dt, device))
+            self.add_module(f"mlp_in_{i}", Dense(D, 2 * D, dt, device))
+            self.add_module(f"mlp_out_{i}", Dense(2 * D, D, dt, device))
+        self.eps_head = Dense(D, 3, torch.float32, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initializers, drawn from ``generator`` in module order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def forward(self, noisy_ca, t_embed, seq_idx, mask):
+        node = self.seq_embed(seq_idx) + self.coord_in(noisy_ca) + self.t_in(t_embed)[:, None, :]
+        d = torch.linalg.vector_norm(noisy_ca[:, :, None, :] - noisy_ca[:, None, :, :], dim=-1,
+                                     keepdim=True)
+        pair = self.dist_in(d.to(self.cfg.dtype))
+        for i in range(2):
+            ln_a, ln_m = getattr(self, f"LayerNorm_{2 * i}"), getattr(self, f"LayerNorm_{2 * i + 1}")
+            node = node + getattr(self, f"attn_{i}")(ln_a(node), pair, mask)
+            h = getattr(self, f"mlp_in_{i}")(ln_m(node))
+            node = node + getattr(self, f"mlp_out_{i}")(gelu(h))
+        return self.eps_head(node)
+
+
+def predict_structure(params, model: TrFold, feats: Dict[str, torch.Tensor], max_iter: int = 200):
+    """Model predictions -> 3D backbone by the trRosetta decode (B = 1).
+
+    The distogram's expectation over bin centres and the angle heads'
+    ``atan2(sin, cos)`` feed ``reconstruct_backbone_distmat_from_interresidue_geometry``,
+    then MDS (``max_iter`` SMACOF iterations) and 150 steps of
+    ``idealize_backbone``.  Returns ``(coords (5, L, 3) N/CA/C/O/CB, the
+    predicted 6D dict)``.
+    """
+    _check_params(params, model)
+    with torch.no_grad():
+        out = model(feats)
+    return _decode_structure(out, feats["pair_mask"], model.cfg, max_iter)
+
+
+def _decode_structure(out: Dict[str, torch.Tensor], pair_mask: torch.Tensor, cfg: TrFoldConfig,
+                      max_iter: int = 200):
+    """:func:`predict_structure` after the forward: the heads ``out``
+    (``distogram_logits``, ``omega/theta/phi_sincos``) -> ``(coords, pred)``."""
+    from protstruc_tpu_torch.ops.idealize import idealize_backbone
+
+    coords, pred = _mds_backbone(out, pair_mask, cfg, max_iter)
+    refined, _ = idealize_backbone(coords[:4].transpose(0, 1), n_steps=150)
+    return torch.cat([refined.transpose(0, 1), coords[4:]], dim=0), pred
+
+
+@torch.no_grad()
+def _mds_backbone(out: Dict[str, torch.Tensor], pair_mask: torch.Tensor, cfg: TrFoldConfig,
+                  max_iter: int = 200):
+    """The decode before idealization: the heads -> the predicted 6D dict ->
+    the distance matrix -> MDS's ``(5, L, 3)`` N/CA/C/O/CB."""
+    from protstruc_tpu_torch.ops.reconstruct import (
+        initialize_backbone_with_mds, reconstruct_backbone_distmat_from_interresidue_geometry)
+
+    probs = torch.softmax(out["distogram_logits"], dim=-1)
+    centers = ((torch.arange(cfg.n_dist_bins, device=probs.device, dtype=torch.float32) + 0.5)
+               * (cfg.max_dist / cfg.n_dist_bins))
+    pred = {"d_cb": torch.einsum("blmk,k->blm", probs, centers)}
+    for key in ("omega", "theta", "phi"):
+        sc = out[f"{key}_sincos"]
+        pred[key] = torch.atan2(sc[..., 0], sc[..., 1])
+    dist = reconstruct_backbone_distmat_from_interresidue_geometry(
+        pred["d_cb"][0], pred["omega"][0], pred["theta"][0], pred["phi"][0], mask=pair_mask[0])
+    return initialize_backbone_with_mds(dist, max_iter=max_iter), pred

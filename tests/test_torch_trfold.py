@@ -293,11 +293,19 @@ def test_unported_options_raise(opt, err):
 
 
 def test_fused_featurization_is_not_yet_ported():
-    """The fused featurization (K3) is ported; its chi features are not."""
-    sb = StructureBatch.from_xyz(np.random.RandomState(0).randn(1, 5, 15, 3), device=DEVICE)
+    """The fused featurization (K3) and its chi features are ported (the chi
+    values are held to JAX's in tests/test_torch_chi_graft_pack.py); chi
+    needs the sequence, and a batch without one raises as JAX's does."""
+    xyz = np.random.RandomState(0).randn(1, 5, 15, 3).astype(np.float32)
+    sb = StructureBatch.from_xyz(xyz, device=DEVICE)
     assert trfold.featurize_for_model(sb, fused=True)["d_cb_bins"].shape == (1, 5, 5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="sequence"):
+        jtrfold.featurize_for_model(JaxBatch.from_xyz(xyz), fused=True, include_chi=True)
+    with pytest.raises(ValueError, match="sequence"):
         trfold.featurize_for_model(sb, fused=True, include_chi=True)
+    sb = StructureBatch.from_pdb(pdb_path("1REX.pdb"), device=DEVICE)
+    f = trfold.featurize_for_model(sb, fused=True, include_chi=True)
+    assert f["chi"].shape == f["chi_mask"].shape == (1, sb.n_residues, 4) and bool(f["chi_mask"].any())
 
 
 def test_featurize_from_sequence_matches_jax():
