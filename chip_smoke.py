@@ -181,7 +181,34 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     MDS start and the whole decode after a fit; (d) ms per decoded
     position of ``ar_sample_sequence`` at that width on L=256 and ms per
     reverse step of ``framediff_sample`` at ``FrameDiffConfig()`` on B=8,
-    L=128; (e) the five example drivers on the card at their own sizes.
+    L=128; (e) the five example drivers on the card at their own sizes;
+21. the scale-out path: (a) K1's rectangular ``xyz_j`` mode bitwise against
+    its plain version (B=2, L = 37, 300, 512 in 1-4 row blocks, the
+    degenerate probes), a map subset into sentinel planes (f32, bf16), bf16
+    planes = the f32 planes cast; B=256, L=512 as 4 row blocks of 128
+    bitwise equal to the square launch's rows, the 4 launches timed against
+    the square launch and the bound; (b) K8/K9's lse entry point against the
+    plain lse attention, f32 and bf16, train shape and ragged L=37 with a
+    fully-masked row: out, lse (-inf exactly), ds, dq, dk, dv for random
+    cotangents of both outputs, inf/NaN lse cotangents on the masked rows;
+    (c) the ring's attend-and-merge over 4 blocks in each rank's visiting
+    order against K8/K9 over the full L (f32, bf16, phase 11's budgets);
+    (d) a one-rank NCCL group: ``ring_attention_sharded``,
+    ``featurize_sharded(use_kernel=True)`` bitwise equal to the unsharded
+    K1 maps, ``pipeline_apply`` with one stage against ``TrFold.forward``,
+    ``train --mesh 1,1,1 --zero1`` in process (phase 12's configuration, 3
+    steps) against the same steps without a mesh; K1's rectangular and
+    K8/K9's counters reset just before and grown after; the lse entry's
+    forward timed beside the plain version and
+    ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``;
+    (e) ``[mfu-peak]`` (bench.py:348-351: bf16, D=2048, P=1024, 8 heads, 3
+    blocks, triangle, remat, B=2, L=256, ``randn * 5``, numpy seed 0):
+    K4-K7 at C=1024 bf16 against their plain versions, then 3 train steps
+    from one init under remat_policy none, tri_dots and dots, fused_tri off
+    and on: losses within 2e-2, ms/step, peak memory and the profiled
+    step's ``aten::bmm`` count (tri_dots 2 fewer a block); (f) TrFold with
+    4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
+    against CPU from one init: loss, aux, every gradient leaf.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -210,7 +237,8 @@ count from the same run and its ``d_cb``-only launch of phase 19's config 5
 as ``dcb_subset``, K4-K7 phase 8, K3 and K8/K9
 phase 12, K8/K9's launches a phase 20 IF train step as
 ``design_if_step_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
-variant and the write-only time), largest error, card and plain times, its bound (the larger of the
+variant and the write-only time; K1's rectangular mode and K8/K9's lse entry
+point as entries of their own, launches from phase 21 (d)), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
 over the H100 SXM peak for
@@ -249,6 +277,11 @@ runs phase 1, builds K1 and runs phase 19 alone, and prints no result line;
     python3 chip_smoke.py --design
 
 runs phase 1, builds K8/K9 and runs phase 20 alone, and prints no result line;
+
+    python3 chip_smoke.py --scale-out
+
+runs phase 1, builds K1, K4-K7 and K8/K9 together (K1's ptxas lines) and runs
+phase 21 alone, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -2591,6 +2624,527 @@ def design_phase(torch, dev, smi):
     return {"launches": launches[True], "folded": folded}
 
 
+# -- phase 21: the scale-out slice ---------------------------------------------
+RECT_LENGTHS = (37, 300, 512)       # Lj % 4 != 0 (scalar stores) and == 0 (vector ones)
+PEAK_WIDTH = dict(node_dim=2048, pair_dim=1024, n_heads=8, n_blocks=3, pair_update="triangle",
+                  remat=True)        # bench.py:348-351 [mfu-peak]: bf16, B=2, L=256
+PEAK_B, PEAK_L, PEAK_STEPS = 2, 256, 3
+POLICIES = ("none", "tri_dots", "dots")
+LSE_SHAPES = (("train", 4, 4, 32, 256), ("ragged", 2, 4, 32, 37))   # the ragged row 1 has no key
+RING_N = 4
+
+
+def row_blocks(L, n):
+    """``n`` near-equal row blocks of ``L`` rows (empty ones dropped)."""
+    edges = [round(i * L / n) for i in range(n + 1)]
+    return [slice(a, b) for a, b in zip(edges, edges[1:]) if b > a]
+
+
+def rect_subset_writes(torch, pair_maps, xi, xj, maps, dtype):
+    """K1's rectangular entry with all six planes at a sentinel and ``maps``
+    selected: those equal the wrapper's, the others keep every sentinel bit."""
+    B, Li, A, _ = xi.shape
+    Lj = xj.shape[1]
+    lib = pair_maps.load_library()
+    planes = {k: torch.full((B, Li, Lj), 7.0, dtype=dtype, device=xi.device) for k in pair_maps.MAP_NAMES}
+    bits = sum(1 << pair_maps.MAP_NAMES.index(k) for k in maps)
+    err = lib.ps_pair_maps_rect(xi.device.index, int(dtype == torch.bfloat16), xi.data_ptr(),
+                                xj.data_ptr(), B, Li, Lj, A, bits,
+                                *[planes[k].data_ptr() for k in pair_maps.MAP_NAMES],
+                                pair_maps.plan_arg(pair_maps.tile_plan(B, Li, Lj)),
+                                torch.cuda.current_stream(xi.device).cuda_stream)
+    check(err == 0, f"K1 rect subset launch: CUDA error {err}")
+    want = pair_maps.pairwise_maps_forward(xi, maps, out_dtype=dtype, xyz_j=xj)
+    torch.cuda.synchronize()
+    for k, p in planes.items():
+        if k in maps:
+            check(unequal(want[k], p) == 0, f"K1 rect subset {dtype}: {k} differs from the wrapper's")
+        else:
+            check(bool((p == 7.0).all()), f"K1 rect subset {dtype}: unselected {k} was written")
+
+
+def rect_parity(torch, np, dev, pair_maps, smi):
+    """Phase 21 (a): K1's rectangular mode bitwise against its plain version
+    (B=2, L = 37, 300, 512 split into 1-4 row blocks, and the degenerate
+    probes), map subsets into sentinel planes, bf16 planes = the f32 planes
+    cast; then at B=256, L=512 four row blocks of 128 bitwise equal to the
+    square launch's rows, the 4 launches timed against the square launch and
+    the bound.  Returns the kernels-line numbers."""
+    rng = np.random.RandomState(21)
+    cases = {f"B2 L{L}": torch.from_numpy((rng.randn(2, L, 15, 3) * 10).astype(np.float32)).to(dev)
+             for L in RECT_LENGTHS}
+    cases["probes"] = probes(torch, dev)
+    n_checked, worst = 0, 0.0
+    for label, x in cases.items():
+        L = x.shape[1]
+        for n in (1, 2, 3, 4):
+            for rows in row_blocks(L, n):
+                xi = x[:, rows].contiguous()
+                got = pair_maps.pairwise_maps_forward(xi, xyz_j=x)
+                torch.cuda.synchronize()
+                ref = pair_maps._pair_maps_plain(xi, xyz_j=x)
+                k1_bitwise(ref, got, f"rect {label} rows {rows.start}:{rows.stop}")
+                worst = max(worst, max(float((ref[k] - got[k]).abs().nan_to_num().max()) for k in ref))
+                n_checked += 1
+        xi = x[:, :max(L // 3, 1)].contiguous()
+        for dt in (torch.float32, torch.bfloat16):
+            rect_subset_writes(torch, pair_maps, xi, x, ("d_cb", "phi"), dt)
+        f32 = pair_maps.pairwise_maps_forward(xi, xyz_j=x)
+        b16 = pair_maps.pairwise_maps_forward(xi, out_dtype=torch.bfloat16, xyz_j=x)
+        torch.cuda.synchronize()
+        n_bad = sum(unequal(f32[k].to(torch.bfloat16), b16[k]) for k in f32)
+        check(n_bad == 0, f"rect {label}: bf16 planes differ from the f32 planes cast at {n_bad} entries")
+        say(f"  rect {label}: {store_path(L)} stores (Lj={L}), row blocks 1-4 bitwise equal to plain; "
+            f"subset into sentinels ok (f32, bf16); bf16 = f32 cast")
+    say(f"phase 21a parity K1 rectangular mode: ok, {n_checked} row blocks bitwise equal to the plain "
+        f"version (max abs err {worst:.1e})")
+
+    xyz = torch.from_numpy(np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32)
+                           * 10).to(dev)
+    blocks = [xyz[:, r].contiguous() for r in row_blocks(L_FULL, 4)]
+    square = pair_maps.pairwise_maps_forward(xyz)
+    n_bad = 0
+    for r, xi in zip(row_blocks(L_FULL, 4), blocks):
+        got = pair_maps.pairwise_maps_forward(xi, xyz_j=xyz)
+        torch.cuda.synchronize()
+        n_bad += sum(unequal(square[k][:, r].contiguous(), got[k]) for k in got)
+        del got
+    del square
+    check(n_bad == 0, f"rect B={B_FULL}: row blocks differ from the square launch at {n_bad} entries")
+
+    def four():
+        for xi in blocks:
+            pair_maps.pairwise_maps_forward(xi, xyz_j=xyz)
+
+    def four_plain():
+        for xi in blocks:
+            pair_maps._pair_maps_plain(xi, xyz_j=xyz)
+
+    square_ms = cuda_time_ms(lambda: pair_maps.pairwise_maps_forward(xyz))
+    rect_ms = cuda_time_ms(four)
+    square_ms2 = cuda_time_ms(lambda: pair_maps.pairwise_maps_forward(xyz))
+    plain_ms = cuda_time_ms(four_plain)
+    torch.cuda.empty_cache()
+    # each launch reads its rows' atoms and all of xyz_j's, writes its rows
+    rect_bound = bound(slot_bytes(xyz, K1_SLOTS) * 5 + 6 * B_FULL * L_FULL ** 2 * 4,
+                       K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
+    say(f"phase 21a timing K1 rectangular B={B_FULL} L={L_FULL} as 4 row blocks of 128 [{smi}]: "
+        f"{rect_ms:.4f} ms for the 4 launches, square launch {square_ms:.4f} / {square_ms2:.4f} ms "
+        f"(before / after), plain 4 blocks {plain_ms:.4f} ms; bound {rect_bound[0]:.4f} ms "
+        f"({rect_bound[1]}); the blocks bitwise equal to the square launch's rows")
+    return {"err": worst, "ms": rect_ms, "plain_ms": plain_ms, "square_ms": (square_ms, square_ms2),
+            "bound": rect_bound}
+
+
+def lse_parity(torch, dev, flash_attn, ring_attn):
+    """Phase 21 (b): the lse entry point (K8/K9) against the plain lse
+    attention on the card, f32 and bf16, at the train shape and ragged L
+    with a fully-masked row: out, lse (-inf exactly on that row), ds (the
+    bias's gradient), dq, dk, dv for random cotangents of both outputs, with
+    inf and NaN lse cotangents on the masked rows."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, H, dh, L in LSE_SHAPES:
+            q, k, v, bias, kmask, do = flash_inputs(torch, dev, dtype, label, B, H, dh, L, seed=21)
+            gen = torch.Generator(dev).manual_seed(22)
+            g_lse = torch.randn((B, H, L), generator=gen, device=dev)
+            dead = ~kmask.any(-1)
+            rows = g_lse[dead]
+            rows[..., 0::2] = float("inf")
+            rows[..., 1::2] = float("nan")
+            g_lse[dead] = rows
+            res = {}
+            for path in ("kernel", "plain"):
+                ins = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+                if path == "kernel":
+                    out, lse = flash_attn.flash_pair_bias_attention_lse(*ins, kmask)
+                else:
+                    out, lse = ring_attn.local_attention_lse(*ins, kmask, "plain")
+                torch.autograd.backward([out, lse], [do, g_lse])
+                torch.cuda.synchronize()
+                res[path] = {"out": out.detach(), "lse": lse.detach(), "dq": ins[0].grad,
+                             "dk": ins[1].grad, "dv": ins[2].grad, "ds": ins[3].grad}
+            got, ref = res["kernel"], res["plain"]
+            name = f"lse {label} {str(dtype)[6:]} B={B} H={H} dh={dh} L={L}"
+            check(torch.equal(torch.isneginf(got["lse"]), torch.isneginf(ref["lse"]))
+                  and torch.equal(torch.isneginf(got["lse"]), dead[:, None, None].expand_as(got["lse"])),
+                  f"{name}: lse is -inf exactly on the rows without a key")
+            live = ~dead[:, None, None].expand_as(ref["lse"])
+            errs = {}
+            errs["lse"] = flash_budget(torch, ref["lse"][live], got["lse"][live], f"{name} lse", "lse")
+            for key in ("out", "ds", "dq", "dk", "dv"):
+                errs[key] = flash_budget(torch, ref[key].to(got[key].dtype), got[key], f"{name} {key}", key)
+            if bool(dead.any()):
+                for key in ("out", "dq", "dk", "dv"):
+                    check(bool((got[key][dead] == 0).all()), f"{name}: {key} of a row without a key not 0")
+            say(f"  {name}: " + ", ".join(f"{key} {e:.2e} ({rel:.2e} of max|ref|)"
+                                         for key, (e, rel) in errs.items()))
+            worst["fwd"] = max(worst["fwd"], errs["out"][0], errs["lse"][0])
+            worst["bwd"] = max(worst["bwd"], *(errs[key][0] for key in ("ds", "dq", "dk", "dv")))
+    say(f"phase 21b parity lse entry point (K8/K9) vs the plain lse attention: ok, max abs err {worst}")
+    return worst
+
+
+def ring_merge_parity(torch, dev, flash_attn, ring_attn):
+    """Phase 21 (c): the ring's attend-and-merge over n = 4 blocks on one
+    card, each rank's visiting order, against flash_pair_bias_attention over
+    the full L: out and the q, k, v, bias gradients (f32 and bf16)."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias, kmask, do = flash_inputs(torch, dev, dtype, "train", 4, 4, 32, 256, seed=23)
+        kmask[0, 64:128] = False               # a whole block of structure 0 without a key
+        ref_in = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        ref = flash_attn.flash_pair_bias_attention(*ref_in, kmask)
+        ref.backward(do)
+        mine = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        B, L, H, dh = q.shape
+        Lq = L // RING_N
+        outs = []
+        for r in range(RING_N):
+            rows = slice(r * Lq, (r + 1) * Lq)
+            acc = torch.zeros((B, Lq, H, dh), dtype=torch.float32, device=dev)
+            lse = torch.full((B, H, Lq), float("-inf"), device=dev)
+            for t in range(RING_N):
+                cols = slice(((r + t) % RING_N) * Lq, ((r + t) % RING_N + 1) * Lq)
+                acc, lse = ring_attn.attend_merge(acc, lse, mine[0][:, rows], mine[1][:, cols],
+                                                  mine[2][:, cols], mine[3][:, :, rows, cols],
+                                                  kmask[:, cols], "flash")
+            out = acc.to(dtype)
+            out.backward(do[:, rows])
+            outs.append(out.detach())
+        torch.cuda.synchronize()
+        name = f"ring merge n={RING_N} {str(dtype)[6:]} B={B} H={H} dh={dh} L={L}"
+        errs = {"out": flash_budget(torch, ref.detach(), torch.cat(outs, 1), f"{name} out", "out")}
+        for key, a, b in zip(("dq", "dk", "dv", "ds"), ref_in, mine):
+            errs[key] = flash_budget(torch, a.grad, b.grad, f"{name} {key}", key)
+        say(f"  {name}: " + ", ".join(f"{key} {e:.2e} ({rel:.2e} of max|ref|)"
+                                     for key, (e, rel) in errs.items()))
+        worst = max(worst, *(e for e, _ in errs.values()))
+    say(f"phase 21c parity ring attend-and-merge over {RING_N} blocks vs flash attention over L: ok, "
+        f"max abs err {worst:.3e}")
+    return worst
+
+
+def one_rank_group(torch, np, dev, smi, pair_maps, flash_attn):
+    """Phase 21 (d): a one-rank NCCL group driving the scale-out entry points
+    on the card: ring_attention_sharded, featurize_sharded(use_kernel=True)
+    against the unsharded featurization, pipeline_apply with one stage
+    against TrFold.forward, then ``python -m protstruc_tpu_torch train --mesh
+    1,1,1 --zero1`` in process at phase 12's configuration against the same
+    steps without a mesh: losses, and the AdamW moments the mesh run's
+    checkpoint gathered against the plain run's.  K8/K9's counters are reset
+    just before the ring and read just after its backward (the lse entry's
+    launches), K1's rectangular counter around featurize_sharded.  One rank
+    makes no exchange (the ring's n - 1 and the pipeline's S - 1 are 0); the
+    collectives that a group of one still runs (all_reduce, all_gather,
+    broadcast, all_gather_object) are counted and must have run on NCCL."""
+    import torch.distributed as dist
+
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.__main__ import main as cli
+    from protstruc_tpu_torch.experiments.nccl_ranks import counted as counted_collectives
+    from protstruc_tpu_torch.models import trfold
+    from protstruc_tpu_torch.ops.ring_attn import ring_attention_sharded
+    from protstruc_tpu_torch.parallel.mesh import (featurize_sharded, init_distributed, make_mesh,
+                                                   shard_batch)
+
+    rank_dev = init_distributed("cuda", rank=0, world_size=1)
+    check(dist.get_backend() == "nccl" and rank_dev == dev, f"group {dist.get_backend()} on {rank_dev}")
+    mesh = make_mesh(axis_shapes=(1, 1, 1))
+    t0 = time.perf_counter()
+
+    q, k, v, bias, kmask, do = flash_inputs(torch, dev, torch.float32, "ragged", 2, 4, 32, 300, seed=24)
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    torch.cuda.synchronize()
+    reset_launches(flash_attn)
+    out = ring_attention_sharded(*ins, kmask, mesh)
+    out.backward(do)
+    lse_launches = dict(flash_attn.LAUNCHES)
+    ref_in = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    ref = flash_attn.flash_pair_bias_attention(*ref_in, kmask)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    ring_err = max(flash_budget(torch, ref.detach(), out.detach(), "ring one rank out", "out")[0],
+                   *(flash_budget(torch, a.grad, b.grad, f"ring one rank {key}", key)[0]
+                     for key, a, b in zip(("dq", "dk", "dv", "ds"), ref_in, ins)))
+
+    sb = pt.StructureBatch.from_pdb([str(DATA / p) for p in PDBS], device=dev)
+    pair_maps.RECT_LAUNCHES = 0
+    with counted_collectives() as feat_calls:
+        maps, d, m, frames = featurize_sharded(shard_batch(sb, mesh), mesh, use_kernel=True)
+    rect_launches = pair_maps.RECT_LAUNCHES
+    g = sb.inter_residue_geometry(use_kernel=True)
+    torch.cuda.synchronize()
+    n_bad = sum(unequal(g[k], maps[k]) for k in pair_maps.MAP_NAMES)
+    check(n_bad == 0, f"featurize_sharded: maps differ from the unsharded K1 at {n_bad} entries")
+    for key in ("d_ca_mask", "d_cb_mask", "d_no_mask"):
+        check(torch.equal(g[key], maps[key]), f"featurize_sharded: {key}")
+    d0, m0 = sb.backbone_dihedrals()
+    check(torch.equal(d0.nan_to_num(), d.nan_to_num()) and torch.equal(m0, m), "sharded dihedrals")
+    x = sb.xyz
+    from protstruc_tpu_torch import geometry as geom
+    check(torch.equal(geom.gram_schmidt(x[:, :, 0], x[:, :, 1], x[:, :, 2]).nan_to_num(),
+                      frames.nan_to_num()), "sharded frames")
+
+    pp = make_mesh(axis_shapes=(1,), axis_names=("pp",))
+    cfg = trfold.TrFoldConfig(node_dim=128, pair_dim=64, n_heads=4, n_blocks=1, pair_update="triangle",
+                              fused_tri=True, use_flash_attn=True)
+    model = trfold.TrFold(cfg, device=dev)
+    params, _, _ = trfold.make_train_state(model, {}, torch.Generator().manual_seed(0), device=dev)
+    feats = trfold.featurize_for_model(sb, use_kernel=True)
+    with torch.no_grad():
+        piped = trfold.pipeline_apply(params, model, feats, pp)
+        plain = model(feats)
+    torch.cuda.synchronize()
+    pipe_err = max(float((piped[k] - plain[k]).abs().max()) for k in plain)
+    check(pipe_err <= 1e-5, f"pipeline_apply (one stage) vs TrFold.forward: {pipe_err:.3e}")
+
+    from protstruc_tpu_torch.models.checkpoint import restore_train_state
+
+    losses, moments = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_paths = [str(DATA / f) for f in LOO_FILES if f not in (HELD_OUT, DUPLICATE)]
+        for mesh_args in ((), ("--mesh", "1,1,1", "--zero1")):
+            ck = pathlib.Path(tmp) / ("mesh" if mesh_args else "plain")
+            argv = ["train", *train_paths, "--checkpoint-dir", str(ck), "--steps", "3",
+                    "--save-every", "3", *FOLD_ARGV, *mesh_args, "--device", str(dev)]
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err), \
+                    counted_collectives() as calls:
+                check(cli(argv) == 0, f"train {' '.join(mesh_args)} returned non-zero")
+            if mesh_args:
+                check("ZeRO-1" in err.getvalue(), "train --mesh did not log its mesh")
+                train_calls = calls
+            rows = [json.loads(ln) for ln in (ck / "metrics.jsonl").read_text().splitlines()]
+            losses[bool(mesh_args)] = [r["loss"] for r in rows if "loss" in r]
+            moments[bool(mesh_args)] = restore_train_state(str(ck))[1]["adamw"]["state"]
+    check(len(losses[True]) == 3 and all(map(math.isfinite, losses[True])), f"mesh losses {losses}")
+    compare_losses(losses[True], losses[False], 1e-4, "train --mesh 1,1,1 --zero1 vs no mesh")
+    # the checkpoint's moments, gathered from their ZeRO-1 owner, against the
+    # plain run's: every leaf, within 1e-3 of the leaf's largest entry plus
+    # 1e-6 of the model's (the card's run-to-run rounding: a leaf whose
+    # gradient is all but 0 holds rounding alone); a leaf gathered wrong
+    # is off by its whole size
+    check(sorted(moments[True]) == sorted(moments[False]),
+          f"zero1 checkpoint holds moments of {len(moments[True])} leaves, not {len(moments[False])}")
+    moment_err = 0.0  # the largest error over its tolerance
+    for key in ("exp_avg", "exp_avg_sq"):
+        top = max(float(st[key].float().abs().max()) for st in moments[False].values())
+        for i, st in moments[False].items():
+            a, b = moments[True][i][key].float(), st[key].float()
+            tol = 1e-3 * float(b.abs().max()) + 1e-6 * top
+            e = float((a - b).abs().max())
+            check(e <= tol, f"zero1 checkpoint moment {i} {key}: {e:.3e} > {tol:.3e}")
+            moment_err = max(moment_err, e / tol)
+    nccl = {k: feat_calls[k] + train_calls[k] for k in feat_calls}
+    check(all(nccl[k] > 0 for k in ("all_reduce", "all_gather", "broadcast", "all_gather_object")),
+          f"phase 21d NCCL collectives {nccl}")
+    torch.cuda.synchronize()
+    launches = {"rect": rect_launches, "lse_fwd": lse_launches["fwd"], "lse_bwd": lse_launches["bwd"]}
+    check(all(n > 0 for n in launches.values()), f"phase 21d launches {launches}")
+    dist.destroy_process_group()
+    say(f"phase 21d one-rank NCCL group: ok in {time.perf_counter() - t0:.2f} s; ring_attention_sharded "
+        f"vs flash max err {ring_err:.3e}; featurize_sharded bitwise equal to the unsharded K1 maps; "
+        f"pipeline_apply vs forward {pipe_err:.2e}; train --mesh 1,1,1 --zero1 losses {losses[True]} vs "
+        f"no mesh {losses[False]}, checkpoint moments at worst {moment_err:.2e} of their tolerance; "
+        f"NCCL collective calls (featurize_sharded + train --mesh) {nccl}; launches: ring (K8/K9 "
+        f"through the lse entry) {lse_launches}, featurize_sharded (K1 rect) {rect_launches}")
+    return launches, ring_err
+
+
+def tri_wide_timings(torch, dev, smi, tri_mul):
+    """K4-K7 at ``[mfu-peak]``'s pair rows (bf16, N = 2*256*256, C = 1024,
+    their streamed passes) beside their plain versions and their bounds,
+    each timed by CUDA events over 2 calls after one warm-up, in the order
+    plain, kernel, kernel, plain (one call of K5 takes most of a second).
+    Returns {name: (kernel ms, plain ms, bound ms, bound_by)}."""
+    def ms2(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 2
+
+    cases = tri_inputs(torch, dev, torch.bfloat16, PEAK_WIDTH["pair_dim"], B=PEAK_B, L=PEAK_L, seed=5)
+    res = {}
+    for name in TRI_KERNELS:
+        kernel, plain = tri_mul.KERNELS[name]
+        got = kernel(*cases[name])
+        N, C = cases[name][0].shape
+        b = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
+                  TRI_PRODUCTS[name] * 2 * N * C * C, torch.bfloat16)
+        del got
+        torch.cuda.empty_cache()
+        p1, k1, k2, p2 = (ms2(lambda f=f: f(*cases[name])) for f in (plain, kernel, kernel, plain))
+        res[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *b)
+        say(f"phase 21e timing {name} bf16 N={N} C={C} (streamed pass) [{smi}]: kernel "
+            f"{res[name][0]:.2f} ms, plain {res[name][1]:.2f} ms (plain/kernel/kernel/plain {p1:.2f}, "
+            f"{k1:.2f}, {k2:.2f}, {p2:.2f}); bound {b[0]:.4f} ms ({b[1]})")
+        torch.cuda.empty_cache()
+    del cases
+    torch.cuda.empty_cache()
+    return res
+
+
+def mfu_peak(torch, np, dev, smi, tri_mul):
+    """Phase 21 (e): ``[mfu-peak]`` at bench.py's full width: K4-K7 at C =
+    1024 bf16 against their plain versions first, and timed at the step's
+    pair rows beside them and their bounds, then 3 train steps from one
+    init under each remat policy, fused_tri off (bench.py's form) and on:
+    losses within 2e-2 relative of each other, ms/step (the second step;
+    the first warms up, the third runs under torch.profiler), peak memory,
+    and the ``aten::bmm`` calls of the profiled step."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.models.trfold import (TrFold, TrFoldConfig, featurize_for_model,
+                                                   make_train_state, train_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = tri_inputs(torch, dev, torch.bfloat16, PEAK_WIDTH["pair_dim"])
+    tri_err = {name: tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=1024")
+               for name in TRI_KERNELS}
+    del cases
+    say(f"phase 21e parity K4-K7 bf16 C=1024 (streamed passes): ok, max abs err {tri_err}")
+    tri_wide = tri_wide_timings(torch, dev, smi, tri_mul)
+
+    xyz = np.random.RandomState(0).randn(PEAK_B, PEAK_L, 15, 3).astype(np.float32) * 5.0
+    feats = featurize_for_model(pt.StructureBatch.from_xyz(xyz, device=dev))
+    init, results = None, {}
+    for fused in (False, True):
+        for policy in POLICIES:
+            cfg = TrFoldConfig(dtype=torch.bfloat16, remat_policy=policy, fused_tri=fused, **PEAK_WIDTH)
+            model = TrFold(cfg, device=dev)
+            params, opt_state, tx = make_train_state(model, feats, torch.Generator().manual_seed(0),
+                                                     device=dev)
+            if init is None:
+                init = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(init)
+            tri_mul.LAUNCHES.update(dict.fromkeys(tri_mul.LAUNCHES, 0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for i in range(PEAK_STEPS):
+                if i == PEAK_STEPS - 1:
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        loss = train_step(params, opt_state, feats, model, tx)[2]
+                        torch.cuda.synchronize()
+                    # the bmm calls that launched a GEMM: under selective
+                    # checkpointing an op also shows as the policy mode's outer
+                    # call, and a saved one replays from its cache, launching none
+                    bmm = sum(1 for e in prof.events() if e.name == "aten::bmm" and e.kernels)
+                    calls = sum(1 for e in prof.events() if e.name == "aten::bmm")
+                    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                                 key=lambda k: -k[1])
+                    busy = sum(ms for _, ms in top)
+                else:
+                    t0 = time.perf_counter()
+                    loss = train_step(params, opt_state, feats, model, tx)[2]
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check(all(map(math.isfinite, losses)), f"[mfu-peak] {policy} fused={fused}: losses {losses}")
+            check(not fused or all(n > 0 for n in tri_mul.LAUNCHES.values()),
+                  f"[mfu-peak] fused: K4-K7 launches {tri_mul.LAUNCHES}")
+            results[(fused, policy)] = (losses, ms[-1], peak, bmm)
+            say(f"  [mfu-peak] fused_tri={fused} remat_policy={policy} [{smi}]: {ms[-1]:.2f} ms/step "
+                f"(step 1 {ms[0]:.2f} ms), peak {peak:.2f} GiB, {bmm} bmm GEMMs a step ({calls} "
+                f"aten::bmm calls), losses {losses}; profiled step device busy {busy:.2f} ms: "
+                + "; ".join(f"{k[:50]} {t:.2f} ms" for k, t in top[:4]))
+            del model, params, opt_state, tx
+            torch.cuda.empty_cache()
+    base = results[(False, "none")][0]
+    for key, (losses, *_) in results.items():
+        compare_losses(losses, base, 2e-2, f"[mfu-peak] {key} vs unfused none")
+    for fused in (False, True):
+        fewer = results[(fused, "none")][3] - results[(fused, "tri_dots")][3]
+        check(fewer == 2 * PEAK_WIDTH["n_blocks"],
+              f"[mfu-peak] fused={fused}: tri_dots ran {fewer} fewer bmm than none, not "
+              f"{2 * PEAK_WIDTH['n_blocks']}")
+    say(f"phase 21e [mfu-peak] bf16 B={PEAK_B} L={PEAK_L} {PEAK_WIDTH} [{smi}]: ok; "
+        + "; ".join(f"fused_tri={f} {p}: {r[1]:.2f} ms/step, {r[2]:.2f} GiB, {r[3]} bmm"
+                    for (f, p), r in results.items()))
+    return tri_err, tri_wide
+
+
+def moe_card_vs_cpu(torch, np, dev, smi):
+    """Phase 21 (f): TrFold with MoE blocks (4 experts) at the ``[mfu-fused]``
+    width, f32, B=1, L=128, on the card (K4-K7) against the port on the CPU
+    from the same init: loss, aux and every gradient leaf."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.models.trfold import TrFold, TrFoldConfig, featurize_for_model, loss_fn
+
+    xyz = np.random.RandomState(3).randn(1, 128, 15, 3).astype(np.float32) * 5.0
+    res, init = [], None
+    for d in (dev, torch.device("cpu")):
+        feats = featurize_for_model(pt.StructureBatch.from_xyz(xyz, device=d))
+        model = TrFold(TrFoldConfig(moe_experts=4, fused_tri=True, **TRAIN_WIDTH), device=d)
+        if init is None:
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            aux = float(model(feats)["moe_aux_loss"])
+        loss = loss_fn(params, model, feats)
+        loss.backward()
+        res.append((float(loss.detach()), aux, {k: p.grad.detach().cpu() for k, p in params.items()}))
+    (l_g, a_g, g_g), (l_c, a_c, g_c) = res
+    check(abs(l_g - l_c) <= 1e-5 * abs(l_c), f"MoE TrFold loss card {l_g!r} vs CPU {l_c!r}")
+    check(abs(a_g - a_c) <= 1e-5 * abs(a_c) and a_c > 0, f"MoE aux card {a_g!r} vs CPU {a_c!r}")
+    leaf, rel = grad_error(torch, g_c, g_g)
+    check(rel <= 1e-4, f"MoE TrFold gradient {leaf}: {rel:.3e} of its largest entry")
+    say(f"phase 21f MoE TrFold (4 experts) {TRAIN_WIDTH} f32 B=1 L=128, card vs CPU [{smi}]: ok; loss "
+        f"{l_g:.6f} vs {l_c:.6f}, aux {a_g:.6f} vs {a_c:.6f}, worst gradient leaf {leaf} {rel:.2e}")
+
+
+def lse_timing(torch, dev, flash_attn, ring_attn, smi):
+    """The lse entry's forward at the train shape (f32): K8 through it beside
+    the plain lse attention, the bound, and the library call that returns an
+    lse, ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``
+    with the additive bias."""
+    q, k, v, bias, kmask, _ = flash_inputs(torch, dev, torch.float32, "train", 4, 4, 32, 256)
+    with torch.no_grad():
+        plain_ms, ms, _ = alternate(lambda: ring_attn.local_attention_lse(q, k, v, bias, kmask, "plain"),
+                                    lambda: flash_attn.flash_pair_bias_attention_lse(q, k, v, bias, kmask))
+        out, lse = flash_attn.flash_pair_bias_attention_lse(q, k, v, bias, kmask)
+        qf, kf, vf = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask_f = bias.masked_fill(~kmask[:, None, None, :], float("-inf")).contiguous()
+        lib_out = torch.ops.aten._scaled_dot_product_efficient_attention(
+            qf, kf, vf, mask_f, True)
+        check(bool(torch.isfinite(lib_out[0]).all()), "library lse attention: non-finite")
+        lib_ms = cuda_time_ms(lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+            qf, kf, vf, mask_f, True))
+    b = bound(nbytes(q, k, v, bias, kmask, out, lse), flash_ops(kmask, 4, 32, 2), torch.float32)
+    say(f"phase 21 timing lse entry forward f32 B=4 H=4 dh=32 L=256 [{smi}]: K8 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, _scaled_dot_product_efficient_attention(compute_log_sumexp) {lib_ms:.4f} ms; "
+        f"bound {b[0]:.4f} ms ({b[1]})")
+    return ms, plain_ms, lib_ms, b
+
+
+def scale_out_phase(torch, np, dev, smi):
+    """Phase 21: (a)-(f) in order; returns the kernels-line entries' numbers."""
+    from protstruc_tpu_torch.ops import flash_attn, pair_maps, ring_attn, tri_mul
+
+    t0 = time.perf_counter()
+    rect = rect_parity(torch, np, dev, pair_maps, smi)
+    lse_worst = lse_parity(torch, dev, flash_attn, ring_attn)
+    ring_worst = ring_merge_parity(torch, dev, flash_attn, ring_attn)
+    launches, ring_err = one_rank_group(torch, np, dev, smi, pair_maps, flash_attn)
+    lse_ms = lse_timing(torch, dev, flash_attn, ring_attn, smi)
+    tri_err, tri_wide = mfu_peak(torch, np, dev, smi, tri_mul)
+    torch.cuda.empty_cache()
+    moe_card_vs_cpu(torch, np, dev, smi)
+    say(f"phase 21 scale-out path: ok in {time.perf_counter() - t0:.2f} s")
+    return {"rect": rect, "launches": launches, "lse_err": max(lse_worst["fwd"], lse_worst["bwd"],
+                                                               ring_worst, ring_err),
+            "lse_ms": lse_ms, "tri_err_c1024": tri_err, "tri_c1024": tri_wide}
+
+
 def main():
     import numpy as np
     import torch
@@ -2600,7 +3154,7 @@ def main():
               file=sys.stderr)
         return 1
     modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api",
-             "--design")
+             "--design", "--scale-out")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -2664,6 +3218,16 @@ def main():
         flash_attn.load_library()
         design_phase(torch, dev, smi)
         say(f"phase 20 design path: ok in {time.perf_counter() - t0:.2f} s (K8/K9 built or loaded)")
+        return 0
+    if sys.argv[1:] == ["--scale-out"]:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda load: load(), (pair_maps.load_library, tri_mul.load_library,
+                                              flash_attn.load_library)))
+        say(f"phase 21: K1, K4-K7 and K8/K9 built or loaded in {time.perf_counter() - t0:.2f} s")
+        for ln in ptxas_lines(cuda_lib.library_path("pair_maps", pair_maps._SOURCES).with_suffix(".log")):
+            say(f"  ptxas: {ln}")
+        scale_out_phase(torch, np, dev, smi)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -3143,6 +3707,9 @@ def main():
     design = design_phase(torch, dev, smi)
     say(f"phase 20 design path: ok in {time.perf_counter() - t0:.2f} s")
 
+    # -- 21. the scale-out path ----------------------------------------------------------
+    scale_out = scale_out_phase(torch, np, dev, smi)
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -3174,6 +3741,26 @@ def main():
                                   f"experiments/kernel_probe.py:{line}", probe_launches[site],
                                   probe_err[site], ms, plain, b_ms, b_by, None),
                             variant=best, write_only_ms=wo))
+    so, rect = scale_out, scale_out["rect"]
+    kernels.append(dict(entry("pair_maps_rect", "pair_maps.cu", "protstruc_tpu/ops/pallas_pairwise.py:146",
+                              so["launches"]["rect"], rect["err"], rect["ms"], rect["plain_ms"],
+                              *rect["bound"], None),
+                        mode="K1 xyz_j (pairwise_maps_pallas(xyz_j=...), pallas_pairwise.py:603-646): "
+                             "4 row blocks of B=256 L=512", square_ms=rect["square_ms"]))
+    lse_ms, lse_plain, lse_lib, lse_bound = so["lse_ms"]
+    kernels.append(dict(entry("flash_attn_lse", "flash_attn.cu", "protstruc_tpu/ops/flash_attn.py:689",
+                              so["launches"]["lse_fwd"], so["lse_err"], lse_ms, lse_plain, *lse_bound,
+                              lse_lib),
+                        mode="K8/K9 through flash_pair_bias_attention_lse (the ring's local step); "
+                             "launches: ring_attention_sharded on one rank; ms: the forward at the "
+                             "train shape",
+                        bwd_launches=so["launches"]["lse_bwd"]))
+    for e in kernels:
+        if e["name"].startswith("tri_mul_"):
+            name = e["name"][len("tri_mul_"):]
+            e["err_c1024_bf16"] = so["tri_err_c1024"][name]
+            e["c1024_bf16"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), so["tri_c1024"][name]),
+                                   shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -12,7 +12,9 @@
 
 Commands run on ``--device`` (default ``cuda``, which raises without a card;
 pass ``--device cpu`` for host runs); ``renumber`` runs on the host alone.
-``train --mesh``/``--zero1`` raise ``NotImplementedError``.
+``train --mesh dp,1,1 [--zero1]`` trains data-parallel under ``torchrun``
+(the mesh's product is the world size); ``--mesh`` with sp or tp above 1
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -273,8 +275,27 @@ def cmd_train(args) -> int:
 
     from protstruc_tpu_torch.train import TrainConfig, train
 
-    if args.mesh or args.zero1:
-        raise NotImplementedError("--mesh and --zero1 (device meshes, ZeRO-1) are not yet ported")
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+        if len(mesh_shape) != 3 or min(mesh_shape) < 1:
+            raise ValueError(f"--mesh takes dp,sp,tp (positive ints), got {args.mesh!r}")
+        if mesh_shape[1] > 1 or mesh_shape[2] > 1:
+            raise NotImplementedError(
+                f"--mesh {args.mesh}: sequence and tensor parallelism (sp > 1, tp > 1) are not "
+                "yet ported (ROADMAP A.8); use --mesh dp,1,1")
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            world = dist.get_world_size()
+        if mesh_shape[0] != world:
+            raise ValueError(f"--mesh {args.mesh} needs {mesh_shape[0]} ranks, but the world "
+                             f"size is {world}: run under torchrun --nproc-per-node "
+                             f"{mesh_shape[0]}")
+    elif args.zero1:
+        raise ValueError("--zero1 requires --mesh: ZeRO-1 partitions optimizer state over the dp "
+                         "mesh axis")
     paths = []
     for inp in args.inputs:
         if os.path.isdir(inp):
@@ -292,7 +313,8 @@ def cmd_train(args) -> int:
         lr_schedule=args.lr_schedule, warmup_steps=args.warmup, ema_decay=args.ema_decay,
         save_every=args.save_every, seed=args.seed, bf16=args.bf16,
         pair_update=args.pair_update, remat=args.remat, remat_policy=args.remat_policy,
-        use_flash_attn=args.flash_attn, fused_tri=args.fused_tri, crop_len=args.crop)
+        use_flash_attn=args.flash_attn, fused_tri=args.fused_tri, crop_len=args.crop,
+        mesh_shape=mesh_shape, zero1=args.zero1)
     metrics = train(paths, args.checkpoint_dir, cfg, log_fn=lambda *a: print(*a, file=sys.stderr),
                     eval_paths=args.eval, device=args.device)
     print(json.dumps(metrics))
@@ -429,8 +451,11 @@ def main(argv=None) -> int:
                         "triangle); same param tree as unfused")
     t.add_argument("--remat-policy", default="none", choices=("none", "tri_dots", "dots"),
                    help="with --remat: only 'none' is ported")
-    t.add_argument("--mesh", default=None, help="dp,sp,tp device mesh (not yet ported)")
-    t.add_argument("--zero1", action="store_true", help="ZeRO-1 (not yet ported)")
+    t.add_argument("--mesh", default=None,
+                   help="dp,sp,tp process mesh: dp,1,1 trains data-parallel over dp ranks "
+                        "(run under torchrun --nproc-per-node dp; sp, tp > 1 not yet ported)")
+    t.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: partition the AdamW moments over the dp ranks (needs --mesh)")
     t.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per optimizer step "
                         "(effective batch = batch-size * accum)")

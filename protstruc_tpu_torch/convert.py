@@ -14,7 +14,12 @@
   ``torch.nn.Linear``'s ``(out, in)``; ``qkv`` ``(D, 3, h, dh)``,
   ``pair_bias`` ``(P, h)``, ``out`` ``(h, dh, D)``), so a leaf is copied as
   it is and its path is joined with dots: ``block_0/attn/qkv/kernel`` ->
-  ``block_0.attn.qkv.kernel``.
+  ``block_0.attn.qkv.kernel``.  MoE blocks carry ``block_i.moe.router.
+  {kernel, bias}`` and ``block_i.moe.{w1, b1, w2, b2}`` in flax's ``(E, D,
+  H)`` / ``(E, H, D)`` layout; a pipeline's stacked stage parameters (the
+  JAX package's ``stack_stage_params`` of block trees, a leading stage axis
+  on every leaf) map leaf for leaf onto
+  ``parallel.pipeline.stack_stage_params`` of the blocks' ``state_dict``s.
 * FoldModel parameters: :func:`foldmodel_params_from_flax` and back, the same
   walk over the FoldModel tree: ``trunk`` (TrFold's tree), ``structure``
   (``structure.ipa.q_point.kernel``, ``structure.backbone_update.update.kernel``,

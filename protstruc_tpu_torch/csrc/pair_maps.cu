@@ -115,23 +115,28 @@ struct MapsRow {
 
 // 64 registers a thread, 4 blocks (32 warps) an SM: the arithmetic is what
 // bounds K1, and more warps hide more of its latency (PERF.md)
+// Rows from xyz (B, Li, A, 3), columns from xyz_j (B, Lj, A, 3); the square
+// launch passes xyz twice and Li = Lj = L.
 template <typename T>
 __global__ void __launch_bounds__(kPairThreads, 4)
-pair_maps_kernel(const float* __restrict__ xyz, int B, int L, int A, PairPlan plan, MapsRow<T> row) {
-  pair_tiles<3>(xyz, B, L, A, plan, row.mask, row);
+pair_maps_kernel(const float* __restrict__ xyz, const float* __restrict__ xyz_j, int B, int Li,
+                 int Lj, int A, PairPlan plan, MapsRow<T> row) {
+  pair_tiles<3>(xyz, xyz_j, B, Li, Lj, A, plan, row.mask, row);
 }
 
 template <typename T>
-int launch(int device, const float* xyz, int B, int L, int A, int mask, T* d_ca, T* d_cb,
-           T* d_no, T* omega, T* theta, T* phi, PairPlan plan, void* stream) {
+int launch(int device, const float* xyz, const float* xyz_j, int B, int Li, int Lj, int A,
+           int mask, T* d_ca, T* d_cb, T* d_no, T* omega, T* theta, T* phi, PairPlan plan,
+           void* stream) {
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   MapsRow<T> row{mask, {d_ca, d_cb, d_no, omega, theta, phi}};
   for (int k = 0; k < 6; ++k)
     if (((mask >> k) & 1) && reinterpret_cast<uintptr_t>(row.planes[k]) % 16) return -2;
-  if (B <= 0 || L <= 0) return (int)cudaSuccess;
-  if (!plan_fits(plan, L)) return -3;
-  pair_maps_kernel<T><<<plan.grid, kPairThreads, 0, (cudaStream_t)stream>>>(xyz, B, L, A, plan, row);
+  if (B <= 0 || Li <= 0 || Lj <= 0) return (int)cudaSuccess;
+  if (!plan_fits(plan, Li, Lj)) return -3;
+  pair_maps_kernel<T><<<plan.grid, kPairThreads, 0, (cudaStream_t)stream>>>(xyz, xyz_j, B, Li,
+                                                                           Lj, A, plan, row);
   return (int)cudaGetLastError();
 }
 
@@ -148,7 +153,8 @@ extern "C" int ps_pair_maps_f32(int device, const float* xyz, int B, int L, int 
                                 int mask, float* d_ca, float* d_cb, float* d_no,
                                 float* omega, float* theta, float* phi, PairPlan plan,
                                 void* stream) {
-  return launch(device, xyz, B, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan, stream);
+  return launch(device, xyz, xyz, B, L, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan,
+                stream);
 }
 
 // The same maps as bf16 planes (ps_pair_maps_f32's values rounded to
@@ -158,5 +164,24 @@ extern "C" int ps_pair_maps_bf16(int device, const float* xyz, int B, int L, int
                                  __nv_bfloat16* d_no, __nv_bfloat16* omega,
                                  __nv_bfloat16* theta, __nv_bfloat16* phi, PairPlan plan,
                                  void* stream) {
-  return launch(device, xyz, B, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan, stream);
+  return launch(device, xyz, xyz, B, L, L, A, mask, d_ca, d_cb, d_no, omega, theta, phi, plan,
+                stream);
+}
+
+// The rectangular mode (pairwise_maps_pallas(xyz_j=...)): rows i from xyz
+// (B, Li, A, 3), columns j from xyz_j (B, Lj, A, 3), both contiguous f32
+// with the same A, into (B, Li, Lj) planes of f32 (`bf16` 0) or bf16
+// (`bf16` 1).  `plan` is ops/pair_maps.py tile_plan(B, Li, Lj).  The pins
+// are coordinate-equality tests as in the square launch, so a row block of
+// the square maps (xyz_j = the whole xyz, xyz its rows) has its bits.
+extern "C" int ps_pair_maps_rect(int device, int bf16, const float* xyz, const float* xyz_j,
+                                 int B, int Li, int Lj, int A, int mask, void* d_ca, void* d_cb,
+                                 void* d_no, void* omega, void* theta, void* phi, PairPlan plan,
+                                 void* stream) {
+  if (bf16)
+    return launch(device, xyz, xyz_j, B, Li, Lj, A, mask, (__nv_bfloat16*)d_ca,
+                  (__nv_bfloat16*)d_cb, (__nv_bfloat16*)d_no, (__nv_bfloat16*)omega,
+                  (__nv_bfloat16*)theta, (__nv_bfloat16*)phi, plan, stream);
+  return launch(device, xyz, xyz_j, B, Li, Lj, A, mask, (float*)d_ca, (float*)d_cb,
+                (float*)d_no, (float*)omega, (float*)theta, (float*)phi, plan, stream);
 }

@@ -242,14 +242,17 @@ struct PairPlan {
 
 namespace {
 
-// Whether the kernels can take plan p for (B, L): its tile shape is the one
-// compiled here, its tiles cover the rows and columns, and it asks for
-// vector stores only where every run is whole and aligned.
-__host__ __forceinline__ bool plan_fits(const PairPlan& p, int L) {
+// Whether the kernels can take plan p for (B, Li, Lj): its tile shape is
+// the one compiled here, its tiles cover the Li rows and Lj columns, and it
+// asks for vector stores only where every run is whole and aligned (a row
+// starts at element (b Li + i) Lj, so Lj a multiple of kPairsJ).
+__host__ __forceinline__ bool plan_fits(const PairPlan& p, int Li, int Lj) {
   return p.pairs_j == kPairsJ && p.tile_j == kPairTileJ && p.tile_i == kPairTileI &&
-         p.warps == kPairWarps && p.grid > 0 && (int64_t)p.tiles_j * kPairTileJ >= L &&
-         (int64_t)p.tiles_i * kPairTileI >= L && (!p.vector || L % kPairsJ == 0);
+         p.warps == kPairWarps && p.grid > 0 && (int64_t)p.tiles_j * kPairTileJ >= Lj &&
+         (int64_t)p.tiles_i * kPairTileI >= Li && (!p.vector || Lj % kPairsJ == 0);
 }
+
+__host__ __forceinline__ bool plan_fits(const PairPlan& p, int L) { return plan_fits(p, L, L); }
 
 // the staged atoms: i-side N, CA, CB; j-side CA, CB, O
 __device__ __forceinline__ int i_slot(int a) { return a == 2 ? kCB : a; }
@@ -313,9 +316,14 @@ struct NoTileEnd {
 //    staged column at sjl (its column q at sjl + 32 q, each component
 //    kJStride floats apart); then, once every warp is done with the tile,
 //    `tile_end(tile)`.
+//
+// The rectangular form (K1's xyz_j mode) takes the rows from xyz (B, Li, A,
+// 3) and the columns from xyz_j (B, Lj, A, 3) into a (B, Li, Lj) output;
+// the square form is xyz_j = xyz, Li = Lj = L, the same addresses.
 template <int NJ, bool Strided = false, class Row, class TileEnd = NoTileEnd>
-__device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B, int L, int A,
-                                           PairPlan p, int mask, const Row& row,
+__device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz,
+                                           const float* __restrict__ xyz_j, int B, int Li,
+                                           int Lj, int A, PairPlan p, int mask, const Row& row,
                                            const TileEnd& tile_end = TileEnd{}) {
   __shared__ float si[kPairTileI * 9];
   __shared__ __align__(16) float sj[3 * NJ * kJStride];
@@ -330,35 +338,36 @@ __device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B,
     const int ti = (int)(bi % p.tiles_i);
     const int64_t b = bi / p.tiles_i;
     const int i0 = ti * kPairTileI, j0 = tj * kPairTileJ;
-    const float* base = xyz + b * L * res_stride;
+    const float* base_i = xyz + b * Li * res_stride;
+    const float* base_j = xyz_j + b * Lj * res_stride;
     const PairTile tile{b, ti, tj, i0, j0};
 
     __syncthreads();  // the previous tile's reads of si and sj are done
     for (int k = tid; k < kPairTileI * 9; k += kPairThreads) {
       const int r = i0 + k / 9, f = k % 9;
-      si[k] = r < L ? base[r * res_stride + 3 * i_slot(f / 3) + f % 3] : 0.0f;
+      si[k] = r < Li ? base_i[r * res_stride + 3 * i_slot(f / 3) + f % 3] : 0.0f;
     }
     for (int k = tid; k < kPairTileJ * 3 * NJ; k += kPairThreads) {
       const int c = k / (3 * NJ), f = k % (3 * NJ), r = j0 + c;
-      sj[f * kJStride + c] = r < L ? base[r * res_stride + 3 * j_slot(f / 3) + f % 3] : 0.0f;
+      sj[f * kJStride + c] = r < Lj ? base_j[r * res_stride + 3 * j_slot(f / 3) + f % 3] : 0.0f;
     }
     __syncthreads();
 
     const int jt = j0 + (Strided ? lane : kPairsJ * lane);
-    if (!Strided && jt >= L) continue;
-    const int nj = min(kPairsJ, L - jt);
+    if (!Strided && jt >= Lj) continue;
+    const int nj = min(kPairsJ, Lj - jt);
     const float* sjl = sj + (jt - j0);
-    const bool vec = p.vector != 0, wide = vec && j0 + kPairTileJ <= L;
+    const bool vec = p.vector != 0, wide = vec && j0 + kPairTileJ <= Lj;
 
     for (int r = warp; r < kPairTileI; r += kPairWarps) {
       const int i = i0 + r;
-      if (i >= L) break;
+      if (i >= Li) break;
       const float* ri = si + r * 9;
       if constexpr (Strided) {
         row(ri, sjl, tile, i);
       } else {
         const PairI I = pair_i(load3(ri, 0), load3(ri, 1), load3(ri, 2), mask);
-        row(I, sjl, (b * L + i) * L + jt, nj, vec, wide);
+        row(I, sjl, (b * Li + i) * Lj + jt, nj, vec, wide);
       }
     }
     if constexpr (Strided) {
@@ -366,6 +375,14 @@ __device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B,
       tile_end(tile);
     }
   }
+}
+
+// The square walk of (B, L): K2, K3 and K1 without xyz_j.
+template <int NJ, bool Strided = false, class Row, class TileEnd = NoTileEnd>
+__device__ __forceinline__ void pair_tiles(const float* __restrict__ xyz, int B, int L, int A,
+                                           PairPlan p, int mask, const Row& row,
+                                           const TileEnd& tile_end = TileEnd{}) {
+  pair_tiles<NJ, Strided>(xyz, xyz, B, L, L, A, p, mask, row, tile_end);
 }
 
 }  // namespace

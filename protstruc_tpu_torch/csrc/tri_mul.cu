@@ -86,7 +86,11 @@
 // chunk is staged in f32 in shared memory, where the gates, masks and casts
 // are applied and the result is written out with coalesced stores.  Ragged
 // rows past N are zeros in shared memory and are never stored.  Restaging
-// the weights for every row tile bounds them (PERF.md has the times).
+// the weights for every row tile bounds them (PERF.md has the times).  The
+// backward passes keep their cast dpre tiles in shared memory for the back
+// projection too, unless they do not fit (bf16 C = 1024, `[mfu-peak]`'s
+// width): then the back projection reads them from the dpre rows the block
+// just wrote to global memory (Plan::d_global).
 //
 // The Pallas backwards sum weight gradients into one block that the
 // sequential TPU grid revisits.  Here blocks run in parallel, so:
@@ -250,6 +254,7 @@ struct Plan {
   size_t wg_smem;
   int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
   size_t res_smem;
+  int d_global;            // streamed backward rows pass: the dpre tiles read back from global
   long long work_floats;   // f32 scratch: grid*6*C vector partials + chunks*njobs*C*C
 };
 
@@ -293,7 +298,8 @@ struct RowsSmem {
     RowsSmem r{};
     const size_t tile = sizeof(T) * p.TR * p.lds;
     for (int i = 0; i < n_ln(kind); ++i) r.s[i] = (T*)cv.take(tile);
-    for (int i = 0; i < n_dpre(kind); ++i) r.d[i] = (T*)cv.take(tile);
+    if (!p.d_global)
+      for (int i = 0; i < n_dpre(kind); ++i) r.d[i] = (T*)cv.take(tile);
     r.w0 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
     r.w1 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
     const size_t st = ((sizeof(float) * p.TR * p.ldf + 127) / 128) * 128;
@@ -406,9 +412,10 @@ __device__ void two_products(const Plan& p, const RowsSmem<T>& sm, const T* s0, 
 }
 
 // dsrc (TR x C, f32, into dbuf) = sum_k d[k] @ W_k^T over nmat cast-dpre
-// tiles, the weights streamed transposed.  Ends synchronised.
+// tiles of row stride ldd (in shared memory, or the rows just written to the
+// global dpre), the weights streamed transposed.  Ends synchronised.
 template <typename T>
-__device__ void back_project(const Plan& p, const RowsSmem<T>& sm, T* const* d,
+__device__ void back_project(const Plan& p, const RowsSmem<T>& sm, T* const* d, int ldd,
                              const T* const* W, int nmat) {
   for (int n0 = 0; n0 < p.C; n0 += p.TNK) {
     TileAcc<T> acc;
@@ -417,7 +424,7 @@ __device__ void back_project(const Plan& p, const RowsSmem<T>& sm, T* const* d,
       for (int k0 = 0; k0 < p.C; k0 += p.TNK) {
         load_w(W[k], p.C, k0, n0, p.TNK, true, sm.w0, p.ldw);
         __syncthreads();
-        acc.mma(d[k] + k0, p.lds, sm.w0, p.ldw, p.TNK);
+        acc.mma(d[k] + k0, ldd, sm.w0, p.ldw, p.TNK);
         __syncthreads();
       }
     }
@@ -570,8 +577,10 @@ __global__ void __launch_bounds__(kThreads) prologue_bwd_kernel(RowArgs<T> a, Pl
           sm.st0[r * p.ldf + n] = dgate;
           sm.st1[r * p.ldf + n] = dproj;
           const T dg = fromf<T>(dgate), dp = fromf<T>(dproj);
-          sm.d[2 * h][r * p.lds + n0 + n] = dg;
-          sm.d[2 * h + 1][r * p.lds + n0 + n] = dp;
+          if (!p.d_global) {
+            sm.d[2 * h][r * p.lds + n0 + n] = dg;
+            sm.d[2 * h + 1][r * p.lds + n0 + n] = dp;
+          }
           if (row < p.N) {
             dg_g[row * C + n0 + n] = dg;
             dp_g[row * C + n0 + n] = dp;
@@ -583,7 +592,10 @@ __global__ void __launch_bounds__(kThreads) prologue_bwd_kernel(RowArgs<T> a, Pl
         __syncthreads();
       }
     }
-    back_project<T>(p, sm, sm.d, a.mat, 4);
+    T* dt[4];
+    for (int k = 0; k < 4; ++k)
+      dt[k] = p.d_global ? a.dpre + ((size_t)k * p.N + r0) * C : sm.d[k];
+    back_project<T>(p, sm, dt, p.d_global ? C : p.lds, a.mat, 4);
     ln_backward<T>(p, sm, a.x, r0, a.vec[0], sm.mu[0], sm.inv[0], a.out[0], sm.vacc, sm.vacc + C);
   }
   store_vec_partial(p, sm, a.vec_part);
@@ -1891,8 +1903,10 @@ __global__ void __launch_bounds__(kThreads) epilogue_bwd_kernel(RowArgs<T> a, Pl
         sm.st0[r * p.ldf + n] = dpre;
         sm.st1[r * p.ldf + n] = du;
         const T dpc = fromf<T>(dpre), duc = fromf<T>(du);
-        sm.d[0][r * p.lds + n0 + n] = dpc;
-        sm.d[1][r * p.lds + n0 + n] = duc;
+        if (!p.d_global) {
+          sm.d[0][r * p.lds + n0 + n] = dpc;
+          sm.d[1][r * p.lds + n0 + n] = duc;
+        }
         if (row < p.N) {
           dpre_g[row * C + n0 + n] = dpc;
           du_g[row * C + n0 + n] = duc;
@@ -1903,9 +1917,12 @@ __global__ void __launch_bounds__(kThreads) epilogue_bwd_kernel(RowArgs<T> a, Pl
       col_sums(sm.st1, p.ldf, nrows, p.TNK, sm.vacc + 5 * C + n0);
       __syncthreads();
     }
-    back_project<T>(p, sm, sm.d, a.mat, 1);
+    T* dt[2] = {sm.d[0], sm.d[1]};
+    if (p.d_global) dt[0] = dpre_g + r0 * C, dt[1] = du_g + r0 * C;
+    const int ldd = p.d_global ? C : p.lds;
+    back_project<T>(p, sm, dt, ldd, a.mat, 1);
     ln_backward<T>(p, sm, a.x, r0, a.vec[0], sm.mu[0], sm.inv[0], a.out[0], sm.vacc, sm.vacc + C);
-    back_project<T>(p, sm, sm.d + 1, a.mat + 1, 1);
+    back_project<T>(p, sm, dt + 1, ldd, a.mat + 1, 1);
     ln_backward<T>(p, sm, a.aux, r0, a.vec[3], sm.mu[1], sm.inv[1], a.out[1], sm.vacc + 3 * C,
                    sm.vacc + 4 * C);
   }
@@ -2181,11 +2198,20 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
   p.ldw = p.TNK + kPadT;
   p.ldf = p.TNK + kPadF;
   p.ldc = C + kPadF;
-  int TR = sizeof(T) == 2 ? 64 : 32;
-  for (; TR >= 16; TR /= 2) {
-    p.TR = TR;
-    p.smem = rows_smem<T>(p, kind);
-    if (p.smem <= kSmemLimit) break;
+  int TR = 0;
+  // A backward rows pass whose dpre tiles do not fit beside the rest (bf16
+  // C = 1024: four 16 x C tiles are 129 KiB) reads them back from the global
+  // dpre it writes anyway, through L2: each block reads only rows it wrote,
+  // after a barrier.  The last tile's rows past N read whatever follows them
+  // (the next dpre plane, or the wrappers' padding of 64 rows after the last,
+  // ops/tri_mul.py _DPRE_TAIL); those rows of dsrc are never used.
+  for (p.d_global = 0; p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
+    for (TR = sizeof(T) == 2 ? 64 : 32; TR >= 16; TR /= 2) {
+      p.TR = TR;
+      p.smem = rows_smem<T>(p, kind);
+      if (p.smem <= kSmemLimit) break;
+    }
+    if (TR >= 16) break;
   }
   if (TR < 16) return kErrUnsupportedC;
   int nsm = 0;

@@ -34,6 +34,7 @@ from protstruc_tpu_torch.models.trfold import TrFold, TrFoldConfig, _check_param
 from protstruc_tpu_torch.ops.histogram import distogram_bins
 from protstruc_tpu_torch.ops.metrics import lddt
 from protstruc_tpu_torch.ops.rigid import frame_apply, frame_compose, frame_invert, quat_to_rot
+from protstruc_tpu_torch.parallel.zero import mean_denominator
 
 __all__ = [
     "IPAConfig",
@@ -286,9 +287,9 @@ class FoldModel(nn.Module):
             onehot = F.one_hot(bins.long(), cfg.n_dist_bins).to(pair.dtype)
             pair = pair + self.recycle_dist_embed(onehot) + self.recycle_pair_ln(prev_pair)
             node = node + self.recycle_node_ln(prev_node)
-        node, pair = self.trunk.run_blocks(node, pair, mask)
+        node, pair, aux = self.trunk.run_blocks(node, pair, mask)
         out = self.trunk.heads(node, pair)
-        out["moe_aux_loss"] = torch.zeros((), dtype=torch.float32, device=node.device)
+        out["moe_aux_loss"] = aux
         out["pair_repr"] = pair
         out.update(self.structure(node, pair, mask))
         out["plddt_logits"] = self.plddt_head(out["node"])
@@ -323,9 +324,10 @@ def aligned_error(pred_frames, pred_ca, true_frames, true_ca) -> torch.Tensor:
     return torch.sqrt(d2 + 1e-8)
 
 
-def confidence_losses(out, true_frames, true_ca, mask) -> torch.Tensor:
+def confidence_losses(out, true_frames, true_ca, mask, count_group=None) -> torch.Tensor:
     """CE of the pLDDT and PAE heads against the model's own (detached)
-    per-residue lDDT and per-pair aligned error."""
+    per-residue lDDT and per-pair aligned error (``count_group``: see
+    :func:`fold_loss_fn`)."""
     pred_ca = out["xyz"][:, :, 1].detach()
     pred_frames = tuple(x.detach() for x in out["frames"])
 
@@ -333,22 +335,23 @@ def confidence_losses(out, true_frames, true_ca, mask) -> torch.Tensor:
     bins = torch.clamp((true_per_res * PLDDT_BINS).to(torch.int32), 0, PLDDT_BINS - 1)
     logp = torch.log_softmax(out["plddt_logits"], -1)
     ce = -torch.gather(logp, -1, bins[..., None].long())[..., 0]
-    ce_plddt = torch.where(mask, ce, 0.0).sum() / torch.clamp_min(mask.sum(), 1.0)
+    ce_plddt = torch.where(mask, ce, 0.0).sum() / mean_denominator(mask.sum(), count_group)
 
     err = aligned_error(pred_frames, pred_ca, true_frames, true_ca)
     ebins = torch.clamp((err / (PAE_MAX / PAE_BINS)).to(torch.int32), 0, PAE_BINS - 1)
     logp = torch.log_softmax(out["pae_logits"], -1)
     ce = -torch.gather(logp, -1, ebins[..., None].long())[..., 0]
     pm = mask[:, :, None] & mask[:, None, :]
-    ce_pae = torch.where(pm, ce, 0.0).sum() / torch.clamp_min(pm.sum(), 1.0)
+    ce_pae = torch.where(pm, ce, 0.0).sum() / mean_denominator(pm.sum(), count_group)
     return ce_plddt + ce_pae
 
 
 def fape_loss(pred_frames, pred_xyz, true_frames, true_xyz, mask, clamp: float = 10.0,
-              eps: float = 1e-8, unclamped_frac: float = 0.1) -> torch.Tensor:
+              eps: float = 1e-8, unclamped_frac: float = 0.1, count_group=None) -> torch.Tensor:
     """Frame-aligned point error (AF2 eq. 28): every atom of ``(B, L, A, 3)``
     in every residue's frame, clamped at ``clamp`` with an ``unclamped_frac``
-    share unclamped, masked by ``mask (B, L)`` on both axes."""
+    share unclamped, masked by ``mask (B, L)`` on both axes (``count_group``:
+    see :func:`fold_loss_fn`)."""
     B, L, A, _ = pred_xyz.shape
     lp = _local(pred_frames, pred_xyz.reshape(B, L * A, 3))
     lt = _local(true_frames, true_xyz.reshape(B, L * A, 3))
@@ -360,10 +363,10 @@ def fape_loss(pred_frames, pred_xyz, true_frames, true_xyz, mask, clamp: float =
         d_cl = (1.0 - unclamped_frac) * d_cl + unclamped_frac * (d / clamp)
     atom_mask = mask.repeat_interleave(A, dim=1)
     w = (mask[:, :, None] & atom_mask[:, None, :]).to(d_cl.dtype)
-    return (d_cl * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return (d_cl * w).sum() / mean_denominator(w.sum(), count_group)
 
 
-def _trunk_losses(out, feats, cfg) -> torch.Tensor:
+def _trunk_losses(out, feats, cfg, count_group=None) -> torch.Tensor:
     """Distogram CE + torsion sin/cos MSE (+ the MoE term) on ``out``."""
     if "d_cb_bins" in feats:
         target_bins = feats["d_cb_bins"]
@@ -372,30 +375,35 @@ def _trunk_losses(out, feats, cfg) -> torch.Tensor:
     logp = torch.log_softmax(out["distogram_logits"], dim=-1)
     ce = -torch.gather(logp, -1, target_bins[..., None].long())[..., 0]
     pm = feats["pair_mask"]
-    ce = torch.where(pm, ce, 0.0).sum() / torch.clamp_min(pm.sum(), 1.0)
+    ce = torch.where(pm, ce, 0.0).sum() / mean_denominator(pm.sum(), count_group)
     tors = feats["torsions"]
     target_sc = torch.stack([torch.sin(tors), torch.cos(tors)], dim=-1)
     tm = feats["torsion_mask"][..., None]
     mse = torch.where(tm, (out["torsion_sincos"] - target_sc) ** 2, 0.0).sum()
-    mse = mse / torch.clamp_min(tm.sum(), 1.0)
+    mse = mse / mean_denominator(tm.sum(), count_group)
     return ce + mse + cfg.moe_aux_weight * out["moe_aux_loss"]
 
 
 def fold_loss_fn(params, model: FoldModel, feats: Dict[str, torch.Tensor],
                  batch_xyz: torch.Tensor, fape_weight: float = 1.0,
-                 target_feats: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                 target_feats: Optional[Dict[str, torch.Tensor]] = None,
+                 count_group=None) -> torch.Tensor:
     """Trunk losses + trajectory-averaged backbone FAPE + 0.01 x confidence CE.
 
     ``params`` are the model's own parameters (read through the module);
     ``batch_xyz (B, L, A>=3, 3)`` is the ground truth, NaN at missing atoms
     (residues missing a backbone atom leave the FAPE mask);
     ``target_feats`` supervise the trunk heads when ``feats`` are not the
-    native structure's (sequence-only training).
+    native structure's (sequence-only training);
+    ``count_group``: a data-parallel process group whose ranks hold the
+    other shards of the batch, over which every masked mean's count is
+    summed (``parallel/zero.mean_denominator``), or None for this batch
+    alone.
     """
     _check_params(params, model)
     out = model(feats)
     trunk_loss = _trunk_losses(out, feats if target_feats is None else target_feats,
-                               model.trunk_cfg)
+                               model.trunk_cfg, count_group)
 
     bb = batch_xyz[:, :, :3]
     bb_ok = torch.isfinite(bb).all(-1).all(-1) & feats["residue_mask"]
@@ -408,9 +416,9 @@ def fold_loss_fn(params, model: FoldModel, feats: Dict[str, torch.Tensor],
     traj_r, traj_t = out["traj"]
     fape = torch.stack([
         fape_loss((r_i, t_i), backbone_xyz_from_frames(r_i, t_i, include_cb=False),
-                  (true_r, true_t), bb, bb_ok)
+                  (true_r, true_t), bb, bb_ok, count_group=count_group)
         for r_i, t_i in zip(traj_r, traj_t)]).mean()
 
-    conf = confidence_losses(out, (true_r, true_t), bb[:, :, 1], bb_ok)
+    conf = confidence_losses(out, (true_r, true_t), bb[:, :, 1], bb_ok, count_group)
     return trunk_loss + fape_weight * fape + 0.01 * conf
 

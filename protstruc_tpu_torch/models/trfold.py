@@ -20,7 +20,18 @@ With ``fused_tri=True`` each triangle update runs through the K4-K7 kernels
 (``ops/tri_mul.py``) on CUDA tensors, and through their plain versions on CPU
 tensors; the unfused module computes the same update from the same params in
 plain PyTorch.  ``remat=True`` checkpoints each block
-(``torch.utils.checkpoint``, non-reentrant).
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="none"`` saves
+nothing of the block, ``"tri_dots"`` saves the two triangle contractions
+(selective checkpointing: the ``bmm`` issued inside ``ops.tri_mul.tri_prod``,
+the JAX package's ``checkpoint_name("tri_prod")``), ``"dots"`` saves every
+product without batch dims (``mm``: the Dense layers; JAX's
+``dots_with_no_batch_dims_saveable``).  Values and the parameter tree are the
+same under every policy.
+
+``moe_experts > 0`` replaces each block's MLP by a top-1 routed
+mixture of experts (``models/moe.py``) whose load-balancing loss the forward
+sums into ``moe_aux_loss``.  :func:`pipeline_apply` runs the blocks as GPipe
+stages over a ``pp`` process group (``parallel/pipeline.py``).
 
 ``use_flash_attn=True`` runs the node attention through the K8/K9 kernels
 (``ops/flash_attn.py``), and ``featurize_for_model(fused=True)`` the
@@ -34,26 +45,30 @@ epsilon-prediction model over noisy CA coordinates, and
 (distogram expectation, ``ops/reconstruct.py``, ``ops/idealize.py``).
 
 Not ported yet (constructing a model that needs them raises
-``NotImplementedError``): ``remat_policy`` other than ``"none"``, MoE blocks,
-ring attention, ``pipeline_apply`` and the sharding rules.
+``NotImplementedError``): ring attention inside the model (``ring_mesh``)
+and the sharding rules (``param_shardings``); ``ops/ring_attn.py`` is the
+ring itself.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from protstruc_tpu_torch.batch import resolve_device
 from protstruc_tpu_torch.models._nn import Dense, Embed, LayerNorm, gelu, lecun_normal_
 from protstruc_tpu_torch.ops.flash_attn import flash_pair_bias_attention
 from protstruc_tpu_torch.ops.histogram import distogram_bins
 from protstruc_tpu_torch.ops.model_features import model_inputs
-from protstruc_tpu_torch.ops.tri_mul import fused_triangle_multiplication
+from protstruc_tpu_torch.ops.tri_mul import fused_triangle_multiplication, in_tri_prod, tri_prod
+from protstruc_tpu_torch.parallel.zero import mean_denominator
 
 __all__ = [
     "TrFoldConfig",
@@ -66,6 +81,7 @@ __all__ = [
     "featurize_from_sequence",
     "DiffusionDenoiser",
     "predict_structure",
+    "pipeline_apply",
 ]
 
 
@@ -96,14 +112,11 @@ class TrFoldConfig:
 
 def _check_ported(cfg: TrFoldConfig) -> None:
     """Raise for the options whose code is not ported yet."""
-    if cfg.remat_policy in ("tri_dots", "dots"):
-        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is not yet ported")
-    if cfg.remat_policy != "none":
+    if cfg.remat_policy not in _REMAT_POLICIES:
         raise ValueError(f"remat_policy must be 'none', 'tri_dots' or 'dots', got {cfg.remat_policy!r}")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("MoE blocks (moe_experts > 0) are not yet ported")
     if cfg.ring_mesh is not None:
-        raise NotImplementedError("ring attention (ring_mesh) is not yet ported")
+        raise NotImplementedError("ring attention inside TrFold (ring_mesh) is not yet ported "
+                                  "(ROADMAP A.8); ops/ring_attn.py is the ring itself")
     if cfg.pair_update not in ("gated_mix", "triangle"):
         raise ValueError(f"pair_update must be 'gated_mix' or 'triangle', got {cfg.pair_update!r}")
 
@@ -341,14 +354,14 @@ class TriangleMultiplication(nn.Module):
         m = (mask[:, :, None] & mask[:, None, :]).to(dt)[..., None]
         a = torch.sigmoid(self.a_gate(src)) * self.a_proj(src) * m
         b = torch.sigmoid(self.b_gate(src)) * self.b_proj(src) * m
-        eq = "bikc,bjkc->bijc" if self.outgoing else "bkic,bkjc->bijc"
-        prod = torch.einsum(eq, a, b)
+        prod = tri_prod(a, b, self.outgoing)
         g = torch.sigmoid(self.out_gate(src))
         return g * self.out_proj(self.ln_out(prod))
 
 
 class TrFoldBlock(nn.Module):
-    """Attention + MLP on the node stream, then the pair update."""
+    """Attention + MLP (or MoE) on the node stream, then the pair update;
+    returns ``(node, pair, moe_aux)``."""
 
     def __init__(self, cfg: TrFoldConfig, device="cuda"):
         super().__init__()
@@ -358,8 +371,13 @@ class TrFoldBlock(nn.Module):
         self.LayerNorm_0 = LayerNorm(D, dt, device)  # attention input
         self.attn = PairBiasAttention(cfg, device)
         self.LayerNorm_1 = LayerNorm(D, dt, device)  # MLP input
-        self.mlp_in = Dense(D, 4 * D, dt, device)
-        self.mlp_out = Dense(4 * D, D, dt, device)
+        if cfg.moe_experts > 0:
+            from protstruc_tpu_torch.models.moe import MoEMLP
+
+            self.moe = MoEMLP(D, cfg.moe_experts, 4 * D, device=device)
+        else:
+            self.mlp_in = Dense(D, 4 * D, dt, device)
+            self.mlp_out = Dense(4 * D, D, dt, device)
         if cfg.pair_update == "triangle":
             self.outer_a = Dense(D, P, dt, device)
             self.outer_b = Dense(D, P, dt, device)
@@ -370,7 +388,13 @@ class TrFoldBlock(nn.Module):
 
     def forward(self, node, pair, mask):
         node = node + self.attn(self.LayerNorm_0(node), pair, mask)
-        node = node + self.mlp_out(gelu(self.mlp_in(self.LayerNorm_1(node))))
+        mlp_in = self.LayerNorm_1(node)
+        if self.cfg.moe_experts > 0:
+            mlp, aux = self.moe(mlp_in, mask)
+        else:
+            mlp = self.mlp_out(gelu(self.mlp_in(mlp_in)))
+            aux = torch.zeros((), dtype=torch.float32, device=node.device)
+        node = node + mlp
         if self.cfg.pair_update == "triangle":
             a, b = self.outer_a(node), self.outer_b(node)
             pair = pair + a[:, :, None, :] * b[:, None, :, :]
@@ -378,7 +402,7 @@ class TrFoldBlock(nn.Module):
             pair = pair + self.tri_in(pair, mask)
         else:
             pair = self.pair_update(node, pair, mask)
-        return node, pair
+        return node, pair, aux
 
 
 _CHI_NEEDS_FLAG = "chi features need TrFold(chi=True)"
@@ -479,20 +503,56 @@ class TrFold(nn.Module):
 
     def run_blocks(self, node, pair, mask):
         """The blocks in order, each checkpointed under ``cfg.remat`` while
-        gradients are on."""
+        gradients are on; returns ``(node, pair, summed moe_aux)``."""
+        aux = torch.zeros((), dtype=torch.float32, device=node.device)
         for block in self.blocks:
-            if self.cfg.remat and torch.is_grad_enabled():
-                node, pair = checkpoint(block, node, pair, mask, use_reentrant=False)
-            else:
-                node, pair = block(node, pair, mask)
-        return node, pair
+            node, pair, a = run_block(block, self.cfg, node, pair, mask)
+            aux = aux + a
+        return node, pair, aux
 
     def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mask = feats["residue_mask"]
-        node, pair = self.run_blocks(*self.embed(feats), mask)
+        node, pair, aux = self.run_blocks(*self.embed(feats), mask)
         out = self.heads(node, pair)
-        out["moe_aux_loss"] = torch.zeros((), dtype=torch.float32, device=node.device)
+        out["moe_aux_loss"] = aux
         return out
+
+
+#: products without batch dims: the Dense layers (``dots`` saves them)
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _policy_fn(policy: str, ctx, func, *args, **kwargs):
+    """Keep the output of aten op ``func`` for the backward (``MUST_SAVE``)
+    or recompute it: ``tri_dots`` keeps the ``bmm`` of ``tri_prod``, ``dots``
+    every product without batch dims."""
+    if policy == "tri_dots":
+        save = func is torch.ops.aten.bmm.default and in_tri_prod()
+    else:
+        save = func in _MM_OPS
+    return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: remat_policy -> the selective-checkpoint context of a block (None: save
+#: nothing, recompute the whole block)
+_REMAT_POLICIES = {
+    "none": None,
+    "tri_dots": functools.partial(create_selective_checkpoint_contexts,
+                                  functools.partial(_policy_fn, "tri_dots")),
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              functools.partial(_policy_fn, "dots")),
+}
+
+
+def run_block(block, cfg: TrFoldConfig, node, pair, mask):
+    """One block, checkpointed under ``cfg.remat`` (with ``cfg.remat_policy``)
+    while gradients are on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return block(node, pair, mask)
+    context = _REMAT_POLICIES[cfg.remat_policy]
+    if context is None:
+        return checkpoint(block, node, pair, mask, use_reentrant=False)
+    return checkpoint(block, node, pair, mask, use_reentrant=False, context_fn=context)
 
 
 # ---------------------------------------------------------------------------
@@ -508,12 +568,14 @@ def _check_params(params: Dict[str, torch.Tensor], model: TrFold) -> None:
 
 
 def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
-            feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+            feats: Dict[str, torch.Tensor], count_group=None) -> torch.Tensor:
     """Masked distogram cross-entropy + torsion sin/cos MSE + the three
     inter-residue angle MSEs (targets from the featurization itself).
 
     ``params`` are the model's own parameters; the forward reads them through
-    the module.
+    the module.  ``count_group``: a data-parallel process group whose ranks
+    hold the other shards of the batch, over which every masked mean's count
+    is summed (``parallel/zero.mean_denominator``), or None.
     """
     _check_params(params, model)
     out = model(feats)
@@ -525,13 +587,13 @@ def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
     logp = torch.log_softmax(out["distogram_logits"], dim=-1)
     ce = -torch.gather(logp, -1, target_bins[..., None].long())[..., 0]
     pm = feats["pair_mask"]
-    ce = torch.where(pm, ce, 0.0).sum() / torch.clamp_min(pm.sum(), 1.0)
+    ce = torch.where(pm, ce, 0.0).sum() / mean_denominator(pm.sum(), count_group)
 
     tors = feats["torsions"]
     target_sc = torch.stack([torch.sin(tors), torch.cos(tors)], dim=-1)
     tm = feats["torsion_mask"][..., None]
     mse = torch.where(tm, (out["torsion_sincos"] - target_sc) ** 2, 0.0).sum()
-    mse = mse / torch.clamp_min(tm.sum(), 1.0)
+    mse = mse / mean_denominator(tm.sum(), count_group)
 
     pair_loss = 0.0
     for i, key in enumerate(("omega", "theta", "phi")):
@@ -545,8 +607,61 @@ def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
             t = torch.nan_to_num(tgt, nan=0.0)
             sc = torch.stack([torch.sin(t), torch.cos(t)], dim=-1)
         err = torch.where(ok[..., None], (out[f"{key}_sincos"] - sc) ** 2, 0.0)
-        pair_loss = pair_loss + err.sum() / torch.clamp_min(ok.sum(), 1.0)
+        pair_loss = pair_loss + err.sum() / mean_denominator(ok.sum(), count_group)
     return ce + mse + pair_loss + cfg.moe_aux_weight * out["moe_aux_loss"]
+
+
+def pipeline_apply(params, model: TrFold, feats: Dict[str, torch.Tensor], mesh,
+                   n_microbatches: int = None) -> Dict[str, torch.Tensor]:
+    """The forward of ``model`` with its blocks as GPipe stages over the
+    ``pp`` dim of ``mesh`` (a ``DeviceMesh``, ``parallel.mesh.make_mesh(...,
+    axis_names=("pp",))``): embeddings and heads run on every rank, block d
+    on rank d (``parallel.pipeline.pipeline_forward``), the batch split into
+    ``n_microbatches`` (default ``min(pp, B)``).  The outputs are replicated
+    on every rank and equal ``model(feats)`` (same blocks, same order; the
+    blocks run without remat here, as in the JAX package).
+
+    Requires ``n_blocks == pp``, ``B`` divisible by the microbatch count and
+    dense blocks (the MoE aux loss cannot travel with the activations).
+    Block d's parameters get their gradients on rank d, the embeddings' on
+    rank 0 and the heads' on every rank.
+    """
+    from protstruc_tpu_torch.parallel.mesh import mesh_coords
+    from protstruc_tpu_torch.parallel.pipeline import pipeline_forward, stack_stage_params
+
+    _check_params(params, model)
+    cfg = model.cfg
+    _, S = mesh_coords(mesh, "pp")
+    if cfg.n_blocks != S:
+        raise ValueError(f"n_blocks {cfg.n_blocks} != pp axis size {S}")
+    if cfg.moe_experts > 0:
+        raise ValueError("pipeline_apply supports dense blocks only")
+    B = feats["seq_idx"].shape[0]
+    M = n_microbatches or min(S, B)
+    if B % M:
+        raise ValueError(f"batch {B} not divisible into {M} microbatches")
+
+    node, pair = model.embed(feats)
+    mask = feats["residue_mask"]
+    blocks = model.blocks
+    stages = stack_stage_params([dict(b.named_parameters()) for b in blocks])
+    template = blocks[0]
+
+    def stage_fn(p, act):
+        n, pr, _ = torch.func.functional_call(template, p, (act["node"], act["pair"],
+                                                            act["mask"] > 0.5))
+        return {"node": n, "pair": pr, "mask": act["mask"]}
+
+    def mb(x):  # (B, ...) -> (M, B/M, ...)
+        return x.reshape((M, B // M) + tuple(x.shape[1:]))
+
+    acts = {"node": mb(node), "pair": mb(pair), "mask": mb(mask.to(node.dtype))}
+    group = mesh.get_group("pp") if S > 1 else None
+    out = pipeline_forward(stage_fn, stages, acts, group)
+    result = model.heads(out["node"].reshape((B,) + tuple(node.shape[1:])),
+                         out["pair"].reshape((B,) + tuple(pair.shape[1:])))
+    result["moe_aux_loss"] = torch.zeros((), dtype=torch.float32, device=node.device)
+    return result
 
 
 def make_train_state(model: TrFold, feats: Dict[str, torch.Tensor], generator: torch.Generator,

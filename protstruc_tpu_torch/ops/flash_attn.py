@@ -24,8 +24,14 @@ to the value dtype before ``p v``.
 Layouts: ``q, k, v`` are ``(B, L, H, dh)`` and may be strided views (the
 kernels read them through their strides, so the three can be slices of one
 ``qkv`` projection); ``bias`` is ``(B, H, L, L)`` through any strides (the
-pair-bias Dense's ``(B, L, L, H)`` output permuted, read in place) and ``ds``
-comes back with the bias's strides.  The kernels mask ragged L themselves:
+pair-bias Dense's ``(B, L, L, H)`` output permuted, or a column block of a
+wider bias, read in place) and ``ds`` comes back with the bias's strides,
+which K9 takes only for a dense layout.
+
+:func:`flash_pair_bias_attention_lse` is the second entry point over the same
+two kernels: it also returns the logsumexp (``-inf`` on a row with no allowed
+key), differentiable for cotangents of both outputs; ring attention
+(``ops/ring_attn.py``) merges its partial results.  The kernels mask ragged L themselves:
 the wrapper pads and copies nothing.
 
 The wrappers :func:`flash_fwd` and :func:`flash_bwd` dispatch on the tensor's
@@ -44,8 +50,9 @@ import torch
 
 from protstruc_tpu_torch.ops import cuda_lib
 
-__all__ = ["flash_pair_bias_attention", "pair_bias_attention_reference", "flash_fwd",
-           "flash_bwd", "dq_from_ds", "load_library", "library_path", "LAUNCHES"]
+__all__ = ["flash_pair_bias_attention", "flash_pair_bias_attention_lse",
+           "pair_bias_attention_reference", "flash_fwd", "flash_bwd", "dq_from_ds",
+           "load_library", "library_path", "LAUNCHES"]
 
 _SOURCES = ("flash_attn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -257,19 +264,37 @@ def dq_from_ds(ds, k):
 
 
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias, kmask):
-        out, lse = flash_fwd(q, k, v, bias, kmask)
-        ctx.save_for_backward(q, k, v, bias, kmask, out, lse)
-        return out
+    """K8 forward returning ``(out, pinned lse)``, K9 backward for cotangents
+    of either or both (the JAX package's ``_flash_core`` and
+    ``_flash_core_lse``)."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(ctx, q, k, v, bias, kmask):
+        ctx.set_materialize_grads(False)
+        out, lse = flash_fwd(q, k, v, bias, kmask)
+        # K9 reads the pinned lse (+1e30), so p is exactly 0 on a row with no
+        # allowed key
+        ctx.save_for_backward(q, k, v, bias, kmask, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
         q, k, v, bias, kmask, out, lse = ctx.saved_tensors
-        g = g.contiguous()
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        g_out = g_out.contiguous()
         # delta_i = sum_d dO_id * O_id, (B, H, L)
-        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-        ds, dk, dv = flash_bwd(q, k, v, bias, kmask, g, lse, delta)
+        delta = (g_out.float() * out.float()).sum(-1).permute(0, 2, 1)
+        if g_lse is not None:
+            # d lse_i / d s_ij = p_ij and K9 forms ds = p (dp - delta): folding
+            # the lse cotangent into delta adds g_lse p exactly.  p is 0 on the
+            # pinned rows, so a non-finite cotangent there is set to 0
+            delta = delta - torch.nan_to_num(g_lse.float(), nan=0.0, posinf=0.0, neginf=0.0)
+        if torch.empty_like(bias).stride() != bias.stride():
+            # a column block of a wider bias (the ring's): K8 read it in place,
+            # K9 writes ds with its strides and so takes a dense copy
+            bias = bias.contiguous()
+        ds, dk, dv = flash_bwd(q, k, v, bias, kmask, g_out, lse, delta.contiguous())
         return dq_from_ds(ds, k), dk, dv, ds, None
 
 
@@ -281,4 +306,26 @@ def flash_pair_bias_attention(q, k, v, bias, kmask):
     strides; kmask: ``(B, L)`` bool.  Returns ``(B, L, H, dh)`` in q's dtype,
     differentiable in q, k, v and bias through K9.
     """
-    return _FlashAttention.apply(q, k, v, bias, kmask)
+    return _FlashAttention.apply(q, k, v, bias, kmask)[0]
+
+
+def flash_pair_bias_attention_lse(q, k, v, bias, kmask):
+    """:func:`flash_pair_bias_attention` that also returns the per-row
+    logsumexp: ``(out (B, L, H, dh) in q's dtype, lse (B, H, L) float32)``,
+    ``lse = -inf`` on a query row with no allowed key.
+
+    ``(out, lse)`` is the mergeable form of blockwise attention: two results
+    over disjoint key sets combine as ``lse = logaddexp(lse_a, lse_b)``,
+    ``out = exp(lse_a - lse) out_a + exp(lse_b - lse) out_b``
+    (``ops/ring_attn.py``).  Differentiable in q, k, v and bias for
+    cotangents of either or both outputs (a ``None`` cotangent counts as 0).
+    The same autograd Function, and so the same K8 and K9 launches, as
+    :func:`flash_pair_bias_attention`.  The bias
+    may be a column block of a wider bias: K8 reads it in place, the
+    backward hands K9 a dense copy of it (K9 writes ``ds`` with the bias's
+    strides, which must be a dense layout).
+    """
+    out, lse = _FlashAttention.apply(q, k, v, bias, kmask)
+    # the caller sees -inf on a row with no allowed key, the merge's empty
+    # element; where() passes no cotangent to those rows
+    return out, torch.where(lse >= LSE_MASKED, -math.inf, lse)

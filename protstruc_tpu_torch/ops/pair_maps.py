@@ -16,7 +16,10 @@ tensor takes the plain versions :func:`_pair_maps_plain` and
 :func:`_maps_bwd_plain`, the same functions written in plain PyTorch (same
 formulas and order of operations, same equality-based pinning and guards,
 same NaN rules).  :func:`pairwise_maps_forward` is the forward alone, in
-f32 or, as ``pairwise_maps_pallas(out_dtype=bfloat16)``, bf16 planes.
+f32 or, as ``pairwise_maps_pallas(out_dtype=bfloat16)``, bf16 planes, and
+with ``xyz_j`` the rectangular block (rows from ``xyz``, columns from
+``xyz_j``, as ``pairwise_maps_pallas(xyz_j=...)``: sequence-parallel
+featurization, ``parallel/mesh.featurize_sharded``), forward only.
 
 K1 and K3 (``ops/model_features.py``) share one tile skeleton
 (``csrc/pair_maps.cuh``); :func:`tile_plan` lays out the walk that their
@@ -37,7 +40,7 @@ from protstruc_tpu_torch.vocab import ATOM
 
 __all__ = ["MAP_NAMES", "pairwise_maps", "pairwise_maps_forward", "maps_bwd", "trrosetta_features",
            "load_library", "load_bwd_library", "bwd_library_path", "tile_plan", "bwd_plan",
-           "TilePlan", "LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES"]
+           "TilePlan", "LAUNCHES", "BF16_LAUNCHES", "RECT_LAUNCHES", "BWD_LAUNCHES"]
 
 #: The six maps, in the order of the kernel's bitmask.
 MAP_NAMES = ("d_ca", "d_cb", "d_no", "omega", "theta", "phi")
@@ -49,6 +52,9 @@ _BWD_SOURCES = ("pair_maps_bwd.cu",)
 LAUNCHES = 0
 #: K1 launches with bf16 planes (``pairwise_maps_forward(out_dtype=bfloat16)``).
 BF16_LAUNCHES = 0
+#: K1 launches of the rectangular mode (``pairwise_maps_forward(xyz_j=...)``),
+#: f32 and bf16 planes alike.
+RECT_LAUNCHES = 0
 #: K2 launches made by :func:`maps_bwd` (the backward of :func:`pairwise_maps`).
 BWD_LAUNCHES = 0
 
@@ -63,7 +69,8 @@ _MAX_GRID = 2**31 - 1     # blocks a launch may have along x
 
 
 class TilePlan(NamedTuple):
-    """The walk K1, K2 and K3 take over ``(B, L, L)``: tiles of ``tile_i``
+    """The walk K1, K2 and K3 take over ``(B, L, Lj)`` (``Lj = L`` but in
+    K1's rectangular mode, where ``L`` counts the rows): tiles of ``tile_i``
     rows by ``tile_j`` columns of one batch entry, numbered ``t = (b *
     tiles_i + ti) * tiles_j + tj``; block ``k`` of ``grid`` takes ``t = k, k
     + grid, ...``, and warp ``w`` of a block the rows ``w, w + warps, ...``
@@ -85,6 +92,7 @@ class TilePlan(NamedTuple):
     n_tiles: int
     grid: int
     vector: bool
+    Lj: int
 
 
 class _PlanC(ctypes.Structure):
@@ -94,16 +102,19 @@ class _PlanC(ctypes.Structure):
                 ("pairs_j", "tile_j", "tile_i", "warps", "tiles_j", "tiles_i", "grid", "vector")]
 
 
-def tile_plan(B: int, L: int) -> TilePlan:
-    """The walk K1 and K3 launch for ``xyz (B, L, ...)``: one block a tile
-    (up to the grid's limit, past which a block walks several), vector
-    stores when ``L`` is a multiple of ``pairs_j`` (every row then starts
-    on a multiple of 4 elements and every run is whole)."""
+def tile_plan(B: int, L: int, Lj: Optional[int] = None) -> TilePlan:
+    """The walk K1 and K3 launch for ``xyz (B, L, ...)`` (and, in K1's
+    rectangular mode, columns ``xyz_j (B, Lj, ...)``): one block a tile (up
+    to the grid's limit, past which a block walks several), ``tiles_i`` from
+    the rows, ``tiles_j`` from the columns, vector stores when ``Lj`` is a
+    multiple of ``pairs_j`` (every row then starts on a multiple of 4
+    elements and every run is whole)."""
+    Lj = L if Lj is None else Lj
     pairs_j, tile_j, tile_i, warps = PAIR_TILE
-    tiles_j, tiles_i = -(-L // tile_j), -(-L // tile_i)
+    tiles_j, tiles_i = -(-Lj // tile_j), -(-L // tile_i)
     n_tiles = B * tiles_i * tiles_j
     return TilePlan(B, L, pairs_j, tile_j, tile_i, warps, tiles_j, tiles_i, n_tiles,
-                    min(n_tiles, _MAX_GRID), L % pairs_j == 0)
+                    min(n_tiles, _MAX_GRID), Lj % pairs_j == 0, Lj)
 
 
 def bwd_plan(B: int, L: int) -> TilePlan:
@@ -148,6 +159,11 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 6 + [_PlanC, ctypes.c_void_p])
+    # device, bf16, xyz, xyz_j, B, Li, Lj, A, mask, six planes, plan, stream
+    lib.ps_pair_maps_rect.restype = ctypes.c_int
+    lib.ps_pair_maps_rect.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+                                      + [_PlanC, ctypes.c_void_p])
     return lib
 
 
@@ -194,8 +210,8 @@ class _PairMaps(torch.autograd.Function):
         return maps_bwd(xyz, dict(zip(ctx.maps, grads))), None
 
 
-def pairwise_maps(xyz: torch.Tensor,
-                  maps: Sequence[str] = MAP_NAMES) -> Dict[str, torch.Tensor]:
+def pairwise_maps(xyz: torch.Tensor, maps: Sequence[str] = MAP_NAMES,
+                  xyz_j: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The requested trRosetta maps of ``xyz (B, L, A, 3)``, each ``(B, L, L)`` f32.
 
     Differentiable in ``xyz``.  A CUDA tensor goes to the K1 kernel forward
@@ -203,25 +219,37 @@ def pairwise_maps(xyz: torch.Tensor,
     Gradients at NaN coordinates are NaN, as in the JAX package (the
     cotangent of a missing pair is 0, and 0 times NaN is NaN): mask or
     replace missing atoms upstream where a finite gradient is needed.
+    The rectangular mode (``xyz_j``) is forward only, as in the JAX package:
+    use :func:`pairwise_maps_forward`; passing ``xyz_j`` here raises.
     """
+    if xyz_j is not None:
+        raise ValueError("the rectangular mode (xyz_j) is forward only: K2 takes square maps; "
+                         "use pairwise_maps_forward(xyz, maps, xyz_j=...)")
     maps = _check_maps(maps)
     return dict(zip(maps, _PairMaps.apply(xyz, maps)))
 
 
 def pairwise_maps_forward(xyz: torch.Tensor, maps: Sequence[str] = MAP_NAMES,
-                          out_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+                          out_dtype: torch.dtype = torch.float32,
+                          xyz_j: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The requested maps of ``xyz (B, L, A, 3)``, each ``(B, L, L)`` of
     ``out_dtype`` (float32 or bfloat16: computed in f32, rounded once to
     nearest even), with no gradient: the counterpart of
-    ``pairwise_maps_pallas(out_dtype=...)``.  A CUDA tensor goes to K1, a CPU
+    ``pairwise_maps_pallas(out_dtype=..., xyz_j=...)``.  With ``xyz_j (B,
+    Lj, A, 3)`` the maps are the rectangular ``(B, L, Lj)`` block: residue i
+    from ``xyz``, residue j from ``xyz_j``.  A CUDA tensor goes to K1, a CPU
     tensor to ``_pair_maps_plain(...)`` cast to ``out_dtype``."""
     maps = _check_maps(maps)
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if xyz_j is not None and (xyz_j.device != xyz.device or xyz_j.shape[0] != xyz.shape[0]
+                              or xyz_j.shape[2:] != xyz.shape[2:]):
+        raise ValueError(f"xyz_j {tuple(xyz_j.shape)} on {xyz_j.device} does not pair with "
+                         f"xyz {tuple(xyz.shape)} on {xyz.device} (same B, A and device)")
     if xyz.device.type == "cuda":
-        return _pair_maps_cuda(xyz, maps, out_dtype)
+        return _pair_maps_cuda(xyz, maps, out_dtype, xyz_j)
     if xyz.device.type == "cpu":
-        return {k: v.to(out_dtype) for k, v in _pair_maps_plain(xyz, maps).items()}
+        return {k: v.to(out_dtype) for k, v in _pair_maps_plain(xyz, maps, xyz_j=xyz_j).items()}
     raise ValueError(f"pairwise_maps has no implementation for device {xyz.device}")
 
 
@@ -239,22 +267,34 @@ def maps_bwd(xyz: torch.Tensor,
 
 
 def _pair_maps_cuda(xyz: torch.Tensor, maps: Tuple[str, ...],
-                    out_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    global LAUNCHES, BF16_LAUNCHES
+                    out_dtype: torch.dtype = torch.float32,
+                    xyz_j: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    global LAUNCHES, BF16_LAUNCHES, RECT_LAUNCHES
     _check_xyz(xyz, "pair_maps")
     B, L, A, _ = xyz.shape
-    outs = {k: torch.empty((B, L, L), dtype=out_dtype, device=xyz.device) for k in maps}
-    if B == 0 or L == 0:
+    if xyz_j is not None:
+        _check_xyz(xyz_j, "pair_maps")
+    Lj = L if xyz_j is None else xyz_j.shape[1]
+    outs = {k: torch.empty((B, L, Lj), dtype=out_dtype, device=xyz.device) for k in maps}
+    if B == 0 or L == 0 or Lj == 0:
         return outs
     lib = load_library()
-    fn = lib.ps_pair_maps_f32 if out_dtype == torch.float32 else lib.ps_pair_maps_bf16
     bits = sum(1 << MAP_NAMES.index(k) for k in maps)
     ptrs = [outs[k].data_ptr() if k in outs else None for k in MAP_NAMES]
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = fn(xyz.device.index, xyz.data_ptr(), B, L, A, bits, *ptrs, plan_arg(tile_plan(B, L)), stream)
+    plan = plan_arg(tile_plan(B, L, Lj))
+    if xyz_j is not None:
+        err = lib.ps_pair_maps_rect(xyz.device.index, int(out_dtype == torch.bfloat16),
+                                    xyz.data_ptr(), xyz_j.data_ptr(), B, L, Lj, A, bits, *ptrs,
+                                    plan, stream)
+    else:
+        fn = lib.ps_pair_maps_f32 if out_dtype == torch.float32 else lib.ps_pair_maps_bf16
+        err = fn(xyz.device.index, xyz.data_ptr(), B, L, A, bits, *ptrs, plan, stream)
     if err != 0:
         raise launch_error("pair_maps", err)
-    if out_dtype == torch.float32:
+    if xyz_j is not None:
+        RECT_LAUNCHES += 1
+    elif out_dtype == torch.float32:
         LAUNCHES += 1
     else:
         BF16_LAUNCHES += 1
@@ -345,20 +385,24 @@ def _planar_angle(a, b, c, atan2=torch.atan2):
 
 
 def _pair_maps_plain(xyz: torch.Tensor, maps: Sequence[str] = MAP_NAMES,
-                     atan2=torch.atan2) -> Dict[str, torch.Tensor]:
+                     atan2=torch.atan2, xyz_j: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
     """K1 in plain PyTorch: the same maps, formulas, pinning and NaN rules.
 
     ``atan2`` is the roofline probes' seam (their polynomial atan2 variants,
-    ``experiments/kernel_probe.py``); K1 is ``torch.atan2``."""
+    ``experiments/kernel_probe.py``); K1 is ``torch.atan2``.  ``xyz_j (B, Lj,
+    A, 3)`` gives the rectangular ``(B, L, Lj)`` block, columns from it."""
     maps = _check_maps(maps)
     x = xyz.to(torch.float32)
+    xj = x if xyz_j is None else xyz_j.to(torch.float32)
     B, L = x.shape[:2]
+    Lj = xj.shape[1]
 
     def vi(slot):  # residue i -> (B, L, 1) planes
         return tuple(x[:, :, slot, k][:, :, None] for k in range(3))
 
-    def vj(slot):  # residue j -> (B, 1, L) planes
-        return tuple(x[:, :, slot, k][:, None, :] for k in range(3))
+    def vj(slot):  # residue j -> (B, 1, Lj) planes
+        return tuple(xj[:, :, slot, k][:, None, :] for k in range(3))
 
     n_i, ca_i, cb_i = vi(_N), vi(_CA), vi(_CB)
     ca_j, cb_j, o_j = vj(_CA), vj(_CB), vj(_O)
@@ -378,7 +422,7 @@ def _pair_maps_plain(xyz: torch.Tensor, maps: Sequence[str] = MAP_NAMES,
         out["theta"] = torch.where(deg, 0.0, _dihedral(n_i, ca_i, cb_i, cb_j, atan2))
     if "phi" in maps:
         out["phi"] = _planar_angle(ca_i, cb_i, cb_j, atan2)
-    return {k: out[k].expand(B, L, L).contiguous() for k in maps}
+    return {k: out[k].expand(B, L, Lj).contiguous() for k in maps}
 
 
 # ---------------------------------------------------------------------------

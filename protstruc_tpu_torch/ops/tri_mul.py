@@ -34,7 +34,7 @@ import torch
 
 from protstruc_tpu_torch.ops import cuda_lib
 
-__all__ = ["fused_triangle_multiplication", "prologue_fwd", "prologue_bwd",
+__all__ = ["fused_triangle_multiplication", "tri_prod", "in_tri_prod", "prologue_fwd", "prologue_bwd",
            "epilogue_fwd", "epilogue_bwd", "KERNELS", "LAUNCHES", "load_library",
            "library_path"]
 
@@ -253,6 +253,19 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+#: rows of padding after the last dpre plane: a streamed backward rows pass
+#: that reads its dpre tiles back from global memory (wide C) reads a whole
+#: last tile, up to 64 rows, past row N (csrc/tri_mul.cu make_plan)
+_DPRE_TAIL = 64
+
+
+def _dpre_buffer(planes, N, C, x):
+    """The backward's ``(planes, N, C)`` dpre, with ``_DPRE_TAIL`` rows of
+    padding after it."""
+    flat = torch.empty(((planes * N + _DPRE_TAIL) * C,), dtype=x.dtype, device=x.device)
+    return flat[:planes * N * C].view(planes, N, C)
+
+
 def _prologue_bwd_cuda(x, m, *rest):
     N, C = x.shape
     w, da, db = rest[:10], rest[10], rest[11]
@@ -265,7 +278,7 @@ def _prologue_bwd_cuda(x, m, *rest):
     dx = torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((4, C, C), dtype=x.dtype, device=x.device)
-    dpre = torch.empty((4, N, C), dtype=x.dtype, device=x.device)
+    dpre = _dpre_buffer(4, N, C, x)
     ws = torch.empty((work,), dtype=torch.float32, device=x.device)
     _launch("prologue_bwd", lib.ps_tri_prologue_bwd, x, x, m, *w, da, db,
             dx, dvec, dmat, dpre, ws)
@@ -295,7 +308,7 @@ def _epilogue_bwd_cuda(x, p, *rest):
     dx, dp = torch.empty_like(x), torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((2, C, C), dtype=x.dtype, device=x.device)
-    dpre = torch.empty((2, N, C), dtype=x.dtype, device=x.device)
+    dpre = _dpre_buffer(2, N, C, x)
     ws = torch.empty((work,), dtype=torch.float32, device=x.device)
     _launch("epilogue_bwd", lib.ps_tri_epilogue_bwd, x, x, p, *w, do,
             dx, dp, dvec, dmat, dpre, ws)
@@ -383,6 +396,32 @@ class _Epilogue(torch.autograd.Function):
         return epilogue_bwd(x, p, *weights, do.contiguous())
 
 
+_IN_TRI_PROD = 0
+
+
+def in_tri_prod() -> bool:
+    """Whether the caller is inside :func:`tri_prod` (``remat_policy="tri_dots"``
+    saves the batched product issued there)."""
+    return _IN_TRI_PROD > 0
+
+
+def tri_prod(a, b, outgoing: bool = True):
+    """The triangle contraction over the third residue, ``(B, L, L, C)``:
+    ``sum_k a_ik b_jk`` (outgoing) or ``sum_k a_ki b_kj`` (incoming), one
+    batched product over (b, c).  The JAX package names its output
+    ``tri_prod`` for its remat policy; here the product runs inside a named
+    scope that the ``tri_dots`` selective-checkpoint policy reads
+    (``models/trfold.py``), since a bare ``bmm`` is also what the attention
+    einsums issue."""
+    global _IN_TRI_PROD
+    eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
+    _IN_TRI_PROD += 1
+    try:
+        return torch.einsum(eq, a, b)
+    finally:
+        _IN_TRI_PROD -= 1
+
+
 def fused_triangle_multiplication(pair, mask, params, outgoing=True):
     """AF2 triangle multiplicative update through the fused kernels.
 
@@ -404,8 +443,7 @@ def fused_triangle_multiplication(pair, mask, params, outgoing=True):
                            *params["b_gate"], *params["b_proj"])
     a = a.view(B, L, L2, C)
     b = b.view(B, L, L2, C)
-    eq = "bikc,bjkc->bijc" if outgoing else "bkic,bkjc->bijc"
-    prod = torch.einsum(eq, a, b).reshape(N, C).contiguous()
+    prod = tri_prod(a, b, outgoing).reshape(N, C).contiguous()
     out = _Epilogue.apply(x, prod, ln_in_s, ln_in_b, *params["out_gate"],
                           *params["ln_out"], *params["out_proj"])
     return out.view(B, L, L2, C)

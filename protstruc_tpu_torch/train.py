@@ -23,7 +23,18 @@ without a card that default raises).  On the card ``load_fold_model`` keeps
 ``use_flash_attn`` and ``fused_tri`` as trained: the tensors' device decides
 between the kernels and their plain versions.
 
-Not ported: ``mesh_shape`` and ``zero1`` (raise ``NotImplementedError``).
+``mesh_shape=(dp, 1, 1)`` trains data-parallel over a process group of dp
+ranks (``parallel/mesh.init_distributed``: NCCL on cards, gloo on the CPU;
+under ``torchrun`` one rank a card): every rank draws the same global batch
+and crop, keeps its ``B / dp`` structures, divides its losses by the counts
+of the whole batch (``fold_loss_fn(count_group=)``) and sums the gradients, so
+a step equals the single-process step.  ``zero1`` gives each parameter's
+AdamW moments to one owner rank, which updates it and broadcasts it
+(``parallel/zero.py``); checkpoints hold the whole optimizer state in the
+single-process format.  Rank 0 alone writes ``metrics.jsonl``, checkpoints
+and evaluations; every rank resumes from the checkpoint.  Sequence and
+tensor parallelism (``sp > 1``, ``tp > 1``) are not ported yet (raise
+``NotImplementedError``).
 Checkpoints are ``torch.save`` files, not the JAX package's orbax ones;
 weights cross over through ``convert.foldmodel_params_from_flax``.
 """
@@ -108,9 +119,12 @@ def _check_ported(cfg: TrainConfig) -> None:
             "zero1=True requires mesh_shape: ZeRO-1 partitions optimizer state over the dp "
             "mesh axis — without a mesh it would be silently ignored")
     if cfg.mesh_shape is not None:
-        raise NotImplementedError("mesh_shape (device meshes) is not yet ported")
-    if cfg.zero1:
-        raise NotImplementedError("zero1 (ZeRO-1 optimizer sharding) is not yet ported")
+        if len(cfg.mesh_shape) != 3:
+            raise ValueError(f"mesh_shape must be (dp, sp, tp), got {cfg.mesh_shape}")
+        if cfg.mesh_shape[1] > 1 or cfg.mesh_shape[2] > 1:
+            raise NotImplementedError(
+                f"mesh_shape={tuple(cfg.mesh_shape)}: sequence (sp > 1) and tensor (tp > 1) "
+                "parallelism inside the model are not yet ported (ROADMAP A.8); use (dp, 1, 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -156,10 +170,20 @@ class TrainOptimizer:
     checkpoint holds.
     """
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig, dp_group=None):
         from protstruc_tpu_torch.models.trfold import adamw
+        from protstruc_tpu_torch.parallel.zero import zero1_owners
 
         self.params, self.cfg = params, cfg
+        # data parallelism: gradients summed over dp_group; with cfg.zero1
+        # each parameter's moments live on its owner rank alone
+        self.dp_group = dp_group
+        self.owners = None
+        if dp_group is not None and cfg.zero1:
+            import torch.distributed as dist
+
+            self.owners = zero1_owners(params, dist.get_world_size(dp_group))
+            self.rank = dist.get_rank(dp_group)
         self.schedule = learning_rate_schedule(cfg)
         self.adamw = adamw(list(params.values()), self.schedule(0))
         self.state = {
@@ -172,7 +196,18 @@ class TrainOptimizer:
         }
 
     def state_dict(self) -> dict:
-        return dict(self.state, adamw=self.adamw.state_dict())
+        """The state as a single-process run holds it; under ZeRO-1 a
+        collective (every rank calls it) that gathers the moments."""
+        sd = self.adamw.state_dict()
+        if self.owners is not None:
+            import torch.distributed as dist
+
+            parts = [None] * dist.get_world_size(self.dp_group)
+            mine = {i: {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in st.items()}
+                    for i, st in sd["state"].items()}
+            dist.all_gather_object(parts, mine, group=self.dp_group)
+            sd = dict(sd, state={i: st for part in parts for i, st in sorted(part.items())})
+        return dict(self.state, adamw=sd)
 
     def load_state_dict(self, state: dict) -> None:
         for key in ("count", "mini_step"):
@@ -185,6 +220,10 @@ class TrainOptimizer:
                     for k, t in self.state[key].items():
                         t.copy_(state[key][k])
         self.adamw.load_state_dict(state["adamw"])
+        if self.owners is not None:  # keep only the moments this rank owns
+            for k, p in self.params.items():
+                if self.owners[k] != self.rank:
+                    self.adamw.state.pop(p, None)
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -192,6 +231,10 @@ class TrainOptimizer:
         names = list(self.params)
         grads = [self.params[k].grad if self.params[k].grad is not None
                  else torch.zeros_like(self.params[k]) for k in names]
+        if self.dp_group is not None:
+            from protstruc_tpu_torch.parallel.zero import all_reduce_
+
+            all_reduce_(grads, self.dp_group)  # each rank's share of the global loss
         k_steps = self.cfg.accum_steps
         if k_steps > 1:
             acc = [self.state["acc"][k] for k in names]
@@ -216,13 +259,19 @@ class TrainOptimizer:
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         max_norm = self.cfg.grad_clip
         coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        for p, g in zip(params, torch._foreach_mul(grads, coef)):
-            p.grad = g  # every leaf, so AdamW decays and moves the moments of all
+        for k, p, g in zip(names, params, torch._foreach_mul(grads, coef)):
+            # every leaf, so AdamW decays and moves the moments of all; under
+            # ZeRO-1 only this rank's, the rest come from their owners
+            p.grad = g if self.owners is None or self.owners[k] == self.rank else None
 
         self.state["count"] += 1
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.state["count"] - 1)
         self.adamw.step()
+        if self.owners is not None:
+            from protstruc_tpu_torch.parallel.zero import broadcast_from_owners_
+
+            broadcast_from_owners_(self.params, self.owners, self.dp_group)
 
         if self.state["ema"] is not None:
             decay = self.cfg.ema_decay
@@ -254,10 +303,12 @@ def _model_device(model) -> torch.device:
 
 
 def _featurize(batch, cfg: TrainConfig, trunk_cfg, generator: Optional[torch.Generator] = None,
-               seq_idx_override=None):
+               seq_idx_override=None, mesh=None):
     """``(feats, target or None, batch)``: crop (with ``generator``), then the
     fused featurization; ``seq_idx_override`` ``(B, <= L)`` replaces stale
-    ``seq`` metadata (eval windows) and is padded with UNK."""
+    ``seq`` metadata (eval windows) and is padded with UNK.  With a ``mesh``
+    the crop is drawn for the whole batch and this rank keeps its ``B / dp``
+    structures (``parallel.mesh.shard_batch``) before the featurization."""
     from protstruc_tpu_torch.models.trfold import featurize_for_model, featurize_from_sequence
     from protstruc_tpu_torch.vocab import AA
 
@@ -273,6 +324,17 @@ def _featurize(batch, cfg: TrainConfig, trunk_cfg, generator: Optional[torch.Gen
             batch = batch.random_crop(cfg.crop_len, generator)
         else:
             batch, (seq_idx,) = batch.random_crop(cfg.crop_len, generator, extras=(seq_idx,))
+    if mesh is not None:
+        from protstruc_tpu_torch.parallel.mesh import mesh_coords, shard_batch
+
+        bi, nb = mesh_coords(mesh, "dp")
+        B = batch.batch_size
+        if B % nb:
+            raise ValueError(f"a batch of {B} structures does not split over dp={nb}: choose "
+                             "batch_size and data whose batches divide by dp")
+        batch = shard_batch(batch, mesh)
+        if seq_idx is not None:
+            seq_idx = seq_idx[bi * B // nb:(bi + 1) * B // nb]
     target = featurize_for_model(batch, fused=True, n_dist_bins=trunk_cfg.n_dist_bins,
                                  max_dist=trunk_cfg.max_dist)
     if seq_idx is not None:
@@ -287,11 +349,13 @@ def _featurize(batch, cfg: TrainConfig, trunk_cfg, generator: Optional[torch.Gen
 
 def train_step(model, params, opt: TrainOptimizer, feats, target, xyz) -> torch.Tensor:
     """One microbatch: ``fold_loss_fn``, its gradients, one optimizer step;
-    returns the detached loss (no host synchronisation)."""
+    returns the detached loss (no host synchronisation).  Under data
+    parallelism (``opt.dp_group``) the loss is this rank's share of the
+    global batch's: its masked means divide by counts summed over dp."""
     from protstruc_tpu_torch.models.ipa import fold_loss_fn
 
     model.zero_grad(set_to_none=True)
-    loss = fold_loss_fn(params, model, feats, xyz, target_feats=target)
+    loss = fold_loss_fn(params, model, feats, xyz, target_feats=target, count_group=opt.dp_group)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -392,6 +456,20 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
     if not paths:
         raise ValueError("train() needs at least one input structure")
     _check_ported(cfg)
+    mesh = dp_group = None
+    lead = True  # this rank writes metrics, checkpoints and evaluations
+    if cfg.mesh_shape is not None:
+        import torch.distributed as dist
+
+        from protstruc_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+        device = init_distributed(device)
+        mesh = make_mesh(axis_shapes=cfg.mesh_shape)
+        dp_group = mesh.get_group("dp")  # a group of one rank too: the same collectives
+        lead = dist.get_rank() == 0
+        log_fn(f"[train] mesh dp={cfg.mesh_shape[0]} sp={cfg.mesh_shape[1]} "
+               f"tp={cfg.mesh_shape[2]} over {dist.get_world_size()} ranks"
+               + (", ZeRO-1" if cfg.zero1 else ""))
     model = _build_model(cfg, device)
     ds = StructureDataset(paths, batch_size=cfg.batch_size, shuffle=cfg.shuffle, seed=cfg.seed,
                           device=device)
@@ -410,8 +488,11 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                 + ", ".join(f"{k}={a!r} (checkpoint) vs {b!r} (requested)"
                             for k, (a, b) in diff.items())
                 + ". Use a fresh checkpoint_dir or match the saved config.")
-    with open(cfg_path, "w") as fh:
-        fh.write(cfg.to_json())
+    if mesh is not None:
+        dist.barrier()  # every rank has checked the saved config
+    if lead:
+        with open(cfg_path, "w") as fh:
+            fh.write(cfg.to_json())
 
     params = opt = prof = None
     start_step = step = 0
@@ -421,11 +502,12 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
     while step < cfg.steps or params is None:
         for batch in ds:
             crop_gen = torch.Generator().manual_seed(cfg.seed * 100003 + step)
-            feats, target, batch = _featurize(batch, cfg, model.trunk_cfg, generator=crop_gen)
+            feats, target, batch = _featurize(batch, cfg, model.trunk_cfg, generator=crop_gen,
+                                              mesh=mesh)
             if params is None:
                 model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
                 params = dict(model.named_parameters())
-                opt = TrainOptimizer(params, cfg)
+                opt = TrainOptimizer(params, cfg, dp_group=dp_group)
                 if latest_step(checkpoint_dir) is not None:
                     saved, opt_saved, start_step = restore_train_state(checkpoint_dir)
                     model.load_state_dict(saved)
@@ -441,6 +523,8 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                 prof.__enter__()
             t_step = time.perf_counter()
             loss = train_step(model, params, opt, feats, target, batch.xyz)
+            if dp_group is not None:  # the ranks' shares sum to the global loss
+                dist.all_reduce(loss, group=dp_group)
             step += 1
             losses.append(float(loss))  # synchronises: host-visible step time
             step_ms = (time.perf_counter() - t_step) * 1e3
@@ -452,13 +536,15 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                 log_fn(f"[train] torch.profiler trace (steps 3-6) -> {cfg.profile_dir}")
             if step % max(cfg.steps // 10, 1) == 0:
                 log_fn(f"[train] step {step:5d}  loss {losses[-1]:.4f}  {step_ms:.0f} ms")
-                if cfg.metrics_jsonl:
+                if cfg.metrics_jsonl and lead:
                     _append_jsonl(checkpoint_dir, {"step": step, "loss": losses[-1],
                                                    "ms": round(step_ms, 1),
                                                    "t": round(time.perf_counter() - t0, 1)})
             if cfg.save_every and step % cfg.save_every == 0:
-                save_train_state(checkpoint_dir, step, model.state_dict(), opt.state_dict())
-                if eval_paths:
+                opt_sd = opt.state_dict()  # a collective under ZeRO-1
+                if lead:
+                    save_train_state(checkpoint_dir, step, model.state_dict(), opt_sd)
+                if eval_paths and lead:
                     ev = evaluate(model, params, eval_paths, cfg)
                     last_eval = (step, ev)
                     log_fn(f"[eval] step {step}: " + " ".join(f"{k}={v:.3f}" for k, v in ev.items()))
@@ -467,11 +553,15 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
             if step >= cfg.steps:
                 break
 
-    save_train_state(checkpoint_dir, step, model.state_dict(), opt.state_dict())
+    opt_sd = opt.state_dict()
+    if lead:
+        save_train_state(checkpoint_dir, step, model.state_dict(), opt_sd)
+    if mesh is not None:
+        dist.barrier()  # the checkpoint is on disk before any rank returns
     dt = time.perf_counter() - t0
     final_loss = losses[-1] if losses else None
     result = {"steps": step, "final_loss": final_loss, "seconds": dt}
-    if eval_paths:
+    if eval_paths and lead:
         if last_eval is not None and last_eval[0] == step:
             ev, fresh_eval = last_eval[1], False
         else:
