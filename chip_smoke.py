@@ -208,7 +208,23 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     and on: losses within 2e-2, ms/step, peak memory and the profiled
     step's ``aten::bmm`` count (tri_dots 2 fewer a block); (f) TrFold with
     4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
-    against CPU from one init: loss, aux, every gradient leaf.
+    against CPU from one init: loss, aux, every gradient leaf;
+22. model parallelism inside FoldModel: (a) ``fused_triangle_multiplication``
+    on row blocks (a row mask and the column mask, as a sharded model's
+    rank calls it) against the square launch, outgoing and incoming, f32
+    and bf16, C = 64 and 128, L = 37 and 300 in 2-4 blocks, under a
+    row-local contraction: K4's a/b, K6's rows and the pair's cotangent
+    rows (K5 + K7) bitwise, the weight gradients summed over the blocks
+    within K5's and K7's budgets; (b) FoldModel at fold_loo's width sharded
+    over a one-rank NCCL ``(1, 1, 1)`` mesh against the unsharded model on
+    phase 12's batch (K3 featurizes the crop, ``shard_feats`` keeps the
+    rank's block): loss 1e-5 relative, every gradient leaf within 1e-4 of
+    its largest plus 1e-6 of the model's, one optimizer step and the
+    sharded optimizer state gathered and cut back; K3, K4-K7 and K8/K9's
+    counters reset just before and grown after; featurize + loss +
+    backward of each model timed in turns; (c) MoE under
+    ``moe_param_shardings`` over dp on that group against the unsharded
+    layer: output, aux, gradients (1e-5).
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -236,7 +252,9 @@ launches on its slice's main path (K1 phase 5, with its bf16 mode's own
 count from the same run and its ``d_cb``-only launch of phase 19's config 5
 as ``dcb_subset``, K4-K7 phase 8, K3 and K8/K9
 phase 12, K8/K9's launches a phase 20 IF train step as
-``design_if_step_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
+``design_if_step_launches``, K3, K4-K7 and K8/K9's launches by phase 22's
+sharded model as ``model_parallel_launches``, K4-K7's launches by phase
+22's row-block calls alone as ``row_block_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time; K1's rectangular mode and K8/K9's lse entry
 point as entries of their own, launches from phase 21 (d)), largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
@@ -282,6 +300,11 @@ runs phase 1, builds K8/K9 and runs phase 20 alone, and prints no result line;
 
 runs phase 1, builds K1, K4-K7 and K8/K9 together (K1's ptxas lines) and runs
 phase 21 alone, and prints no result line;
+
+    python3 chip_smoke.py --model-parallel
+
+runs phase 1, builds K3, K4-K7 and K8/K9 together and runs phase 22 alone,
+and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -3145,6 +3168,271 @@ def scale_out_phase(torch, np, dev, smi):
             "lse_ms": lse_ms, "tri_err_c1024": tri_err, "tri_c1024": tri_wide}
 
 
+# -- phase 22: model parallelism inside FoldModel --------------------------------
+#: (L, row-block edges): 37 and 300 residues in 2-4 blocks, as sp ranks hold them
+TRI_ROW_BLOCKS = ((37, (0, 20, 37)), (37, (0, 9, 18, 30, 37)), (300, (0, 150, 300)),
+                  (300, (0, 64, 150, 233, 300)))
+TRI_ROW_WIDTHS = (64, 128)   # fold_loo's pair width (the production FoldModel), [mfu-fused]'s
+TRI_PARAMS = ("ln_in", "ln_out", "a_gate", "a_proj", "b_gate", "b_proj", "out_gate", "out_proj")
+MP_TIMED = 3                 # timed fwd+bwd calls of each model, after one warm-up
+
+
+def tri_row_blocks(torch, dev, tri_mul):
+    """Phase 22 (a): ``fused_triangle_multiplication`` on row blocks ``(B, Li,
+    L, C)`` with the rows' mask and the column mask, as a sharded model's
+    rank calls it, against the square launch: outgoing and incoming, f32 and
+    bf16, B=2 (structure 0's residue 3 and structure 1's last 5 masked),
+    under a row-local contraction (``a * w + b``, so every block hands K6 the
+    square's rows).  K4's a and b and K6's output rows must be bitwise the
+    square's, and so must the pair's cotangent rows (K5 + K7); the weight
+    gradients summed over the blocks within K5's and K7's budgets
+    (tri_budget).  The launches counted are the block calls' alone (each
+    block's counts read before and after it), and each kernel must launch
+    once per block call.  Returns ({dtype: the largest weight-gradient error
+    over its max|ref|}, launches)."""
+    from protstruc_tpu_torch.ops.tri_mul import fused_triangle_multiplication
+
+    worst, n_blocks = {}, 0
+    launches = {k: 0 for k in tri_mul.LAUNCHES}
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in TRI_ROW_WIDTHS:
+            for L, edges in TRI_ROW_BLOCKS:
+                gen = torch.Generator(dev).manual_seed(22 * L + C)
+
+                def t(*shape, scale=1.0, shift=0.0):
+                    return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+                B = 2
+                pair, w, ct = t(B, L, L, C, shift=0.3), t(B, L, L, C), t(B, L, L, C)
+                mask = torch.ones((B, L), dtype=torch.bool, device=dev)
+                mask[1, L - 5:] = False
+                mask[0, 3] = False
+                leaves = {n: ((t(C, scale=0.2, shift=1.0), t(C, scale=0.2)) if n.startswith("ln")
+                              else (t(C, C, scale=C ** -0.5), t(C, scale=0.1))) for n in TRI_PARAMS}
+                for outgoing in (True, False):
+                    label = f"{str(dtype)[6:]} C={C} L={L} {'outgoing' if outgoing else 'incoming'}"
+
+                    def run(i0, i1):
+                        params = {n: tuple(x.clone().requires_grad_() for x in v)
+                                  for n, v in leaves.items()}
+                        seen = {}
+
+                        def contract(a, b):
+                            seen["a"], seen["b"] = a.detach(), b.detach()
+                            return a * w[:, i0:i1] + b
+
+                        x = pair[:, i0:i1].clone().requires_grad_()
+                        out = fused_triangle_multiplication(x, mask[:, i0:i1], params, outgoing,
+                                                            col_mask=mask, contract=contract)
+                        out.backward(ct[:, i0:i1])
+                        return out.detach(), x.grad, params, seen
+
+                    sq_out, sq_dx, sq_params, sq_seen = run(0, L)
+                    sums = {n: [torch.zeros_like(x, dtype=torch.float32) for x in v]
+                            for n, v in leaves.items()}
+                    for i0, i1 in zip(edges[:-1], edges[1:]):
+                        before = dict(tri_mul.LAUNCHES)
+                        out, dx, params, seen = run(i0, i1)
+                        for k in launches:
+                            launches[k] += tri_mul.LAUNCHES[k] - before[k]
+                        for what, got, ref in (("K4 a", seen["a"], sq_seen["a"]),
+                                               ("K4 b", seen["b"], sq_seen["b"]),
+                                               ("K6 out", out, sq_out), ("K5+K7 dpair", dx, sq_dx)):
+                            bad = unequal(ref[:, i0:i1], got)
+                            check(bad == 0, f"phase 22a {label} rows {i0}:{i1} {what}: {bad} entries "
+                                            "differ from the square launch's")
+                        for n in TRI_PARAMS:
+                            for acc, x in zip(sums[n], params[n]):
+                                acc += x.grad.float()
+                        n_blocks += 1
+                    for n in TRI_PARAMS:
+                        for k, (acc, x) in enumerate(zip(sums[n], sq_params[n])):
+                            _, rel = tri_budget(torch, x.grad, acc.to(dtype),
+                                                f"phase 22a {label} d{n}[{k}] summed over blocks")
+                            key = str(dtype)[6:]
+                            worst[key] = max(worst.get(key, 0.0), rel)
+    torch.cuda.synchronize()
+    check(all(n == n_blocks for n in launches.values()),
+          f"phase 22a: the {n_blocks} block calls launched {launches}, not once each per kernel")
+    say(f"phase 22a parity K4-K7 on row blocks: ok, {n_blocks} blocks (L 37 and 300 in 2-4 blocks, C "
+        f"{TRI_ROW_WIDTHS}, f32 and bf16, outgoing and incoming): K4 a/b, K6 rows and the pair's "
+        f"cotangent rows bitwise the square launch's; weight gradients summed over the blocks at worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " of the square's max|ref|; "
+        f"launches {launches}")
+    return worst, launches
+
+
+def sharded_fold(torch, np, dev, smi, mesh):
+    """Phase 22 (b): FoldModel at fold_loo's width (FOLD_ARGV: f32, D=128,
+    P=64, 4 heads, 4 blocks, 6 IPA iterations, recycle 1, triangle, remat,
+    fused_tri, flash) sharded over the one-rank NCCL mesh (1, 1, 1) against
+    the unsharded model from the same init, on phase 12's batch (BATCH_FILES,
+    B=4, crop 256): K3 featurizes the crop, ``shard_feats`` keeps the rank's
+    block, then ``fold_loss_fn`` forward and backward on each model.  The
+    K3, K4-K7 and K8/K9 counters are reset just before the sharded run and
+    read after it; each must have grown.  Then one ``TrainOptimizer`` step
+    of each on those gradients, the sharded optimizer's state gathered and
+    cut back, the sharded model's whole parameters against the unsharded
+    one's; last, each model's featurize + loss + backward timed in turns
+    (unsharded, sharded, sharded, unsharded).
+    Returns (launches, loss and gradient errors, ms of each model)."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch import train as tr
+    from protstruc_tpu_torch.models.checkpoint import load_whole_state, whole_state
+    from protstruc_tpu_torch.models.ipa import fold_loss_fn
+    from protstruc_tpu_torch.ops import flash_attn, model_features, tri_mul
+    from protstruc_tpu_torch.parallel.mesh import shard_feats
+
+    args = dict(zip(FOLD_ARGV[0::2], FOLD_ARGV[1::2]))
+    cfg = tr.TrainConfig(batch_size=int(args["--batch-size"]), crop_len=int(args["--crop"]),
+                         node_dim=int(args["--node-dim"]), pair_dim=int(args["--pair-dim"]),
+                         n_blocks=int(args["--blocks"]), n_recycle=int(args["--recycle"]),
+                         pair_update=args["--pair-update"], remat=True, fused_tri=True,
+                         use_flash_attn=True, seed=0, mesh_shape=(1, 1, 1))
+    plain = tr._build_model(cfg, dev)
+    plain.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    sharded = tr._build_model(cfg, dev, mesh)
+    load_whole_state(sharded, plain.state_dict())
+    check(sharded.shard is not None and sharded.trunk_cfg.ring_mesh is None,
+          "phase 22b: the model is not sharded, or rings over sp = 1")
+    sb = pt.StructureBatch.from_pdb([str(DATA / f) for f in BATCH_FILES], device=dev)
+
+    def fwd_bwd(model, sharded_feats):
+        feats, _, crop = tr._featurize(sb, cfg, model.trunk_cfg,
+                                       generator=torch.Generator().manual_seed(CROP_SEED))
+        if sharded_feats:
+            feats = shard_feats(feats, mesh, axes=("sp",))
+        model.zero_grad(set_to_none=True)
+        params = dict(model.named_parameters())
+        loss = fold_loss_fn(params, model, feats, crop.xyz)
+        loss.backward()
+        return loss.detach(), {k: p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+                               for k, p in params.items()}
+
+    torch.cuda.synchronize()
+    reset_launches(model_features, tri_mul, flash_attn)
+    loss_s, grads_s = fwd_bwd(sharded, True)
+    torch.cuda.synchronize()
+    launches = {"model_features": model_features.LAUNCHES,
+                **{f"tri_mul_{k}": n for k, n in tri_mul.LAUNCHES.items()},
+                **{f"flash_attn_{k}": n for k, n in flash_attn.LAUNCHES.items()}}
+    check(all(n > 0 for n in launches.values()), f"phase 22b the sharded model launched {launches}")
+    loss_p, grads_p = fwd_bwd(plain, False)
+    loss_rel = abs(float(loss_s) - float(loss_p)) / abs(float(loss_p))
+    check(math.isfinite(float(loss_s)) and loss_rel <= 1e-5,
+          f"phase 22b loss sharded {float(loss_s)!r} vs unsharded {float(loss_p)!r}")
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    grad_worst, grad_leaf = 0.0, None   # the largest error over its budget
+    for k, r in grads_p.items():
+        e = float((grads_s[k] - r).abs().max())
+        ratio = e / (1e-4 * float(r.abs().max()) + 1e-6 * top)
+        if ratio > grad_worst:
+            grad_worst, grad_leaf = ratio, k
+    check(grad_worst <= 1.0, f"phase 22b gradient {grad_leaf}: {grad_worst:.3e} of its budget")
+
+    # one optimizer step of each on those gradients; the sharded state
+    # gathered over tp (NCCL, a group of one) and cut back.  Adam's first
+    # step is lr * sign(g): entries whose exact gradient is 0 (or all but 0)
+    # may move 2 lr apart, the rest agree to rounding
+    for model, grads in ((sharded, grads_s), (plain, grads_p)):
+        params = dict(model.named_parameters())
+        opt = tr.TrainOptimizer(params, cfg, shard=model.shard)
+        for k, p in params.items():
+            p.grad = grads[k].clone()
+        opt.step()
+        if model is sharded:
+            opt.load_state_dict(opt.state_dict())
+    whole, lr = whole_state(sharded), cfg.learning_rate
+    step_err = 0.0
+    for k, v in plain.state_dict().items():
+        noise = zero_grad_entries(torch, k, grads_p[k]) | (grads_p[k].abs() <= 1e-6 * top)
+        d = (whole[k] - v).abs()
+        if noise.any():
+            check(float(d[noise].max()) <= 2 * lr + 1e-6,
+                  f"phase 22b optimizer step {k}: a near-zero-gradient entry moved beyond 2 lr")
+        if (~noise).any():
+            step_err = max(step_err, float(d[~noise].max()))
+    check(step_err <= 1e-5, f"phase 22b one optimizer step: sharded params {step_err:.3e} off")
+    del grads_s, grads_p
+
+    ms = {}
+    for name, model in (("unsharded", plain), ("sharded", sharded), ("sharded again", sharded),
+                        ("unsharded again", plain)):
+        fwd_bwd(model, model is sharded)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MP_TIMED):
+            fwd_bwd(model, model is sharded)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / MP_TIMED
+
+    torch.cuda.synchronize()
+    say(f"phase 22b sharded FoldModel D={cfg.node_dim} P={cfg.pair_dim} {cfg.n_blocks} blocks recycle "
+        f"{cfg.n_recycle} f32 B={cfg.batch_size} crop {cfg.crop_len} "
+        f"on a one-rank NCCL (1, 1, 1) mesh vs unsharded [{smi}]: ok; loss {float(loss_s)!r} vs "
+        f"{float(loss_p)!r} ({loss_rel:.2e} relative), worst gradient leaf {grad_leaf} at "
+        f"{grad_worst:.2e} of its budget; one optimizer step {step_err:.2e}; featurize + loss + backward "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()) + f" (mean of {MP_TIMED}); launches "
+        f"{launches}")
+    return launches, (loss_rel, grad_worst, step_err), ms
+
+
+def moe_expert_parallel(torch, dev, smi, mesh):
+    """Phase 22 (c): MoEMLP (4 experts, D=128, H=512) with
+    ``moe_param_shardings`` over dp on the one-rank NCCL mesh against the
+    unsharded layer from the same weights, f32, B=4, L=256 with masked
+    tokens: output, aux, and the input, expert and router gradients."""
+    from protstruc_tpu_torch.models.moe import MoEMLP, moe_param_shardings
+    from protstruc_tpu_torch.parallel.mesh import cut_params
+
+    gen = torch.Generator(dev).manual_seed(22)
+    x = torch.randn((4, 256, 128), generator=gen, device=dev)
+    mask = torch.rand((4, 256), generator=gen, device=dev) > 0.2
+    ct = torch.randn((4, 256, 128), generator=gen, device=dev)
+    plain = MoEMLP(128, n_experts=4, hidden_dim=512, device=dev)
+    gen5 = torch.Generator().manual_seed(5)
+    for mod in plain.modules():   # the router too: MoEMLP's own reset draws the experts
+        mod.reset_parameters(gen5)
+    ep = MoEMLP(128, n_experts=4, hidden_dim=512, device=dev, mesh=mesh, ep_axis="dp")
+    whole = plain.state_dict()
+    ep.load_state_dict(cut_params(whole, moe_param_shardings(whole, mesh), mesh))
+    res = {}
+    for name, m in (("ep", ep), ("plain", plain)):
+        xi = x.clone().requires_grad_()
+        out, aux = m(xi, mask)
+        ((out * ct).sum() + aux).backward()
+        res[name] = {"out": out.detach(), "aux": aux.detach(), "dx": xi.grad, "w1": m.w1.grad,
+                     "router": m.router.kernel.grad}
+    errs = {k: float((res["ep"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+            for k, v in res["plain"].items()}
+    check(all(e <= 1e-5 for e in errs.values()), f"phase 22c MoE EP vs unsharded {errs}")
+    say(f"phase 22c MoE (4 experts, D=128, H=512) under moe_param_shardings over dp, one-rank NCCL "
+        f"mesh, f32 B=4 L=256 [{smi}]: ok; errors vs unsharded " + ", ".join(
+            f"{k} {e:.2e}" for k, e in errs.items()))
+    return max(errs.values())
+
+
+def model_parallel_phase(torch, np, dev, smi):
+    """Phase 22: (a)-(c) in order; returns the kernels-line numbers."""
+    import torch.distributed as dist
+
+    from protstruc_tpu_torch.ops import tri_mul
+    from protstruc_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    tri_err, row_launches = tri_row_blocks(torch, dev, tri_mul)
+    rank_dev = init_distributed("cuda", rank=0, world_size=1)
+    check(dist.get_backend() == "nccl" and rank_dev == dev, f"group {dist.get_backend()} on {rank_dev}")
+    mesh = make_mesh(axis_shapes=(1, 1, 1))
+    launches, errs, ms = sharded_fold(torch, np, dev, smi, mesh)
+    torch.cuda.empty_cache()
+    moe_err = moe_expert_parallel(torch, dev, smi, mesh)
+    dist.destroy_process_group()
+    say(f"phase 22 model parallelism: ok in {time.perf_counter() - t0:.2f} s")
+    return {"row_launches": row_launches, "tri_row_err": tri_err, "launches": launches,
+            "errs": errs, "ms": ms, "moe_err": moe_err}
+
+
 def main():
     import numpy as np
     import torch
@@ -3154,7 +3442,7 @@ def main():
               file=sys.stderr)
         return 1
     modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api",
-             "--design", "--scale-out")
+             "--design", "--scale-out", "--model-parallel")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -3228,6 +3516,14 @@ def main():
         for ln in ptxas_lines(cuda_lib.library_path("pair_maps", pair_maps._SOURCES).with_suffix(".log")):
             say(f"  ptxas: {ln}")
         scale_out_phase(torch, np, dev, smi)
+        return 0
+    if sys.argv[1:] == ["--model-parallel"]:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda load: load(), (model_features.load_library, tri_mul.load_library,
+                                              flash_attn.load_library)))
+        say(f"phase 22: K3, K4-K7 and K8/K9 built or loaded in {time.perf_counter() - t0:.2f} s")
+        model_parallel_phase(torch, np, dev, smi)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -3710,6 +4006,9 @@ def main():
     # -- 21. the scale-out path ----------------------------------------------------------
     scale_out = scale_out_phase(torch, np, dev, smi)
 
+    # -- 22. model parallelism inside FoldModel -------------------------------------------
+    model_parallel = model_parallel_phase(torch, np, dev, smi)
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -3755,6 +4054,14 @@ def main():
                              "launches: ring_attention_sharded on one rank; ms: the forward at the "
                              "train shape",
                         bwd_launches=so["launches"]["lse_bwd"]))
+    mp = model_parallel
+    for e in kernels:
+        # phase 22: launches on the sharded path; K4-K7's on row blocks too
+        if e["name"] in mp["launches"]:
+            e["model_parallel_launches"] = mp["launches"][e["name"]]
+        if e["name"].startswith("tri_mul_"):
+            e["row_block_launches"] = mp["row_launches"][e["name"][len("tri_mul_"):]]
+            e["row_block_weight_grad_rel_err"] = mp["tri_row_err"]
     for e in kernels:
         if e["name"].startswith("tri_mul_"):
             name = e["name"][len("tri_mul_"):]

@@ -12,9 +12,9 @@
 
 Commands run on ``--device`` (default ``cuda``, which raises without a card;
 pass ``--device cpu`` for host runs); ``renumber`` runs on the host alone.
-``train --mesh dp,1,1 [--zero1]`` trains data-parallel under ``torchrun``
-(the mesh's product is the world size); ``--mesh`` with sp or tp above 1
-raises ``NotImplementedError``.
+``train --mesh dp,sp,tp [--zero1]`` trains under ``torchrun`` over dp * sp *
+tp ranks (the mesh's product must be the world size): data parallel over
+dp, the model sharded over sp and tp (``train.py``).
 """
 
 from __future__ import annotations
@@ -280,19 +280,17 @@ def cmd_train(args) -> int:
         mesh_shape = tuple(int(x) for x in args.mesh.split(","))
         if len(mesh_shape) != 3 or min(mesh_shape) < 1:
             raise ValueError(f"--mesh takes dp,sp,tp (positive ints), got {args.mesh!r}")
-        if mesh_shape[1] > 1 or mesh_shape[2] > 1:
-            raise NotImplementedError(
-                f"--mesh {args.mesh}: sequence and tensor parallelism (sp > 1, tp > 1) are not "
-                "yet ported (ROADMAP A.8); use --mesh dp,1,1")
         world = int(os.environ.get("WORLD_SIZE", 1))
+        import math
+
         import torch.distributed as dist
 
         if dist.is_initialized():
             world = dist.get_world_size()
-        if mesh_shape[0] != world:
-            raise ValueError(f"--mesh {args.mesh} needs {mesh_shape[0]} ranks, but the world "
-                             f"size is {world}: run under torchrun --nproc-per-node "
-                             f"{mesh_shape[0]}")
+        n = math.prod(mesh_shape)
+        if n != world:
+            raise ValueError(f"--mesh {args.mesh} needs dp*sp*tp = {n} ranks, but the world "
+                             f"size is {world}: run under torchrun --nproc-per-node {n}")
     elif args.zero1:
         raise ValueError("--zero1 requires --mesh: ZeRO-1 partitions optimizer state over the dp "
                          "mesh axis")
@@ -452,8 +450,9 @@ def main(argv=None) -> int:
     t.add_argument("--remat-policy", default="none", choices=("none", "tri_dots", "dots"),
                    help="with --remat: only 'none' is ported")
     t.add_argument("--mesh", default=None,
-                   help="dp,sp,tp process mesh: dp,1,1 trains data-parallel over dp ranks "
-                        "(run under torchrun --nproc-per-node dp; sp, tp > 1 not yet ported)")
+                   help="dp,sp,tp process mesh: data parallel over dp, the model's residue "
+                        "rows over sp, its heads and MLP hidden dim over tp (run under "
+                        "torchrun --nproc-per-node dp*sp*tp)")
     t.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: partition the AdamW moments over the dp ranks (needs --mesh)")
     t.add_argument("--accum", type=int, default=1,

@@ -33,13 +33,42 @@ check fails raises, which ends the run non-zero.  The checks:
   holds rounding alone).
 
 It also counts the ``torch.distributed`` calls each check made and times
-the ring (forward and backward) and the two trainers' steps.  This module
-imports torch and numpy only.
+the ring (forward and backward) and the two trainers' steps.
+
+Model parallelism inside FoldModel, at ``experiments/fold_loo.py:57-63``'s
+width (f32, D=128, P=64, 4 heads, 4 blocks, 6 IPA iterations, recycle 1,
+triangle, remat, fused_tri, flash), B=4 of the bundled PDBs cropped to 256
+by K3's featurization of the whole crop:
+
+* ``fold_loss_fn`` over the meshes (1, 4, 1), (1, 2, 2) and (1, 1, 4)
+  against the unsharded model on each rank's card: the loss (the ranks'
+  shares summed) within 1e-5 relative, the gradients (summed over dp x sp,
+  the tp-partial leaves over tp, gathered whole) within 1e-4 of each leaf's
+  largest plus 1e-6 of the model's;
+* ``train --mesh 2,2,1 --zero1`` and ``train --mesh 1,2,2`` (with a
+  held-out evaluation, unsharded on rank 0) for 3 steps against the same
+  steps without a mesh on rank 0: the first step's loss within 1e-5
+  relative, the later ones within 1e-4 (Adam turns the runs' rounding on
+  entries whose gradient is all but 0 into up to +-lr);
+* MoEMLP with its experts over dp on (4, 1, 1) (``moe_param_shardings``):
+  each rank's output block, the aux and the gradients against one process;
+* timings: a train step (``fold_loss_fn``, backward, ``TrainOptimizer``)
+  at (1, 4, 1) and (1, 1, 4) against one card, crop 256, B=4, and 8gpi at
+  crop 1024, B=1: ms/step (host clock around synchronised steps, after
+  warm-up), peak GiB a rank, and one step under torch.profiler: the device
+  time of the NCCL kernels against the step's busy time (rank 0); then
+  each kind of collective the step issued, timed alone at its mean payload
+  in runs of back-to-back calls (``exchange_estimate``).
+
+With ``--device cpu`` the model checks run at a rehearsal size (crop 32, 1
+block, B=2 of the 4) and the timings are skipped.  This module imports
+torch and numpy only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import pathlib
@@ -61,26 +90,57 @@ TRAIN_ARGV = ("--batch-size", "4", "--crop", "64", "--node-dim", "64", "--pair-d
               "--blocks", "2", "--recycle", "0", "--pair-update", "triangle", "--seed", "0",
               "--steps", "3", "--save-every", "3")
 CALLS = ("all_reduce", "all_gather", "broadcast", "all_gather_object", "batch_isend_irecv")
+# the tensor forms parallel/collectives.py issues (torch 2.13 names them
+# *_single; older releases only *_tensor); counted where this torch has them
+TENSOR_CALLS = ("all_gather_single", "all_gather_into_tensor", "reduce_scatter_single",
+                "reduce_scatter_tensor", "all_to_all")
+# fold_loo.py:57-63 with --flash-attn (4 heads and 6 IPA iterations are
+# TrainConfig's defaults), f32; crop and batch set per run
+FOLD = dict(node_dim=128, pair_dim=64, n_blocks=4, n_recycle=1, pair_update="triangle", remat=True,
+            fused_tri=True, use_flash_attn=True, seed=0)
+FOLD_PDBS = ("4uuj.pdb", "8dtk.pdb", "6dc4.pdb", "1ad0_DC.pdb")   # 434-545 residues: all cropped
+FOLD_MESHES = ((1, 4, 1), (1, 2, 2), (1, 1, 4))
+SMALL = dict(n_blocks=1, crop_len=32, batch_size=2)               # --device cpu rehearsal
+
+
+def _payload(args) -> int:
+    """Bytes of a collective call's largest buffer: a list of tensors
+    summed (``all_to_all``'s chunks), a list of ``P2POp``s its largest (a
+    send and its receive move one buffer each way)."""
+    best = 0
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            sizes = [t.numel() * t.element_size() for t in (getattr(x, "tensor", x) for x in a)
+                     if torch.is_tensor(t)]
+            p2p = any(hasattr(x, "tensor") for x in a)
+            best = max(best, (max(sizes, default=0) if p2p else sum(sizes)))
+        elif torch.is_tensor(a):
+            best = max(best, a.numel() * a.element_size())
+    return best
 
 
 @contextlib.contextmanager
-def counted():
+def counted(moved=None):
     """Count the ``torch.distributed`` calls the port makes (it calls them
-    through the module's attributes)."""
-    counts, saved = dict.fromkeys(CALLS, 0), {n: getattr(dist, n) for n in CALLS}
+    through the module's attributes); ``moved`` (a dict), when given, gets
+    each call kind's payload bytes summed (``_payload``)."""
+    names = CALLS + tuple(n for n in TENSOR_CALLS if hasattr(dist, n))
+    counts, saved = dict.fromkeys(names, 0), {n: getattr(dist, n) for n in names}
 
     def wrap(name, fn):
         def call(*a, **kw):
             counts[name] += 1
+            if moved is not None:
+                moved[name] = moved.get(name, 0) + _payload(a)
             return fn(*a, **kw)
         return call
 
-    for n in CALLS:
+    for n in names:
         setattr(dist, n, wrap(n, saved[n]))
     try:
         yield counts
     finally:
-        for n in CALLS:
+        for n in names:
             setattr(dist, n, saved[n])
 
 
@@ -262,6 +322,334 @@ def train_check(dev, say):
     dist.barrier()
 
 
+def _fold_cfg(dev, **kw):
+    from protstruc_tpu_torch.train import TrainConfig
+
+    size = dict(crop_len=256, batch_size=4) if dev.type == "cuda" else dict(SMALL)
+    return TrainConfig(**{**FOLD, **size, **kw})
+
+
+def _fold_batch(dev, cfg, files=FOLD_PDBS, crop_seed=7):
+    """The whole crop's K3 features, target xyz and batch (every rank the
+    same: one generator)."""
+    import protstruc_tpu_torch as pt
+    from protstruc_tpu_torch.train import _featurize
+
+    sb = pt.StructureBatch.from_pdb([str(DATA / f) for f in files[:cfg.batch_size]], device=dev)
+    feats, _, crop = _featurize(sb, cfg, _trunk_cfg(cfg),
+                                generator=torch.Generator().manual_seed(crop_seed))
+    return feats, crop.xyz
+
+
+def _trunk_cfg(cfg):
+    from protstruc_tpu_torch.models.trfold import TrFoldConfig
+
+    return TrFoldConfig(node_dim=cfg.node_dim, pair_dim=cfg.pair_dim)
+
+
+def _loss_grads(model, feats, xyz):
+    from protstruc_tpu_torch.models.ipa import fold_loss_fn
+
+    model.zero_grad(set_to_none=True)
+    params = dict(model.named_parameters())
+    loss = fold_loss_fn(params, model, feats, xyz)
+    loss.backward()
+    return loss.detach(), {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                           for k, p in params.items()}
+
+
+def _whole_grads(model, grads):
+    """A sharded model's gradients as the trainer reduces them, gathered
+    whole (a collective)."""
+    from protstruc_tpu_torch.models.checkpoint import gather_tp
+    from protstruc_tpu_torch.models.ipa import ipa_param_shardings, tp_partial_grads
+    from protstruc_tpu_torch.parallel.zero import sum_sharded_grads_
+
+    specs = ipa_param_shardings(grads)
+    sum_sharded_grads_(grads, model.shard, tp_partial_grads(specs))
+    return gather_tp(grads, specs, model.shard)
+
+
+def fold_check(dev, say):
+    """fold_loss_fn over each FOLD_MESHES mesh against the unsharded model."""
+    from protstruc_tpu_torch.models.checkpoint import load_whole_state
+    from protstruc_tpu_torch.parallel.mesh import cut, make_mesh, shard_feats
+    from protstruc_tpu_torch.train import _build_model
+
+    cfg = _fold_cfg(dev)
+    feats, xyz = _fold_batch(dev, cfg)
+    plain = _build_model(cfg, dev)
+    plain.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    loss_r, grads_r = _loss_grads(plain, feats, xyz)
+    grads_r = {k: g.clone() for k, g in grads_r.items()}
+    top = max(float(g.abs().max()) for g in grads_r.values())
+    for shape in FOLD_MESHES:
+        mesh = make_mesh(axis_shapes=shape)
+        model = _build_model(dataclasses.replace(cfg, mesh_shape=shape), dev, mesh)
+        load_whole_state(model, plain.state_dict())
+        with counted() as calls:
+            loss, grads = _loss_grads(model, shard_feats(feats, mesh), cut(xyz, ("dp", "sp"), mesh))
+            total = loss.clone()
+            dist.all_reduce(total, group=model.shard.data_group)
+            whole = _whole_grads(model, grads)
+        rel = abs(float(total) - float(loss_r)) / abs(float(loss_r))
+        check(rel <= 1e-5, f"fold {shape} loss {float(total)!r} vs {float(loss_r)!r}")
+        worst, leaf = 0.0, None
+        for k, r in grads_r.items():
+            ratio = float((whole[k] - r).abs().max()) / (1e-4 * float(r.abs().max()) + 1e-6 * top)
+            if ratio > worst:
+                worst, leaf = ratio, k
+        check(worst <= 1.0, f"fold {shape} gradient {leaf}: {worst:.3e} of its budget")
+        say(f"fold_loss_fn {shape} D={cfg.node_dim} P={cfg.pair_dim} {cfg.n_blocks} blocks B="
+            f"{cfg.batch_size} crop {cfg.crop_len}: ok, loss {float(total)!r} vs one process "
+            f"{float(loss_r)!r} ({rel:.2e}), worst gradient leaf {leaf} at {worst:.2e} of its budget; "
+            f"ring {model.trunk_cfg.ring_mesh is not None}; calls {calls}")
+        del model, grads, whole
+    del plain, grads_r
+
+
+def train_mesh_check(dev, say):
+    """train --mesh 2,2,1 --zero1 and --mesh 1,2,2 (eval on rank 0, unsharded)
+    for 3 steps against the same steps without a mesh on rank 0."""
+    from protstruc_tpu_torch.__main__ import main as cli
+
+    cfg = _fold_cfg(dev)
+    paths = [str(DATA / p) for p in TRAIN_PDBS]
+    argv = ["--batch-size", str(cfg.batch_size), "--crop", str(cfg.crop_len), "--node-dim", "128",
+            "--pair-dim", "64", "--blocks", str(cfg.n_blocks), "--recycle", "1", "--pair-update",
+            "triangle", "--remat", "--fused-tri", "--flash-attn", "--seed", "0", "--steps", "3",
+            "--save-every", "3", "--device", str(dev)]
+    tmp = [tempfile.mkdtemp(prefix="nccl_ranks_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(tmp)
+    runs = {"plain": (), "2,2,1": ("--mesh", "2,2,1", "--zero1"),
+            "1,2,2": ("--mesh", "1,2,2", "--eval", str(DATA / "1REX.pdb"))}
+    secs = {}
+    for name, extra in runs.items():
+        if extra or dist.get_rank() == 0:
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+                sync(dev)
+                t0 = time.perf_counter()
+                check(cli(["train", *paths, "--checkpoint-dir", str(pathlib.Path(tmp[0]) / name),
+                           *argv, *extra]) == 0, f"train {name}: {err.getvalue()[-2000:]}")
+                sync(dev)
+                secs[name] = time.perf_counter() - t0
+        dist.barrier()
+    if dist.get_rank() == 0:
+        losses = {name: [json.loads(ln)["loss"] for ln in (pathlib.Path(tmp[0]) / name / "metrics.jsonl")
+                         .read_text().splitlines() if '"loss"' in ln] for name in runs}
+        ref = losses["plain"]
+        for name in ("2,2,1", "1,2,2"):
+            got = losses[name]
+            check(len(got) == 3, f"train --mesh {name} losses {got}")
+            check(abs(got[0] - ref[0]) <= 1e-5 * abs(ref[0]), f"train --mesh {name} step 1 {got} vs {ref}")
+            check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(got, ref)),
+                  f"train --mesh {name} losses {got} vs {ref}")
+        say(f"train --mesh 2,2,1 --zero1 and --mesh 1,2,2 (eval) vs no mesh, 3 steps at fold_loo's "
+            f"width, B={cfg.batch_size} crop {cfg.crop_len}: ok, losses {losses}; seconds (set-up "
+            f"included) {secs}")
+        import shutil
+        shutil.rmtree(tmp[0], ignore_errors=True)
+    dist.barrier()
+
+
+def moe_check(dev, say):
+    """MoEMLP with its experts over dp on (4, 1, 1) against one process."""
+    from protstruc_tpu_torch.models.moe import MoEMLP, moe_param_shardings
+    from protstruc_tpu_torch.parallel.mesh import cut, cut_params, make_mesh
+
+    n = dist.get_world_size()
+    mesh = make_mesh(axis_shapes=(n, 1, 1))
+    g = torch.Generator().manual_seed(5)
+    x, ct = (torch.randn(n, 256, 128, generator=g).to(dev) for _ in range(2))
+    mask = (torch.rand(n, 256, generator=g) > 0.2).to(dev)
+    res = {}
+    for ep in (False, True):
+        m = MoEMLP(128, n_experts=8, hidden_dim=512, device=dev,
+                   mesh=mesh if ep else None, ep_axis="dp" if ep else None)
+        whole = MoEMLP(128, n_experts=8, hidden_dim=512, device=dev)
+        gen = torch.Generator().manual_seed(6)
+        for mod in whole.modules():   # the router too: MoEMLP's own reset draws the experts
+            mod.reset_parameters(gen)
+        sd = whole.state_dict()
+        m.load_state_dict(cut_params(sd, moe_param_shardings(sd, mesh), mesh) if ep else sd)
+        xi = (cut(x, ("dp",), mesh) if ep else x).clone().requires_grad_()
+        out, aux = m(xi, cut(mask, ("dp",), mesh) if ep else mask)
+        c = cut(ct, ("dp",), mesh) if ep else ct
+        with counted() as calls:
+            ((out * c).sum() + aux / (n if ep else 1)).backward()
+        res[ep] = (out.detach(), float(aux.detach()), xi.grad, m.w1.grad, calls)
+    (out_r, aux_r, dx_r, w1_r, _), (out, aux, dx, w1, calls) = res[False], res[True]
+    r, El = dist.get_rank(), 8 // n
+    blk = slice(r, r + 1)
+    scale = lambda t: max(1.0, float(t.abs().max()))  # noqa: E731
+    errs = [within(out_r[blk], out, 1e-5 * scale(out_r), "moe out"),
+            within(dx_r[blk], dx, 1e-5 * scale(dx_r), "moe dx"),
+            within(w1_r[r * El:(r + 1) * El], w1, 1e-5 * scale(w1_r), "moe w1 grad")]
+    check(abs(aux - aux_r) <= 1e-6 * max(1.0, abs(aux_r)), f"moe aux {aux} vs {aux_r}")
+    say(f"MoEMLP (8 experts, D=128, H=512) over dp={n} (moe_param_shardings) B={n} L=256: ok, max err "
+        f"{max(errs):.3e}, aux {aux:.6f} vs {aux_r:.6f}; backward calls {calls}")
+
+
+def _step_timing(dev, cfg, mesh, feats, xyz, reps):
+    """ms/step of a train step on this rank (host clock around synchronised
+    steps after two warm-ups; every rank steps together), peak GiB, one step
+    under torch.profiler (NCCL device ms, busy device ms), and one step's
+    collectives ({kind: calls}, {kind: payload bytes})."""
+    from protstruc_tpu_torch.models.checkpoint import load_whole_state
+    from protstruc_tpu_torch.parallel.mesh import cut, shard_feats
+    from protstruc_tpu_torch.train import TrainOptimizer, _build_model, train_step
+
+    plain = _build_model(cfg, dev)
+    plain.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    model = plain if mesh is None else _build_model(cfg, dev, mesh)
+    if mesh is not None:
+        load_whole_state(model, plain.state_dict())
+        del plain
+        feats, xyz = shard_feats(feats, mesh), cut(xyz, ("dp", "sp"), mesh)
+    params = dict(model.named_parameters())
+    opt = TrainOptimizer(params, cfg, shard=model.shard)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        train_step(model, params, opt, feats, None, xyz)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        train_step(model, params, opt, feats, None, xyz)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    moved = {}
+    with counted(moved) as calls:
+        train_step(model, params, opt, feats, None, xyz)
+        sync(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        train_step(model, params, opt, feats, None, xyz)
+        sync(dev)
+    busy = sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages()) / 1e3
+    nccl = _nccl_ms(prof)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return ms, peak, nccl, busy, {k: n for k, n in calls.items() if n}, moved
+
+
+#: how the port issues each call kind, to time it alone: (x of ``nbytes``
+#: bytes, group) -> the call
+def _alone(kind, x, group):
+    n = dist.get_world_size(group)
+    if kind in ("all_gather_into_tensor", "all_gather_single"):
+        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+        return lambda: getattr(dist, kind)(out, x, group=group)
+    if kind in ("reduce_scatter_tensor", "reduce_scatter_single"):
+        out = torch.empty(x.numel() // n, dtype=x.dtype, device=x.device)
+        return lambda: getattr(dist, kind)(out, x[:out.numel() * n], group=group)
+    if kind == "all_reduce":
+        return lambda: dist.all_reduce(x, group=group)
+    if kind == "all_to_all":
+        chunks = list(x[:x.numel() // n * n].chunk(n))
+        outs = [torch.empty_like(c) for c in chunks]
+        return lambda: dist.all_to_all(outs, chunks, group=group)
+    if kind == "batch_isend_irecv":   # the ring's exchange: to rank r - 1, from r + 1
+        r = dist.get_rank(group)
+        buf = torch.empty_like(x)
+        to, frm = (dist.get_global_rank(group, (r + s) % n) for s in (-1, 1))
+
+        def call():
+            for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to, group),
+                                             dist.P2POp(dist.irecv, buf, frm, group)]):
+                w.wait()
+        return call
+    return None
+
+
+#: back-to-back calls in one timed run of a call kind, and the runs of each
+EXCHANGE_ITERS, EXCHANGE_RUNS = 25, 3
+
+
+def _nccl_ms(prof) -> float:
+    """The NCCL kernels' device ms in a profile."""
+    return sum(getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0))
+               for ev in prof.key_averages() if "nccl" in ev.key.lower()) / 1e3
+
+
+def exchange_estimate(dev, calls, moved):
+    """Each call kind of a step timed alone at its mean payload on the four
+    ranks.  A run is ``EXCHANGE_ITERS`` back-to-back calls issued after a
+    barrier and a device sync on every rank, so a rank's late start is
+    spread over the run: CUDA events around each of ``EXCHANGE_RUNS`` runs
+    (ms a call: the fastest run's mean and the slowest's), then one run under
+    torch.profiler (the NCCL kernels' device ms a call).  Returns ({kind:
+    (calls, mean MB, fastest ms, slowest ms, kernel ms)}, the step's transfer
+    time: the sum of calls x fastest ms a call)."""
+    out, total = {}, 0.0
+    for kind, n in calls.items():
+        nbytes = moved.get(kind, 0) // max(n, 1)
+        x = torch.randn(max(nbytes // 4, 4 * dist.get_world_size()), device=dev)
+        fn = _alone(kind, x, dist.group.WORLD)
+        if fn is None or nbytes == 0:
+            continue
+        for _ in range(3):
+            fn()
+        runs = []
+        for _ in range(EXCHANGE_RUNS):
+            dist.barrier()
+            sync(dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(EXCHANGE_ITERS):
+                fn()
+            end.record()
+            sync(dev)
+            runs.append(start.elapsed_time(end) / EXCHANGE_ITERS)
+        dist.barrier()
+        sync(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(EXCHANGE_ITERS):
+                fn()
+            sync(dev)
+        out[kind] = (n, nbytes / 1e6, min(runs), max(runs), _nccl_ms(prof) / EXCHANGE_ITERS)
+        total += n * min(runs)
+    return out, total
+
+
+def timing_check(dev, say, smi):
+    """Train-step timings at (1, 4, 1) and (1, 1, 4) against one card, at
+    crop 256 B=4 and for 8gpi at crop 1024 B=1."""
+    from protstruc_tpu_torch.parallel.mesh import make_mesh
+
+    for crop, files in ((256, FOLD_PDBS), (1024, ("8gpi.pdb",))):
+        cfg = _fold_cfg(dev, crop_len=crop, batch_size=len(files))
+        feats, xyz = _fold_batch(dev, cfg, files)
+        rows, exch = {}, {}
+        if dist.get_rank() == 0:
+            rows["one card"] = _step_timing(dev, cfg, None, feats, xyz, 3)
+        dist.barrier()
+        for shape in ((1, 4, 1), (1, 1, 4)):
+            mesh = make_mesh(axis_shapes=shape)
+            rows[shape] = _step_timing(dev, dataclasses.replace(cfg, mesh_shape=shape), mesh,
+                                       feats, xyz, 3)
+            peaks = torch.tensor([rows[shape][1]], device=dev)
+            dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+            rows[shape] = (rows[shape][0], float(peaks), *rows[shape][2:])
+            exch[shape] = exchange_estimate(dev, *rows[shape][4:])
+        say(f"timing train step D=128 P=64 4 blocks recycle 1 f32 B={cfg.batch_size} crop {crop} "
+            f"({', '.join(files)}) [{smi.splitlines()[0]} x {dist.get_world_size()}]: " + "; ".join(
+                f"{k}: {r[0]:.2f} ms/step, peak {r[1]:.2f} GiB a rank, profiled step NCCL {r[2]:.2f} "
+                f"of {r[3]:.2f} ms device busy (rank 0)" for k, r in rows.items()))
+        for shape, (kinds, total) in exch.items():
+            say(f"  exchanges of one {shape} step (rank 0; alone, {EXCHANGE_ITERS} calls a run, "
+                f"ms a call: fastest-slowest of {EXCHANGE_RUNS} runs by CUDA events, NCCL kernel "
+                "time by torch.profiler): " + "; ".join(
+                    f"{k} {n} calls of {mb:.3f} MB, {lo:.4f}-{hi:.4f} ms, kernel {kern:.4f} ms"
+                    for k, (n, mb, lo, hi, kern) in kinds.items())
+                + f"; transfer {total:.2f} ms of the {rows[shape][0]:.2f} ms step")
+        del feats, xyz
+
+
 def main(argv=()) -> int:
     from protstruc_tpu_torch.parallel.mesh import init_distributed
 
@@ -285,10 +673,14 @@ def main(argv=()) -> int:
                              capture_output=True, text=True, timeout=60).stdout.strip()
         say(f"{dist.get_world_size()} ranks on NCCL: {smi}")
     else:
+        smi = None
         say(f"{dist.get_world_size()} ranks on gloo (CPU)")
     t0 = time.perf_counter()
-    for fn in (ring_check, featurize_check, pipeline_check, train_check):
+    for fn in (ring_check, featurize_check, pipeline_check, train_check, fold_check,
+               train_mesh_check, moe_check):
         fn(dev, say)
+    if dev.type == "cuda":
+        timing_check(dev, say, smi)
     say(f"nccl_ranks: every check passed in {time.perf_counter() - t0:.2f} s")
     dist.destroy_process_group()
     return 0

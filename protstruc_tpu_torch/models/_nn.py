@@ -29,9 +29,10 @@ compute what flax computes and store what flax stores:
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -67,19 +68,48 @@ class Dense(nn.Module):
     (*in_shape, *out_shape)`` and adds ``bias (*out_shape,)``: ``Dense(C, F)``
     is ``nn.Dense(F)``, ``Dense(D, (3, h, dh))`` is ``nn.DenseGeneral((3, h,
     dh))`` and ``Dense((h, dh), D)`` is ``nn.DenseGeneral(D, axis=(-2, -1))``.
+
+    ``split=(d, group)``: tensor parallelism.  The kernel is this rank's
+    chunk along its dim ``d`` over the ``group``'s ranks (initialised from
+    the whole kernel's draws); the bias stays whole, as the JAX sharding
+    rules leave it.  A split output dim gives this rank's columns with its
+    chunk of the bias (the caller passes the input through
+    ``collectives.copy_to``); a split input dim takes this rank's chunk of
+    the input and sums the partial products over the group
+    (``collectives.reduce_from``) before the bias.  ``split=(d, None)``, over
+    no group (an unsharded model), is no split.
     """
 
     def __init__(self, in_shape: Shape, out_shape: Shape, dtype: torch.dtype = torch.float32,
-                 device="cuda"):
+                 device="cuda", split: Optional[Tuple[int, object]] = None):
         super().__init__()
         device = resolve_device(device)
         self.in_shape, self.out_shape = _tuple(in_shape), _tuple(out_shape)
+        self.full_shape = self.in_shape + self.out_shape
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape, device=device))
-        self.bias = nn.Parameter(torch.zeros(self.out_shape, device=device))
+        self.split = split = None if split is None or split[1] is None else split
+        shape = self.full_shape
+        if split is not None:  # tensor parallel: this rank's chunk of the kernel
+            d, group = split
+            n, self.split_rank = dist.get_world_size(group), dist.get_rank(group)
+            if shape[d] % n:
+                raise ValueError(f"kernel dim {d} of size {shape[d]} does not split over tp={n}")
+            shape = shape[:d] + (shape[d] // n,) + shape[d + 1:]
+            k = len(self.in_shape)
+            self.in_shape, self.out_shape = shape[:k], shape[k:]
+        self.kernel = nn.Parameter(torch.empty(shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(self.full_shape[len(self.in_shape):], device=device))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        lecun_normal_(self.kernel, gen, math.prod(self.in_shape))
+        fan_in = math.prod(self.full_shape[:len(self.in_shape)])
+        if self.split is None:
+            lecun_normal_(self.kernel, gen, fan_in)
+        else:  # the whole kernel's draws, this rank's chunk kept
+            d, group = self.split
+            whole = torch.empty(self.full_shape, device=self.kernel.device)
+            lecun_normal_(whole, gen, fan_in)
+            with torch.no_grad():
+                self.kernel.copy_(whole.chunk(dist.get_world_size(group), d)[self.split_rank])
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +117,16 @@ class Dense(nn.Module):
         n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
         lead = x.shape[:x.dim() - k]
         y = x.to(dt).reshape(*lead, n_in) @ self.kernel.to(dt).reshape(n_in, n_out)
-        return (y + self.bias.to(dt).reshape(n_out)).reshape(*lead, *self.out_shape)
+        bias = self.bias
+        if self.split is not None:
+            d, group = self.split
+            if d < k:  # input dims split: partial products, summed over tp
+                from protstruc_tpu_torch.parallel.collectives import reduce_from
+
+                y = reduce_from(y, group)
+            else:      # output dims split: this rank's chunk of the (replicated) bias
+                bias = bias.chunk(dist.get_world_size(group), d - k)[self.split_rank]
+        return (y + bias.to(dt).reshape(n_out)).reshape(*lead, *self.out_shape)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

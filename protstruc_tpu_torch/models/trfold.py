@@ -37,6 +37,33 @@ stages over a ``pp`` process group (``parallel/pipeline.py``).
 (``ops/flash_attn.py``), and ``featurize_for_model(fused=True)`` the
 featurization through K3 (``ops/model_features.py``).
 
+Model parallelism (``TrFold(cfg, mesh=...)``, ``mesh`` a ``(dp, sp, tp)``
+``DeviceMesh`` of ``parallel/mesh.make_mesh``) follows the JAX package's
+sharding rules, :func:`param_shardings` and :func:`feats_shardings`: each
+rank holds its ``B / dp`` structures and ``L / sp`` residue rows of every
+feature (``parallel.mesh.shard_feats``), the node stream ``(B, L/sp, D)`` and
+the pair rows ``(B, L/sp, L, P)``, and its ``1 / tp`` of the attention heads
+and the MLP hidden dim, whose kernels it stores as its chunk (``_nn.Dense``
+``split``).  GSPMD's collectives are written out (``parallel/collectives.py``):
+
+* attention: Megatron's ``copy_to``/``reduce_from`` around the local heads,
+  the pair bias computed for every head and split (its cotangent gathered);
+  under sp the keys and values all-gathered, or with ``use_flash_attn`` the
+  ring over sp on K8/K9's lse entry point (``ops/ring_attn.py``;
+  ``cfg.ring_mesh`` is set to the mesh then, as JAX's trainer sets it);
+* the outer product and the outgoing triangle gather the ``b`` side over sp;
+  the incoming triangle and the gated mix's column context take the
+  partial sum over the local rows k and reduce-scatter it over i; the gated
+  mix's row context gathers ``pm`` and its denominator counts the whole
+  mask; K4-K7 run on the local rows (``fused_triangle_multiplication`` with
+  a row and a column mask);
+* the heads' ``pair + pairᵀ`` is an all-to-all of the column blocks;
+* relative positions are taken from global row indices.
+
+A sharded model computes what the unsharded one computes; the losses
+(``loss_fn``, ``models/ipa.fold_loss_fn``) are each rank's share of the
+global loss, with counts summed over the dp x sp ranks.
+
 ``featurize_for_model(include_chi=True)`` adds the sidechain chi angles,
 embedded by ``chi_embed``, which ``TrFold(chi=True)`` builds (flax
 creates it at init from such features).  ``DiffusionDenoiser`` is the
@@ -44,10 +71,6 @@ epsilon-prediction model over noisy CA coordinates, and
 ``predict_structure`` decodes the heads to a backbone
 (distogram expectation, ``ops/reconstruct.py``, ``ops/idealize.py``).
 
-Not ported yet (constructing a model that needs them raises
-``NotImplementedError``): ring attention inside the model (``ring_mesh``)
-and the sharding rules (``param_shardings``); ``ops/ring_attn.py`` is the
-ring itself.
 """
 
 from __future__ import annotations
@@ -68,6 +91,9 @@ from protstruc_tpu_torch.ops.flash_attn import flash_pair_bias_attention
 from protstruc_tpu_torch.ops.histogram import distogram_bins
 from protstruc_tpu_torch.ops.model_features import model_inputs
 from protstruc_tpu_torch.ops.tri_mul import fused_triangle_multiplication, in_tri_prod, tri_prod
+from protstruc_tpu_torch.parallel.collectives import (all_gather, all_to_all, copy_to,
+                                                      reduce_scatter, split_to)
+from protstruc_tpu_torch.parallel.mesh import UNSHARDED
 from protstruc_tpu_torch.parallel.zero import mean_denominator
 
 __all__ = [
@@ -82,6 +108,8 @@ __all__ = [
     "DiffusionDenoiser",
     "predict_structure",
     "pipeline_apply",
+    "param_shardings",
+    "feats_shardings",
 ]
 
 
@@ -111,14 +139,49 @@ class TrFoldConfig:
 
 
 def _check_ported(cfg: TrFoldConfig) -> None:
-    """Raise for the options whose code is not ported yet."""
+    """Raise for options that do not exist."""
     if cfg.remat_policy not in _REMAT_POLICIES:
         raise ValueError(f"remat_policy must be 'none', 'tri_dots' or 'dots', got {cfg.remat_policy!r}")
-    if cfg.ring_mesh is not None:
-        raise NotImplementedError("ring attention inside TrFold (ring_mesh) is not yet ported "
-                                  "(ROADMAP A.8); ops/ring_attn.py is the ring itself")
     if cfg.pair_update not in ("gated_mix", "triangle"):
         raise ValueError(f"pair_update must be 'gated_mix' or 'triangle', got {cfg.pair_update!r}")
+
+
+def _with_mesh(cfg: TrFoldConfig, mesh):
+    """``(cfg, shard)`` of a model over ``mesh`` (``cfg.ring_mesh`` names it
+    too): ``cfg.ring_mesh`` is the mesh when flash attention meets sp > 1
+    (JAX's train.py:424-427) and None otherwise; ``shard`` is this rank's
+    ``parallel.mesh.ModelShard``, None without a mesh."""
+    if cfg.ring_mesh is not None:
+        if mesh is not None and mesh is not cfg.ring_mesh:
+            raise ValueError("cfg.ring_mesh and mesh name different meshes")
+        mesh = cfg.ring_mesh
+    if mesh is None:
+        return cfg, None
+    from protstruc_tpu_torch.parallel.mesh import model_shard
+
+    shard = model_shard(mesh)
+    tp = shard.tp[1]
+    for what, n in (("n_heads", cfg.n_heads), ("the MLP hidden dim 4 * node_dim", 4 * cfg.node_dim)):
+        if n % tp:
+            raise ValueError(f"{what} = {n} does not split over tp={tp}")
+    ring = mesh if cfg.use_flash_attn and shard.sp[1] > 1 else None
+    return dataclasses.replace(cfg, ring_mesh=ring), shard
+
+
+def gather_rows(x: torch.Tensor, shard) -> torch.Tensor:
+    """``x`` ``(B, L/sp, ...)`` all-gathered over sp along the residue axis
+    (``x`` itself without a shard); differentiable (reduce-scatter back)."""
+    group = (shard or UNSHARDED).sp_group
+    if group is not None and x.dtype == torch.bool:
+        return all_gather(x.to(torch.uint8), 1, group).bool()
+    return all_gather(x, 1, group)
+
+
+def scatter_rows(x: torch.Tensor, shard) -> torch.Tensor:
+    """``x`` ``(B, L, ...)``, a rank's partial sum over its rows k, summed
+    over sp with this rank's block of the residue axis kept (``x`` itself
+    without a shard); differentiable (all-gather back)."""
+    return reduce_scatter(x, 1, (shard or UNSHARDED).sp_group)
 
 
 # ---------------------------------------------------------------------------
@@ -230,34 +293,53 @@ class PairBiasAttention(nn.Module):
     disallowed by ``extra_mask`` and the key mask are zeroed after the
     kernel, so their cotangent, and their ``ds``, ``dk`` and ``dv`` through
     K9, are exactly 0.
+
+    Sharded (``shard``): ``node (B, L/sp, D)`` and ``pair (B, L/sp, L, P)``
+    are this rank's rows, ``mask`` theirs and ``cols`` every key's ``(B,
+    L)``; the rank runs its tp heads (``qkv`` and ``out`` split, the input
+    through ``copy_to``) and returns its rows' output summed over tp.  The
+    keys and values are all-gathered over sp, or with flash attention and
+    ``cfg.ring_mesh`` go round the sp ring.  Without a shard every
+    collective is the identity.
     """
 
-    def __init__(self, cfg: TrFoldConfig, device="cuda"):
+    def __init__(self, cfg: TrFoldConfig, device="cuda", shard=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.shard = cfg, shard
         h, dh = cfg.n_heads, cfg.node_dim // cfg.n_heads
-        self.qkv = Dense(cfg.node_dim, (3, h, dh), cfg.dtype, device)
+        tp = (shard or UNSHARDED).tp_group
+        self.qkv = Dense(cfg.node_dim, (3, h, dh), cfg.dtype, device, split=(2, tp))
         self.pair_bias = Dense(cfg.pair_dim, h, cfg.dtype, device)
-        self.out = Dense((h, dh), cfg.node_dim, cfg.dtype, device)
+        self.out = Dense((h, dh), cfg.node_dim, cfg.dtype, device, split=(0, tp))
 
-    def forward(self, node, pair, mask, extra_mask=None, kv=None):
-        dt = self.cfg.dtype
+    def forward(self, node, pair, mask, extra_mask=None, kv=None, cols=None):
+        if self.shard is not None and (extra_mask is not None or kv is not None):
+            raise ValueError("a sharded PairBiasAttention takes no extra_mask or kv")
+        sh, dt = self.shard or UNSHARDED, self.cfg.dtype
         dh = self.cfg.node_dim // self.cfg.n_heads
-        qkv = self.qkv(node)
+        qkv = self.qkv(copy_to(node, sh.tp_group))
         q = qkv[..., 0, :, :]
         kv3 = qkv if kv is None else self.qkv(kv)  # same projection, second stream
         k, v = kv3[..., 1, :, :], kv3[..., 2, :, :]
-        bias = self.pair_bias(pair).permute(0, 3, 1, 2)  # (B, h, L, L)
+        # every head's bias, this rank's heads kept: the cotangent of the
+        # others comes back by an all-gather of (B, L/sp, L, h) instead of an
+        # all-reduce of the (B, L/sp, L, P) pair
+        bias = split_to(self.pair_bias(pair), 3, sh.tp_group).permute(0, 3, 1, 2)  # (B, h, L, L)
         if self.cfg.use_flash_attn:
+            if self.cfg.ring_mesh is not None:
+                from protstruc_tpu_torch.ops.ring_attn import ring_pair_bias_attention
+
+                return self.out(ring_pair_bias_attention(q, k, v, bias, mask, group=sh.sp_group))
             if extra_mask is None:
                 return self.out(flash_pair_bias_attention(q, k, v, bias, mask))
             fbias = (bias.float() + torch.where(extra_mask[:, None], 0.0, -1e9)).to(bias.dtype)
             out = flash_pair_bias_attention(q, k, v, fbias, mask)
             row_ok = (extra_mask & mask[:, None, :]).any(-1)
             return self.out(torch.where(row_ok[:, :, None, None], out, 0.0))
+        k, v = all_gather(k, 1, sh.sp_group), all_gather(v, 1, sh.sp_group)
         scale = torch.tensor(math.sqrt(dh), dtype=dt, device=node.device)
         logits = torch.einsum("blhd,bmhd->bhlm", q, k) / scale + bias
-        allowed = mask[:, None, None, :]
+        allowed = (mask if cols is None else cols)[:, None, None, :]
         if extra_mask is not None:
             allowed = allowed & extra_mask[:, None]
         neg = torch.tensor(-1e9, dtype=dt, device=node.device)
@@ -289,11 +371,17 @@ class _SplitDense(nn.Module):
 
 
 class PairUpdate(nn.Module):
-    """Outer-product node -> pair update plus gated row/column mixing."""
+    """Outer-product node -> pair update plus gated row/column mixing.
 
-    def __init__(self, cfg: TrFoldConfig, device="cuda"):
+    Sharded over sp (``shard``, rows i local): the outer product gathers
+    ``b``; the row context ``sum_k (g pm)_ik pm_kj`` gathers ``pm``; the
+    column context ``sum_k (g pm)_ki pm_kj`` takes the local rows k for every
+    (i, j) and reduce-scatters over i; the denominator counts every column.
+    """
+
+    def __init__(self, cfg: TrFoldConfig, device="cuda", shard=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.shard = cfg, shard
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
         self.outer_a = Dense(D, P, dt, device)
         self.outer_b = Dense(D, P, dt, device)
@@ -302,18 +390,19 @@ class PairUpdate(nn.Module):
         self.gate_col = Dense(P, P, dt, device)
         self.mix = _SplitDense(P, P, P, dt, device)
 
-    def forward(self, node, pair, mask):
-        cfg, dt = self.cfg, self.cfg.dtype
+    def forward(self, node, pair, mask, cols=None):
+        cfg, dt, sh = self.cfg, self.cfg.dtype, self.shard
         a, b = self.outer_a(node), self.outer_b(node)
-        pair = pair + a[:, :, None, :] * b[:, None, :, :]
+        pair = pair + a[:, :, None, :] * gather_rows(b, sh)[:, None, :, :]
         src = self.LayerNorm_0(pair) if cfg.pair_pre_norm else pair
         g_row = torch.sigmoid(self.gate_row(src))
         g_col = torch.sigmoid(self.gate_col(src))
         m = mask.to(dt)
-        pm = src * (m[:, :, None, None] * m[:, None, :, None])
-        denom = torch.clamp_min(m.sum(1), 1.0)[:, None, None, None]
-        row_ctx = torch.einsum("bikc,bkjc->bijc", g_row * pm, pm) / denom
-        col_ctx = torch.einsum("bkic,bkjc->bijc", g_col * pm, pm) / denom
+        mc = m if cols is None else cols.to(dt)
+        pm = src * (m[:, :, None, None] * mc[:, None, :, None])
+        denom = torch.clamp_min(mc.sum(1), 1.0)[:, None, None, None]
+        row_ctx = torch.einsum("bikc,bkjc->bijc", g_row * pm, gather_rows(pm, sh)) / denom
+        col_ctx = scatter_rows(torch.einsum("bkic,bkjc->bijc", g_col * pm, pm), sh) / denom
         mix = self.mix(row_ctx, col_ctx)
         if cfg.pair_pre_norm:
             return pair + mix
@@ -333,75 +422,92 @@ class TriangleMultiplication(nn.Module):
     unfused path is flax's LayerNorm and Dense layers in plain PyTorch.
     """
 
-    def __init__(self, cfg: TrFoldConfig, outgoing: bool = True, device="cuda"):
+    def __init__(self, cfg: TrFoldConfig, outgoing: bool = True, device="cuda", shard=None):
         super().__init__()
-        self.cfg, self.outgoing = cfg, outgoing
+        self.cfg, self.outgoing, self.shard = cfg, outgoing, shard
         C, dt = cfg.pair_dim, cfg.dtype
         self.ln_in = LayerNorm(C, dt, device)
         self.ln_out = LayerNorm(C, dt, device)
         for name in _TRI_DENSE:
             setattr(self, name, Dense(C, C, dt, device))
 
-    def forward(self, pair, mask):
+    def forward(self, pair, mask, cols=None):
         dt = self.cfg.dtype
+        contract = functools.partial(_tri_contract, self.outgoing, self.shard)
         if self.cfg.fused_tri:
             params = {n: (getattr(self, n).scale.to(dt), getattr(self, n).bias.to(dt))
                       for n in ("ln_in", "ln_out")}
             params.update({n: (getattr(self, n).kernel.to(dt), getattr(self, n).bias.to(dt))
                            for n in _TRI_DENSE})
-            return fused_triangle_multiplication(pair.to(dt), mask, params, self.outgoing)
+            return fused_triangle_multiplication(pair.to(dt), mask, params, self.outgoing,
+                                                 col_mask=cols, contract=contract)
         src = self.ln_in(pair)
-        m = (mask[:, :, None] & mask[:, None, :]).to(dt)[..., None]
+        m = (mask[:, :, None] & (mask if cols is None else cols)[:, None, :]).to(dt)[..., None]
         a = torch.sigmoid(self.a_gate(src)) * self.a_proj(src) * m
         b = torch.sigmoid(self.b_gate(src)) * self.b_proj(src) * m
-        prod = tri_prod(a, b, self.outgoing)
+        prod = contract(a, b)
         g = torch.sigmoid(self.out_gate(src))
         return g * self.out_proj(self.ln_out(prod))
 
 
+def _tri_contract(outgoing: bool, shard, a, b):
+    """The triangle contraction of this rank's rows (of every row without a
+    shard): outgoing ``sum_k a_ik b_jk`` with ``b`` gathered over sp;
+    incoming ``sum_k a_ki b_kj`` over the local rows k for every (i, j),
+    reduce-scattered over i."""
+    if outgoing:
+        return tri_prod(a, gather_rows(b, shard), True)
+    return scatter_rows(tri_prod(a, b, False), shard)
+
+
 class TrFoldBlock(nn.Module):
     """Attention + MLP (or MoE) on the node stream, then the pair update;
-    returns ``(node, pair, moe_aux)``."""
+    returns ``(node, pair, moe_aux)``.  ``cols``: the key mask ``(B, L)`` of
+    a sharded block (``mask`` is its rows')."""
 
-    def __init__(self, cfg: TrFoldConfig, device="cuda"):
+    def __init__(self, cfg: TrFoldConfig, device="cuda", shard=None):
         super().__init__()
         _check_ported(cfg)
-        self.cfg = cfg
+        self.cfg, self.shard = cfg, shard
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
+        tp = (shard or UNSHARDED).tp_group
         self.LayerNorm_0 = LayerNorm(D, dt, device)  # attention input
-        self.attn = PairBiasAttention(cfg, device)
+        self.attn = PairBiasAttention(cfg, device, shard)
         self.LayerNorm_1 = LayerNorm(D, dt, device)  # MLP input
         if cfg.moe_experts > 0:
             from protstruc_tpu_torch.models.moe import MoEMLP
 
-            self.moe = MoEMLP(D, cfg.moe_experts, 4 * D, device=device)
+            self.moe = MoEMLP(D, cfg.moe_experts, 4 * D, device=device,
+                              mesh=None if shard is None else shard.mesh)
         else:
-            self.mlp_in = Dense(D, 4 * D, dt, device)
-            self.mlp_out = Dense(4 * D, D, dt, device)
+            self.mlp_in = Dense(D, 4 * D, dt, device, split=(1, tp))
+            self.mlp_out = Dense(4 * D, D, dt, device, split=(0, tp))
         if cfg.pair_update == "triangle":
             self.outer_a = Dense(D, P, dt, device)
             self.outer_b = Dense(D, P, dt, device)
-            self.tri_out = TriangleMultiplication(cfg, True, device)
-            self.tri_in = TriangleMultiplication(cfg, False, device)
+            self.tri_out = TriangleMultiplication(cfg, True, device, shard)
+            self.tri_in = TriangleMultiplication(cfg, False, device, shard)
         else:
-            self.pair_update = PairUpdate(cfg, device)
+            self.pair_update = PairUpdate(cfg, device, shard)
 
-    def forward(self, node, pair, mask):
-        node = node + self.attn(self.LayerNorm_0(node), pair, mask)
+    def forward(self, node, pair, mask, cols=None):
+        sh = self.shard
+        node = node + self.attn(self.LayerNorm_0(node), pair, mask, cols=cols)
         mlp_in = self.LayerNorm_1(node)
         if self.cfg.moe_experts > 0:
             mlp, aux = self.moe(mlp_in, mask)
         else:
+            mlp_in = copy_to(mlp_in, (sh or UNSHARDED).tp_group)
             mlp = self.mlp_out(gelu(self.mlp_in(mlp_in)))
             aux = torch.zeros((), dtype=torch.float32, device=node.device)
         node = node + mlp
         if self.cfg.pair_update == "triangle":
             a, b = self.outer_a(node), self.outer_b(node)
-            pair = pair + a[:, :, None, :] * b[:, None, :, :]
-            pair = pair + self.tri_out(pair, mask)
-            pair = pair + self.tri_in(pair, mask)
+            pair = pair + a[:, :, None, :] * gather_rows(b, sh)[:, None, :, :]
+            pair = pair + self.tri_out(pair, mask, cols)
+            pair = pair + self.tri_in(pair, mask, cols)
         else:
-            pair = self.pair_update(node, pair, mask)
+            pair = self.pair_update(node, pair, mask, cols)
         return node, pair, aux
 
 
@@ -414,13 +520,17 @@ class TrFold(nn.Module):
     Parameters are created on ``device`` (float32, flax's names and shapes);
     :func:`make_train_state` or :meth:`reset_parameters` initialises them from
     an explicit generator.  ``chi=True`` adds ``chi_embed``, the embedding of
-    the ``include_chi`` features.
+    the ``include_chi`` features.  ``mesh``: a ``(dp, sp, tp)`` mesh to
+    shard over (module docstring); the model then takes this rank's block of
+    the features (``parallel.mesh.shard_feats``) and returns its rows.
     """
 
-    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda", chi: bool = False):
+    def __init__(self, cfg: TrFoldConfig = TrFoldConfig(), device="cuda", chi: bool = False,
+                 mesh=None):
         super().__init__()
         _check_ported(cfg)
         device = resolve_device(device)
+        cfg, self.shard = _with_mesh(cfg, mesh)
         self.cfg = cfg
         D, P, dt = cfg.node_dim, cfg.pair_dim, cfg.dtype
         self.seq_embed = Embed(cfg.vocab, D, dt, device)
@@ -431,7 +541,7 @@ class TrFold(nn.Module):
         self.ang_embed = Dense(6, P, dt, device)
         self.relpos_embed = Embed(2 * cfg.relpos_clip + 2, P, dt, device)
         for i in range(cfg.n_blocks):
-            self.add_module(f"block_{i}", TrFoldBlock(cfg, device))
+            self.add_module(f"block_{i}", TrFoldBlock(cfg, device, self.shard))
         if cfg.pair_pre_norm:
             self.final_node_norm = LayerNorm(D, dt, device)
             self.final_pair_norm = LayerNorm(P, dt, device)
@@ -475,14 +585,16 @@ class TrFold(nn.Module):
         ang = torch.where(feats["pair_mask"][..., None], ang, torch.zeros((), dtype=dt, device=ang.device))
         pair = pair + self.ang_embed(ang)
 
-        # clipped relative position, with a last class for cross-chain pairs
+        # clipped relative position, with a last class for cross-chain pairs;
+        # a sharded model's rows are global rows row0 .. row0 + L/sp
         L = feats["seq_idx"].shape[1]
-        ar = torch.arange(L, device=pair.device)
-        offset = ar[None, :, None] - ar[None, None, :]
+        row0, _ = (self.shard or UNSHARDED).rows(L)
+        rows = torch.arange(row0, row0 + L, device=pair.device)
+        offset = rows[None, :, None] - torch.arange(pair.shape[2], device=pair.device)
         clipped = offset.clamp(-cfg.relpos_clip, cfg.relpos_clip) + cfg.relpos_clip
         if "chain_idx" in feats:
             ci = feats["chain_idx"]
-            cross = ci[:, :, None] != ci[:, None, :]
+            cross = ci[:, :, None] != gather_rows(ci, self.shard)[:, None, :]
             clipped = torch.where(cross, 2 * cfg.relpos_clip + 1, clipped)
         return node, pair + self.relpos_embed(clipped)
 
@@ -491,7 +603,9 @@ class TrFold(nn.Module):
         if self.cfg.pair_pre_norm:
             node = self.final_node_norm(node)
             pair = self.final_pair_norm(pair)
-        pair_sym = pair + pair.transpose(1, 2)
+        # the rows of pairᵀ are the column blocks of every sp rank's rows
+        sp = (self.shard or UNSHARDED).sp_group
+        pair_sym = pair + all_to_all(pair, 2, 1, sp).transpose(1, 2)
         torsions = self.torsion_head(node)
         return {
             "distogram_logits": self.distogram_head(pair_sym),
@@ -501,12 +615,20 @@ class TrFold(nn.Module):
             "phi_sincos": self.phi_head(pair),
         }
 
-    def run_blocks(self, node, pair, mask):
+    def key_mask(self, mask):
+        """The key mask ``(B, L)``: ``mask``, the rows', gathered over sp
+        (``mask`` itself for an unsharded model)."""
+        return gather_rows(mask, self.shard)
+
+    def run_blocks(self, node, pair, mask, cols=None):
         """The blocks in order, each checkpointed under ``cfg.remat`` while
-        gradients are on; returns ``(node, pair, summed moe_aux)``."""
+        gradients are on; returns ``(node, pair, summed moe_aux)``.  ``cols``
+        (:meth:`key_mask`) is gathered here when not given."""
+        if cols is None:
+            cols = self.key_mask(mask)
         aux = torch.zeros((), dtype=torch.float32, device=node.device)
         for block in self.blocks:
-            node, pair, a = run_block(block, self.cfg, node, pair, mask)
+            node, pair, a = run_block(block, self.cfg, node, pair, mask, cols)
             aux = aux + a
         return node, pair, aux
 
@@ -544,15 +666,17 @@ _REMAT_POLICIES = {
 }
 
 
-def run_block(block, cfg: TrFoldConfig, node, pair, mask):
+def run_block(block, cfg: TrFoldConfig, node, pair, mask, cols=None):
     """One block, checkpointed under ``cfg.remat`` (with ``cfg.remat_policy``)
-    while gradients are on."""
+    while gradients are on.  The recompute re-issues a sharded block's
+    collectives, on every rank in the same order."""
+    args = (node, pair, mask) if cols is None else (node, pair, mask, cols)
     if not (cfg.remat and torch.is_grad_enabled()):
-        return block(node, pair, mask)
+        return block(*args)
     context = _REMAT_POLICIES[cfg.remat_policy]
     if context is None:
-        return checkpoint(block, node, pair, mask, use_reentrant=False)
-    return checkpoint(block, node, pair, mask, use_reentrant=False, context_fn=context)
+        return checkpoint(block, *args, use_reentrant=False)
+    return checkpoint(block, *args, use_reentrant=False, context_fn=context)
 
 
 # ---------------------------------------------------------------------------
@@ -575,11 +699,14 @@ def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
     ``params`` are the model's own parameters; the forward reads them through
     the module.  ``count_group``: a data-parallel process group whose ranks
     hold the other shards of the batch, over which every masked mean's count
-    is summed (``parallel/zero.mean_denominator``), or None.
+    is summed (``parallel/zero.mean_denominator``), or None; a sharded
+    model's default is its dp x sp group, and its loss is this rank's share.
     """
     _check_params(params, model)
     out = model(feats)
     cfg = model.cfg
+    if model.shard is not None and count_group is None:
+        count_group = model.shard.data_group
     if "d_cb_bins" in feats:
         target_bins = feats["d_cb_bins"]
     else:
@@ -608,7 +735,16 @@ def loss_fn(params: Dict[str, torch.Tensor], model: TrFold,
             sc = torch.stack([torch.sin(t), torch.cos(t)], dim=-1)
         err = torch.where(ok[..., None], (out[f"{key}_sincos"] - sc) ** 2, 0.0)
         pair_loss = pair_loss + err.sum() / mean_denominator(ok.sum(), count_group)
-    return ce + mse + pair_loss + cfg.moe_aux_weight * out["moe_aux_loss"]
+    return ce + mse + pair_loss + cfg.moe_aux_weight * moe_aux_share(out["moe_aux_loss"], model.shard)
+
+
+def moe_aux_share(aux: torch.Tensor, shard) -> torch.Tensor:
+    """This rank's share of the MoE load-balancing loss: a sharded model's
+    aux is the global one on every dp x sp rank (``models/moe.py``), so each
+    adds ``1 / (dp * sp)`` of it."""
+    if shard is None:
+        return aux
+    return aux / (shard.dp[1] * shard.sp[1])
 
 
 def pipeline_apply(params, model: TrFold, feats: Dict[str, torch.Tensor], mesh,
@@ -631,6 +767,8 @@ def pipeline_apply(params, model: TrFold, feats: Dict[str, torch.Tensor], mesh,
 
     _check_params(params, model)
     cfg = model.cfg
+    if model.shard is not None:
+        raise ValueError("pipeline_apply runs an unsharded model (its blocks are the stages)")
     _, S = mesh_coords(mesh, "pp")
     if cfg.n_blocks != S:
         raise ValueError(f"n_blocks {cfg.n_blocks} != pp axis size {S}")
@@ -706,6 +844,54 @@ def train_step(params, opt_state, feats, model: TrFold, tx: torch.optim.Optimize
     loss.backward()
     tx.step()
     return params, opt_state, loss.detach()
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+
+def param_shardings(params, mesh=None) -> Dict[str, tuple]:
+    """Each leaf's split, by parameter name (the JAX rules,
+    ``protstruc_tpu/models/trfold.py:836-862``, as ``PartitionSpec`` tuples:
+    per dim the mesh axis it is split over, ``()`` for a replicated leaf):
+
+    * attention ``qkv`` kernels ``(D, 3, h, dh)``: h over tp;
+    * attention ``out`` kernels ``(h, dh, D)``: h over tp;
+    * ``mlp_in`` kernel ``(D, 4D)``: the output dim over tp;
+    * ``mlp_out`` kernel ``(4D, D)``: the input dim over tp;
+    * everything else replicated.
+
+    ``params`` maps names to tensors (``dict(model.named_parameters())``);
+    ``mesh`` is accepted for the JAX signature and not read.
+    """
+    def spec_for(name, x):
+        names = name.split(".")
+        joined = "/".join(names)
+        if x.ndim == 4 and "qkv" in joined:
+            return (None, None, "tp", None)
+        if x.ndim == 3 and joined.endswith("out/kernel"):
+            return ("tp", None, None)
+        if "mlp_in" in joined and names[-1] == "kernel":
+            return (None, "tp")
+        if "mlp_out" in joined and names[-1] == "kernel":
+            return ("tp", None)
+        return ()
+
+    return {k: spec_for(k, v) for k, v in params.items()}
+
+
+def feats_shardings(mesh=None) -> Dict[str, tuple]:
+    """How each feature of ``featurize_for_model`` splits: B over dp, the
+    first residue axis over sp (``protstruc_tpu/models/trfold.py:865-886``)."""
+    pair, node = ("dp", "sp", None), ("dp", "sp")
+    return {
+        "seq_idx": node, "torsions": ("dp", "sp", None), "torsion_mask": ("dp", "sp", None),
+        "d_cb": pair, "omega": pair, "theta": pair, "phi": pair, "pair_mask": pair,
+        "residue_mask": node, "chain_idx": node,
+        "d_cb_bins": pair, "ang_sincos": ("dp", "sp", None, None),
+        "chi": ("dp", "sp", None), "chi_mask": ("dp", "sp", None),
+    }
 
 
 # ---------------------------------------------------------------------------

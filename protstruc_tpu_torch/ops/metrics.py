@@ -87,22 +87,27 @@ def gdt_ts(a, b, mask=None, align: bool = True) -> torch.Tensor:
 
 
 def lddt(pred, ref, mask=None, cutoff: float = 15.0, thresholds=(0.5, 1.0, 2.0, 4.0),
-         per_residue: bool = False) -> torch.Tensor:
+         per_residue: bool = False, rows=None) -> torch.Tensor:
     """Superposition-free lDDT over CA point sets ``(..., n, 3)``: over the
     pairs whose reference distance is below ``cutoff`` (self excluded), the
     mean fraction of distances kept within each threshold.  ``(...,)``, or
-    ``(..., n)`` with ``per_residue``."""
+    ``(..., n)`` with ``per_residue``.  ``rows=(r0, m)``: only the points
+    ``r0 .. r0 + m`` are scored, each against every point (a sequence-
+    parallel rank's residues; ``(..., m)`` with ``per_residue``)."""
     if mask is None:
         mask = torch.ones(pred.shape[:-1], dtype=torch.bool, device=pred.device)
+    n = pred.shape[-2]
+    r0, m = (0, n) if rows is None else rows
+    own = slice(r0, r0 + m)
 
-    def pdist(x):
-        d2 = ((x[..., :, None, :] - x[..., None, :, :]) ** 2).sum(-1)
+    def cdist(x):
+        d2 = ((x[..., own, None, :] - x[..., None, :, :]) ** 2).sum(-1)
         return torch.sqrt(torch.clamp_min(d2, 1e-12))
 
-    d_ref, d_pred = pdist(ref), pdist(pred)
-    n = pred.shape[-2]
-    eye = torch.eye(n, dtype=torch.bool, device=pred.device)
-    incl = ((d_ref < cutoff) & ~eye & mask[..., :, None] & mask[..., None, :]).to(pred.dtype)
+    d_ref, d_pred = cdist(ref), cdist(pred)
+    eye = (torch.arange(r0, r0 + m, device=pred.device)[:, None]
+           == torch.arange(n, device=pred.device)[None, :])
+    incl = ((d_ref < cutoff) & ~eye & mask[..., own, None] & mask[..., None, :]).to(pred.dtype)
     diff = torch.abs(d_ref - d_pred)
     preserved = sum((diff < t).to(pred.dtype) for t in thresholds) / len(thresholds)
     dims = (-1,) if per_residue else (-2, -1)

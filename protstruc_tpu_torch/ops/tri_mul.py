@@ -422,7 +422,8 @@ def tri_prod(a, b, outgoing: bool = True):
         _IN_TRI_PROD -= 1
 
 
-def fused_triangle_multiplication(pair, mask, params, outgoing=True):
+def fused_triangle_multiplication(pair, mask, params, outgoing=True, col_mask=None,
+                                  contract=None):
     """AF2 triangle multiplicative update through the fused kernels.
 
     ``pair``: ``(B, L, L, C)`` in the compute dtype; ``mask``: ``(B, L)``
@@ -432,18 +433,29 @@ def fused_triangle_multiplication(pair, mask, params, outgoing=True):
     ``(C, C)`` as ``(in, out)``, bias).  Returns ``g * update`` with pair's
     shape and dtype (the caller adds the residual).  Differentiable through
     both kernels' hand-written backwards.
+
+    A block of rows: ``pair`` ``(B, Li, L, C)`` (this rank's rows of a
+    sequence-parallel pair), ``mask`` ``(B, Li)`` the rows' mask and
+    ``col_mask`` ``(B, L)`` the columns' (default: ``mask``, the square
+    call).  K4-K7 work row by row over the ``(B*Li*L, C)`` rows, so a block
+    runs the same kernels; ``contract(a, b)`` replaces the contraction
+    (default :func:`tri_prod` in the direction given), e.g. one that gathers
+    ``b`` over the ranks (outgoing) or reduce-scatters the partial product
+    over local k (incoming), and must return ``(B, Li, L, C)``.
     """
     B, L, L2, C = pair.shape
     N = B * L * L2
     x = pair.reshape(N, C).contiguous()
-    m = (mask[:, :, None] & mask[:, None, :]).to(pair.dtype).reshape(N)
+    cols = mask if col_mask is None else col_mask
+    m = (mask[:, :, None] & cols[:, None, :]).to(pair.dtype).reshape(N)
     ln_in_s, ln_in_b = params["ln_in"]
     a, b = _Prologue.apply(x, m, ln_in_s, ln_in_b,
                            *params["a_gate"], *params["a_proj"],
                            *params["b_gate"], *params["b_proj"])
     a = a.view(B, L, L2, C)
     b = b.view(B, L, L2, C)
-    prod = tri_prod(a, b, outgoing).reshape(N, C).contiguous()
+    prod = tri_prod(a, b, outgoing) if contract is None else contract(a, b)
+    prod = prod.reshape(N, C).contiguous()
     out = _Epilogue.apply(x, prod, ln_in_s, ln_in_b, *params["out_gate"],
                           *params["ln_out"], *params["out_proj"])
     return out.view(B, L, L2, C)

@@ -1,6 +1,7 @@
 """Multi-rank parallelism for the port: process groups and device meshes
-(``mesh.py``), GPipe pipelining (``pipeline.py``), data parallelism with
-ZeRO-1 (``zero.py``).  Port of ``protstruc_tpu/parallel``; the collectives
+(``mesh.py``), the differentiable collectives of a sharded model
+(``collectives.py``), GPipe pipelining (``pipeline.py``), data parallelism
+with ZeRO-1 (``zero.py``).  Port of ``protstruc_tpu/parallel``; the collectives
 the JAX package leaves to GSPMD are written out with ``torch.distributed``.
 """
 

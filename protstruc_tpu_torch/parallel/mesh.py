@@ -18,16 +18,18 @@ never gloo on a card.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["init_distributed", "make_mesh", "make_multislice_mesh", "batch_pspecs",
-           "shard_batch", "featurize_sharded", "mesh_coords"]
+           "shard_batch", "featurize_sharded", "mesh_coords", "ModelShard", "UNSHARDED",
+           "model_shard", "shard_feats", "cut", "cut_params"]
 
 #: How long a collective may wait before the group gives up (a hung peer
 #: fails the run rather than holding it).
@@ -161,16 +163,17 @@ def batch_pspecs(data_axes: Sequence[str] = ("dp",)) -> Dict[str, tuple]:
             "std": (b, None)}
 
 
-def shard_batch(batch, mesh):
+def shard_batch(batch, mesh, axes: Sequence[str] = ("dp", "sp")):
     """This rank's ``(B / dp, L / sp)`` block of a (global) StructureBatch.
 
     B must divide by the data axes (``dcn`` x ``dp`` on a multi-slice mesh)
     and L by ``sp`` (pad to a bucket first, ``utils/buckets.py``).  ``mu`` and
     ``std`` split along B; the host metadata (``chain_ids``, ``seq``) keeps
-    this rank's structures whole.
+    this rank's structures whole.  ``axes`` names the cuts to make: ``("dp",)``
+    keeps every residue, ``("sp",)`` every structure.
     """
-    bi, nb = _data_coords(mesh)
-    si, ns = mesh_coords(mesh, "sp")
+    bi, nb = _data_coords(mesh) if "dp" in axes else (0, 1)
+    si, ns = mesh_coords(mesh, "sp") if "sp" in axes else (0, 1)
     B, L = batch.batch_size, batch.n_residues
     if B % nb or L % ns:
         raise ValueError(f"batch (B={B}, L={L}) does not split over data axes {nb} and sp {ns}")
@@ -244,3 +247,98 @@ def featurize_sharded(batch, mesh, use_kernel: bool = True):
     x = batch.xyz
     frames = geom.gram_schmidt(x[:, :, 0], x[:, :, 1], x[:, :, 2])
     return maps, d[:, rows], m[:, rows], frames
+
+
+# ---------------------------------------------------------------------------
+# model parallelism: this rank's groups and blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This rank's place in a ``(dp, sp, tp)`` mesh, for a sharded model.
+
+    ``sp_group``/``tp_group``: this rank's sequence- and tensor-parallel
+    groups (tp is the innermost mesh dim); ``dp_group``: its data-parallel
+    group; ``data_group``: the dp x sp ranks of its tp coordinate, which hold
+    distinct residues and structures (masked-mean counts and gradient shares
+    are summed over it).  ``dp``/``sp``/``tp``: ``(index, size)`` along each
+    axis.  :data:`UNSHARDED` is an unsharded model's: no groups (the
+    collectives are then the identity), one rank on every axis.
+    """
+
+    mesh: Any
+    dp_group: Any
+    sp_group: Any
+    tp_group: Any
+    data_group: Any
+    dp: Tuple[int, int]
+    sp: Tuple[int, int]
+    tp: Tuple[int, int]
+
+    def rows(self, n_local: int) -> Tuple[int, int]:
+        """``(offset, count)``: the global residue rows of this rank's block
+        of ``n_local`` rows."""
+        return self.sp[0] * n_local, n_local
+
+
+#: The :class:`ModelShard` of a model without a mesh.
+UNSHARDED = ModelShard(None, None, None, None, None, (0, 1), (0, 1), (0, 1))
+
+
+def model_shard(mesh) -> ModelShard:
+    """The :class:`ModelShard` of this rank on ``mesh`` (a ``(dp, sp, tp)``
+    ``DeviceMesh``), built once per mesh: every rank must call it, since it
+    creates the dp x sp groups."""
+    cached = getattr(mesh, "_protstruc_model_shard", None)
+    if cached is not None:
+        return cached
+    dims = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if dims != ("dp", "sp", "tp"):
+        raise ValueError(f"a sharded model needs a (dp, sp, tp) mesh (parallel.mesh.make_mesh), "
+                         f"got {mesh!r}")
+    ranks = mesh.mesh.permute(2, 0, 1).reshape(mesh.size(2), -1).tolist()
+    data_group, _ = dist.new_subgroups_by_enumeration(ranks)
+    shard = ModelShard(mesh, mesh.get_group("dp"), mesh.get_group("sp"), mesh.get_group("tp"),
+                       data_group, *(mesh_coords(mesh, a) for a in ("dp", "sp", "tp")))
+    mesh._protstruc_model_shard = shard
+    return shard
+
+
+def cut(x: torch.Tensor, spec: Sequence[Optional[str]], mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor ``x``: dim ``d`` split over mesh
+    axis ``spec[d]`` (None, or past the spec's end: kept whole), as a
+    ``NamedSharding`` places it; a dim that does not divide raises
+    ``ValueError``, as JAX's placement does."""
+    for d, axis in enumerate(spec):
+        if axis is None:
+            continue
+        i, n = mesh_coords(mesh, axis)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of size {x.shape[d]} does not split over {axis}={n}")
+        x = x.narrow(d, i * (x.shape[d] // n), x.shape[d] // n)
+    return x
+
+
+def cut_params(params: Dict[str, torch.Tensor], specs: Dict[str, tuple], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """Every leaf of a whole parameter dict cut to this rank's block by its
+    spec (``models.ipa.ipa_param_shardings``, ``models.moe.moe_param_shardings``)."""
+    return {k: cut(v, specs.get(k, ()), mesh).contiguous() for k, v in params.items()}
+
+
+def shard_feats(feats: Dict[str, torch.Tensor], mesh, axes: Sequence[str] = ("dp", "sp")
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's block of every feature of ``featurize_for_model``'s dict,
+    cut by ``models.trfold.feats_shardings`` (B over dp, the first residue
+    axis over sp) along the mesh ``axes`` named (the trainer featurizes its
+    dp block whole and passes ``("sp",)``).  ``L % sp != 0`` raises
+    ``ValueError``."""
+    from protstruc_tpu_torch.models.trfold import feats_shardings
+
+    specs = feats_shardings(mesh)
+    out = {}
+    for k, v in feats.items():
+        spec = tuple(a if a in axes else None for a in specs.get(k, ()))
+        out[k] = cut(v, spec, mesh)
+    return out

@@ -11,12 +11,19 @@ insert the traffic; here it is written out for a ``dp`` process group:
   the count summed over it, so each rank's loss is its share of the global
   loss, the shares sum to it, and the summed gradients are the
   single-process gradients;
-* :func:`all_reduce_` sums gradients (one flat buffer);
+* :func:`all_reduce_` sums gradients (one flat buffer); a sharded model's
+  (``FoldModel(mesh=)``) are summed by :func:`sum_sharded_grads_`: over its
+  dp x sp ranks, whose losses are shares of one loss, and, for the
+  replicated leaves each tp rank uses in part (its heads' slice), over tp
+  too; a leaf split over tp, or used whole by every tp rank, is not summed
+  over tp (it would count tp times);
 * ZeRO-1 (Rajbhandari et al. 2020, section 5.1): :func:`zero1_owners` gives
   every parameter one owner rank, largest first onto the least-loaded rank
   (each rank then holds about 1/dp of the moment bytes, within one leaf);
   the owner alone keeps its AdamW moments and updates it, and
   :func:`broadcast_from_owners_` sends the updated parameters to every rank.
+  Under a sharded model the owners are ranks of the dp group, within each
+  (sp, tp) coordinate, whose ranks hold the same chunks.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["mean_denominator", "all_reduce_", "zero1_owners",
+__all__ = ["mean_denominator", "all_reduce_", "sum_sharded_grads_", "zero1_owners",
            "broadcast_from_owners_"]
 
 def mean_denominator(count: torch.Tensor, group=None) -> torch.Tensor:
@@ -50,6 +57,14 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group) -> None:
     for t in tensors:
         t.copy_(flat[o:o + t.numel()].view_as(t))
         o += t.numel()
+
+
+def sum_sharded_grads_(grads: Dict[str, torch.Tensor], shard, tp_partial=()) -> None:
+    """Sum a sharded model's gradients (by name) in place: every leaf over
+    ``shard.data_group`` (dp x sp), the leaves named in ``tp_partial``
+    (``models.ipa.tp_partial_grads``) over ``shard.tp_group`` as well."""
+    all_reduce_(list(grads.values()), shard.data_group)
+    all_reduce_([g for k, g in grads.items() if k in tp_partial], shard.tp_group)
 
 
 def zero1_owners(params: Dict[str, torch.Tensor], n: int) -> Dict[str, int]:

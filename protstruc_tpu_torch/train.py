@@ -23,18 +23,27 @@ without a card that default raises).  On the card ``load_fold_model`` keeps
 ``use_flash_attn`` and ``fused_tri`` as trained: the tensors' device decides
 between the kernels and their plain versions.
 
-``mesh_shape=(dp, 1, 1)`` trains data-parallel over a process group of dp
+``mesh_shape=(dp, sp, tp)`` trains over a process group of dp * sp * tp
 ranks (``parallel/mesh.init_distributed``: NCCL on cards, gloo on the CPU;
 under ``torchrun`` one rank a card): every rank draws the same global batch
 and crop, keeps its ``B / dp`` structures, divides its losses by the counts
 of the whole batch (``fold_loss_fn(count_group=)``) and sums the gradients, so
-a step equals the single-process step.  ``zero1`` gives each parameter's
-AdamW moments to one owner rank, which updates it and broadcasts it
-(``parallel/zero.py``); checkpoints hold the whole optimizer state in the
-single-process format.  Rank 0 alone writes ``metrics.jsonl``, checkpoints
-and evaluations; every rank resumes from the checkpoint.  Sequence and
-tensor parallelism (``sp > 1``, ``tp > 1``) are not ported yet (raise
-``NotImplementedError``).
+a step equals the single-process step.  With ``sp > 1`` or ``tp > 1`` the
+model is sharded (``FoldModel(mesh=)``, ``models/trfold.py``): K3 featurizes
+the dp block's whole crop and each rank keeps its ``L / sp`` rows
+(``parallel.mesh.shard_feats``), the heads and MLP hidden dim split over tp,
+and flash attention rings over sp.  Gradients are summed over the dp x sp
+ranks; the replicated leaves each tp rank uses in part
+(``models.ipa.tp_partial_grads``) over tp as well; the clip's global norm
+counts each tp-split leaf's chunks once.  ``zero1`` gives each parameter's
+AdamW moments to one owner rank of the dp group (within each (sp, tp)
+coordinate), which updates it and broadcasts it (``parallel/zero.py``);
+checkpoints hold whole parameters and the whole optimizer state in the
+single-process format whatever the mesh (the tp chunks gathered on save, cut
+again on restore), so a checkpoint trained on a mesh loads and folds in one
+process.  Rank 0 alone writes ``metrics.jsonl``, checkpoints and
+evaluations, which run unsharded (JAX strips ``ring_mesh`` for eval); every
+rank resumes from the checkpoint.
 Checkpoints are ``torch.save`` files, not the JAX package's orbax ones;
 weights cross over through ``convert.foldmodel_params_from_flax``.
 """
@@ -113,18 +122,30 @@ _SHAPE_FIELDS = ("node_dim", "pair_dim", "n_heads", "n_blocks", "n_ipa_iter", "n
                  "lr_schedule")
 
 
-def _check_ported(cfg: TrainConfig) -> None:
+def _check_config(cfg: TrainConfig) -> None:
     if cfg.zero1 and cfg.mesh_shape is None:
         raise ValueError(
             "zero1=True requires mesh_shape: ZeRO-1 partitions optimizer state over the dp "
             "mesh axis — without a mesh it would be silently ignored")
     if cfg.mesh_shape is not None:
+        import torch.distributed as dist
+
         if len(cfg.mesh_shape) != 3:
             raise ValueError(f"mesh_shape must be (dp, sp, tp), got {cfg.mesh_shape}")
-        if cfg.mesh_shape[1] > 1 or cfg.mesh_shape[2] > 1:
-            raise NotImplementedError(
-                f"mesh_shape={tuple(cfg.mesh_shape)}: sequence (sp > 1) and tensor (tp > 1) "
-                "parallelism inside the model are not yet ported (ROADMAP A.8); use (dp, 1, 1)")
+        n = math.prod(cfg.mesh_shape)
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        if n != world:
+            raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} needs dp*sp*tp = {n} ranks, but "
+                             f"the world size is {world}")
+
+
+def _model_mesh(cfg: TrainConfig, mesh):
+    """The mesh the model shards over: ``mesh`` when sp > 1 or tp > 1; a
+    data-parallel run keeps the model whole."""
+    if mesh is None or (cfg.mesh_shape[1] == 1 and cfg.mesh_shape[2] == 1):
+        return None
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -168,16 +189,33 @@ class TrainOptimizer:
     ``.grad`` (None counts as zero) and updates them in place.
     :meth:`state_dict` (ints, tensors and the AdamW state) is what a
     checkpoint holds.
+
+    ``shard``: the ``parallel.mesh.ModelShard`` of a sharded model, whose
+    ``params`` are this rank's chunks.  Gradients are then summed over its
+    dp x sp group (``count_group``, the losses' too), the tp-partial leaves
+    (``models.ipa.tp_partial_grads``) over tp, and ZeRO-1 partitions over its
+    dp group; :meth:`state_dict` gathers the tp-split leaves' state whole
+    and :meth:`load_state_dict` cuts it.
     """
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig, dp_group=None):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig, dp_group=None,
+                 shard=None):
+        from protstruc_tpu_torch.models.ipa import ipa_param_shardings, tp_partial_grads
         from protstruc_tpu_torch.models.trfold import adamw
         from protstruc_tpu_torch.parallel.zero import zero1_owners
 
-        self.params, self.cfg = params, cfg
-        # data parallelism: gradients summed over dp_group; with cfg.zero1
-        # each parameter's moments live on its owner rank alone
+        self.params, self.cfg, self.shard = params, cfg, shard
+        # data parallelism: gradients summed over count_group (dp, or dp x sp
+        # for a sharded model); with cfg.zero1 each parameter's moments live
+        # on its owner rank of dp_group alone
+        self.specs = self.tp_split = self.tp_partial = None
+        if shard is not None:
+            dp_group = shard.dp_group
+            self.specs = ipa_param_shardings(params)
+            self.tp_split = {k for k, sp in self.specs.items() if "tp" in sp}
+            self.tp_partial = set(tp_partial_grads(self.specs))
         self.dp_group = dp_group
+        self.count_group = shard.data_group if shard is not None else dp_group
         self.owners = None
         if dp_group is not None and cfg.zero1:
             import torch.distributed as dist
@@ -196,8 +234,9 @@ class TrainOptimizer:
         }
 
     def state_dict(self) -> dict:
-        """The state as a single-process run holds it; under ZeRO-1 a
-        collective (every rank calls it) that gathers the moments."""
+        """The state as a single-process run holds it; under ZeRO-1 or a
+        sharded model a collective (every rank calls it) that gathers the
+        moments, and the tp-split leaves' state whole."""
         sd = self.adamw.state_dict()
         if self.owners is not None:
             import torch.distributed as dist
@@ -207,9 +246,24 @@ class TrainOptimizer:
                     for i, st in sd["state"].items()}
             dist.all_gather_object(parts, mine, group=self.dp_group)
             sd = dict(sd, state={i: st for part in parts for i, st in sorted(part.items())})
-        return dict(self.state, adamw=sd)
+        state = dict(self.state, adamw=sd)
+        if self.shard is None:
+            return state
+        from protstruc_tpu_torch.models.checkpoint import gather_tp
+
+        names = list(self.params)
+        moments = {names[i]: {k: v for k, v in st.items() if k != "step"}
+                   for i, st in sd["state"].items()}
+        device = next(iter(self.params.values())).device
+        whole = gather_tp(moments, self.specs, self.shard, device)
+        sd = dict(sd, state={i: dict(st, **whole[names[i]]) for i, st in sd["state"].items()})
+        return dict(state, adamw=sd, **{key: (None if state[key] is None else
+                                              gather_tp(state[key], self.specs, self.shard))
+                                        for key in ("ema", "acc")})
 
     def load_state_dict(self, state: dict) -> None:
+        if self.shard is not None:  # a whole state: this rank's chunks
+            state = self._cut(state)
         for key in ("count", "mini_step"):
             self.state[key] = int(state[key])
         for key in ("ema", "acc"):
@@ -225,13 +279,33 @@ class TrainOptimizer:
                 if self.owners[k] != self.rank:
                     self.adamw.state.pop(p, None)
 
+    def _cut(self, state: dict) -> dict:
+        """A whole optimizer state cut to this rank's tp chunks."""
+        from protstruc_tpu_torch.parallel.mesh import cut
+
+        mesh, names = self.shard.mesh, list(self.params)
+
+        def cut_leaf(k, v):
+            return cut(v, self.specs[k], mesh).clone() if torch.is_tensor(v) and v.dim() else v
+
+        sd = state["adamw"]
+        sd = dict(sd, state={i: {k: cut_leaf(names[i], v) for k, v in st.items()}
+                             for i, st in sd["state"].items()})
+        return dict(state, adamw=sd, **{key: (None if state[key] is None else
+                                              {k: cut_leaf(k, v) for k, v in state[key].items()})
+                                        for key in ("ema", "acc")})
+
     @torch.no_grad()
     def step(self) -> bool:
         """One microbatch's gradients in; returns whether the params moved."""
         names = list(self.params)
         grads = [self.params[k].grad if self.params[k].grad is not None
                  else torch.zeros_like(self.params[k]) for k in names]
-        if self.dp_group is not None:
+        if self.shard is not None:
+            from protstruc_tpu_torch.parallel.zero import sum_sharded_grads_
+
+            sum_sharded_grads_(dict(zip(names, grads)), self.shard, self.tp_partial)
+        elif self.dp_group is not None:
             from protstruc_tpu_torch.parallel.zero import all_reduce_
 
             all_reduce_(grads, self.dp_group)  # each rank's share of the global loss
@@ -256,7 +330,16 @@ class TrainOptimizer:
     def _apply(self, names, grads) -> None:
         params = [self.params[k] for k in names]
         # clip_by_global_norm: scale by max_norm / norm unless norm < max_norm
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.shard is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:  # a tp-split leaf's chunks are on the tp ranks: count each once
+            import torch.distributed as dist
+
+            split = torch.tensor([k in self.tp_split for k in names], device=norms.device)
+            tp_sq = torch.where(split, norms ** 2, 0.0).sum()
+            dist.all_reduce(tp_sq, group=self.shard.tp_group)
+            norm = torch.sqrt(tp_sq + torch.where(split, 0.0, norms ** 2).sum())
         max_norm = self.cfg.grad_clip
         coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         for k, p, g in zip(names, params, torch._foreach_mul(grads, coef)):
@@ -285,7 +368,9 @@ class TrainOptimizer:
 # ---------------------------------------------------------------------------
 
 
-def _build_model(cfg: TrainConfig, device):
+def _build_model(cfg: TrainConfig, device, mesh=None):
+    """FoldModel of ``cfg`` on ``device``, sharded over ``mesh`` when given
+    (``cfg.ring_mesh`` is set by the model when flash meets sp > 1)."""
     from protstruc_tpu_torch.models.ipa import FoldModel, IPAConfig
     from protstruc_tpu_torch.models.trfold import TrFoldConfig
 
@@ -295,7 +380,7 @@ def _build_model(cfg: TrainConfig, device):
                          remat=cfg.remat, remat_policy=cfg.remat_policy,
                          use_flash_attn=cfg.use_flash_attn, fused_tri=cfg.fused_tri)
     return FoldModel(trunk_cfg=trunk, ipa_cfg=IPAConfig(n_heads=cfg.n_heads, n_iter=cfg.n_ipa_iter),
-                     n_recycle=cfg.n_recycle, device=device)
+                     n_recycle=cfg.n_recycle, device=device, mesh=mesh)
 
 
 def _model_device(model) -> torch.device:
@@ -308,7 +393,10 @@ def _featurize(batch, cfg: TrainConfig, trunk_cfg, generator: Optional[torch.Gen
     fused featurization; ``seq_idx_override`` ``(B, <= L)`` replaces stale
     ``seq`` metadata (eval windows) and is padded with UNK.  With a ``mesh``
     the crop is drawn for the whole batch and this rank keeps its ``B / dp``
-    structures (``parallel.mesh.shard_batch``) before the featurization."""
+    structures (``parallel.mesh.shard_batch``) before the featurization; a
+    sharded model's rank then keeps its ``L / sp`` rows of the features, the
+    target and the batch (K3 featurizes the whole crop, as an unpartitioned
+    kernel does under GSPMD)."""
     from protstruc_tpu_torch.models.trfold import featurize_for_model, featurize_from_sequence
     from protstruc_tpu_torch.vocab import AA
 
@@ -332,19 +420,25 @@ def _featurize(batch, cfg: TrainConfig, trunk_cfg, generator: Optional[torch.Gen
         if B % nb:
             raise ValueError(f"a batch of {B} structures does not split over dp={nb}: choose "
                              "batch_size and data whose batches divide by dp")
-        batch = shard_batch(batch, mesh)
+        batch = shard_batch(batch, mesh, axes=("dp",))
         if seq_idx is not None:
             seq_idx = seq_idx[bi * B // nb:(bi + 1) * B // nb]
     target = featurize_for_model(batch, fused=True, n_dist_bins=trunk_cfg.n_dist_bins,
                                  max_dist=trunk_cfg.max_dist)
     if seq_idx is not None:
         target["seq_idx"] = seq_idx
-    if not cfg.sequence_only:
-        return target, None, batch
-    feats = featurize_from_sequence(target["seq_idx"], batch.chain_idx,
-                                    n_dist_bins=trunk_cfg.n_dist_bins)
-    feats["residue_mask"] = batch.residue_mask
-    return feats, target, batch
+    feats = None
+    if cfg.sequence_only:
+        feats = featurize_from_sequence(target["seq_idx"], batch.chain_idx,
+                                        n_dist_bins=trunk_cfg.n_dist_bins)
+        feats["residue_mask"] = batch.residue_mask
+    if mesh is not None and _model_mesh(cfg, mesh) is not None:
+        from protstruc_tpu_torch.parallel.mesh import shard_feats
+
+        target = shard_feats(target, mesh, axes=("sp",))
+        feats = None if feats is None else shard_feats(feats, mesh, axes=("sp",))
+        batch = shard_batch(batch, mesh, axes=("sp",))
+    return (target, None, batch) if feats is None else (feats, target, batch)
 
 
 def train_step(model, params, opt: TrainOptimizer, feats, target, xyz) -> torch.Tensor:
@@ -355,7 +449,8 @@ def train_step(model, params, opt: TrainOptimizer, feats, target, xyz) -> torch.
     from protstruc_tpu_torch.models.ipa import fold_loss_fn
 
     model.zero_grad(set_to_none=True)
-    loss = fold_loss_fn(params, model, feats, xyz, target_feats=target, count_group=opt.dp_group)
+    loss = fold_loss_fn(params, model, feats, xyz, target_feats=target,
+                        count_group=opt.count_group)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -449,13 +544,13 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
     structures scored at every save and at the end.
     """
     from protstruc_tpu_torch.models.checkpoint import (
-        latest_step, restore_train_state, save_train_state)
+        latest_step, load_whole_state, restore_train_state, save_train_state, whole_state)
     from protstruc_tpu_torch.pdbio.dataset import StructureDataset
 
     device = resolve_device(device)
     if not paths:
         raise ValueError("train() needs at least one input structure")
-    _check_ported(cfg)
+    _check_config(cfg)
     mesh = dp_group = None
     lead = True  # this rank writes metrics, checkpoints and evaluations
     if cfg.mesh_shape is not None:
@@ -467,10 +562,15 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
         mesh = make_mesh(axis_shapes=cfg.mesh_shape)
         dp_group = mesh.get_group("dp")  # a group of one rank too: the same collectives
         lead = dist.get_rank() == 0
+        # flash + sequence parallelism = ring attention over sp (JAX's
+        # train.py:421-427): neither the bias nor the keys are gathered
+        if cfg.use_flash_attn and cfg.mesh_shape[1] > 1:
+            log_fn(f"[train] flash attention rings over sp={cfg.mesh_shape[1]}")
         log_fn(f"[train] mesh dp={cfg.mesh_shape[0]} sp={cfg.mesh_shape[1]} "
                f"tp={cfg.mesh_shape[2]} over {dist.get_world_size()} ranks"
                + (", ZeRO-1" if cfg.zero1 else ""))
-    model = _build_model(cfg, device)
+    model = _build_model(cfg, device, _model_mesh(cfg, mesh))
+    shard = model.shard
     ds = StructureDataset(paths, batch_size=cfg.batch_size, shuffle=cfg.shuffle, seed=cfg.seed,
                           device=device)
 
@@ -507,10 +607,10 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
             if params is None:
                 model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
                 params = dict(model.named_parameters())
-                opt = TrainOptimizer(params, cfg, dp_group=dp_group)
+                opt = TrainOptimizer(params, cfg, dp_group=dp_group, shard=shard)
                 if latest_step(checkpoint_dir) is not None:
                     saved, opt_saved, start_step = restore_train_state(checkpoint_dir)
-                    model.load_state_dict(saved)
+                    load_whole_state(model, saved)
                     opt.load_state_dict(opt_saved)
                     step = start_step
                     log_fn(f"[train] resumed from step {start_step}")
@@ -523,8 +623,8 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                 prof.__enter__()
             t_step = time.perf_counter()
             loss = train_step(model, params, opt, feats, target, batch.xyz)
-            if dp_group is not None:  # the ranks' shares sum to the global loss
-                dist.all_reduce(loss, group=dp_group)
+            if opt.count_group is not None:  # the ranks' shares sum to the global loss
+                dist.all_reduce(loss, group=opt.count_group)
             step += 1
             losses.append(float(loss))  # synchronises: host-visible step time
             step_ms = (time.perf_counter() - t_step) * 1e3
@@ -541,11 +641,12 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                                                    "ms": round(step_ms, 1),
                                                    "t": round(time.perf_counter() - t0, 1)})
             if cfg.save_every and step % cfg.save_every == 0:
-                opt_sd = opt.state_dict()  # a collective under ZeRO-1
+                opt_sd = opt.state_dict()  # a collective under ZeRO-1 or a sharded model
+                whole = whole_state(model)
                 if lead:
-                    save_train_state(checkpoint_dir, step, model.state_dict(), opt_sd)
+                    save_train_state(checkpoint_dir, step, whole, opt_sd)
                 if eval_paths and lead:
-                    ev = evaluate(model, params, eval_paths, cfg)
+                    ev = evaluate(*_eval_model(model, params, cfg, whole), eval_paths, cfg)
                     last_eval = (step, ev)
                     log_fn(f"[eval] step {step}: " + " ".join(f"{k}={v:.3f}" for k, v in ev.items()))
                     if cfg.metrics_jsonl:
@@ -554,8 +655,9 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
                 break
 
     opt_sd = opt.state_dict()
+    whole = whole_state(model)
     if lead:
-        save_train_state(checkpoint_dir, step, model.state_dict(), opt_sd)
+        save_train_state(checkpoint_dir, step, whole, opt_sd)
     if mesh is not None:
         dist.barrier()  # the checkpoint is on disk before any rank returns
     dt = time.perf_counter() - t0
@@ -565,7 +667,7 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
         if last_eval is not None and last_eval[0] == step:
             ev, fresh_eval = last_eval[1], False
         else:
-            ev, fresh_eval = evaluate(model, params, eval_paths, cfg), True
+            ev, fresh_eval = evaluate(*_eval_model(model, params, cfg, whole), eval_paths, cfg), True
         result.update(ev)
         log_fn("[eval] final: " + " ".join(
             f"{k}={v:.3f}" for k, v in result.items() if k.startswith("eval")))
@@ -575,6 +677,17 @@ def train(paths: Sequence[str], checkpoint_dir: str, cfg: TrainConfig = TrainCon
            f"({dt / max(step - start_step, 1) * 1e3:.0f} ms/step)"
            + (f", final loss {final_loss:.4f}" if losses else ""))
     return result
+
+
+def _eval_model(model, params, cfg: TrainConfig, whole):
+    """``(model, params)`` to evaluate: a sharded model's whole parameters
+    ``whole`` in an unsharded copy (evaluation runs on one rank, as JAX
+    strips ``ring_mesh`` for eval), else the model itself."""
+    if model.shard is None:
+        return model, params
+    plain = _build_model(cfg, _model_device(model))
+    plain.load_state_dict(whole)
+    return plain, dict(plain.named_parameters())
 
 
 # ---------------------------------------------------------------------------

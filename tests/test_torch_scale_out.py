@@ -455,9 +455,10 @@ def test_batch_pspecs_match_jax():
 
 
 def test_still_to_port_raises():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        moe.moe_param_shardings({}, None)
-    with pytest.raises(NotImplementedError, match="ring_mesh"):
+    # A.8 is ported: the MoE rule splits the experts, and a ring_mesh must be
+    # a (dp, sp, tp) mesh (tests/test_torch_model_parallel.py)
+    assert moe.moe_param_shardings({}, None) == {}
+    with pytest.raises(ValueError, match=r"\(dp, sp, tp\) mesh"):
         trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, ring_mesh=object()), device=DEVICE)
     with pytest.raises(RuntimeError, match="initialised process group"):
         mesh.make_mesh()

@@ -267,16 +267,16 @@ def test_cli_train_and_fold(tmp_path, capsys):
                      "--relax", "2", "--device", "cpu"]) == 0
     assert "relaxed 2 steps: energy" in capsys.readouterr().err
     assert len([ln for ln in open(out) if ln.startswith("ATOM")]) == 3 * 5
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match=r"needs dp\*sp\*tp = 2 ranks"):
         main(["train", pdb_path(PDBS[0]), "--checkpoint-dir", ck, "--mesh", "1,2,1",
               "--device", "cpu"])
 
 
 def test_unported_options_raise():
-    # the data-parallel mesh (dp, 1, 1) is ported (tests/test_torch_scale_out.py);
-    # sequence and tensor parallelism inside the model are not
+    # every mesh is ported (tests/test_torch_dist.py, tests/test_torch_model_parallel.py);
+    # one whose dp * sp * tp is not the world size is refused before any group starts
     for kw in (dict(mesh_shape=(1, 2, 1)), dict(mesh_shape=(1, 1, 2), zero1=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match=r"needs dp\*sp\*tp = 2 ranks"):
             train.train([pdb_path(PDBS[0])], "unused", train.TrainConfig(**kw), device=DEVICE)
     with pytest.raises(ValueError, match="zero1=True requires mesh_shape"):
         train.train([pdb_path(PDBS[0])], "unused", train.TrainConfig(zero1=True), device=DEVICE)

@@ -284,18 +284,18 @@ def test_init_follows_flax():
     (dict(remat=True, remat_policy="tri_dots"), None),
     (dict(moe_experts=2), None),
     (dict(remat=True, remat_policy="dots"), None),
-    (dict(ring_mesh=object()), NotImplementedError),
+    (dict(ring_mesh=object()), ValueError),
     (dict(remat_policy="bogus"), ValueError),
 ])
 def test_unported_options_raise(opt, err):
-    """Ring attention inside the model is the one option still to port; the
-    remat policies and MoE blocks build (held to JAX in
-    tests/test_torch_scale_out.py), an unknown policy raises."""
+    """Every option is ported: the remat policies and MoE blocks build (held
+    to JAX in tests/test_torch_scale_out.py), a ring_mesh must be a (dp, sp,
+    tp) mesh (tests/test_torch_model_parallel.py), an unknown policy raises."""
     if err is None:
         model = trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, **opt), device=DEVICE)
         assert ("block_0.moe.w1" in model.state_dict()) == ("moe_experts" in opt)
         return
-    with pytest.raises(err, match="not yet ported|remat_policy must be"):
+    with pytest.raises(err, match=r"\(dp, sp, tp\) mesh|remat_policy must be"):
         trfold.TrFold(trfold.TrFoldConfig(**WIDTHS, **opt), device=DEVICE)
 
 
