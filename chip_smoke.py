@@ -225,6 +225,24 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     backward of each model timed in turns; (c) MoE under
     ``moe_param_shardings`` over dp on that group against the unsharded
     layer: output, aux, gradients (1e-5).
+23. the host layer: (a) the C++ scanner (g++ at first use) against the
+    NumPy scanner on every bundled PDB (its counter up by one a file, every
+    field equal, coordinates bitwise), then bench.py's ``[ingest]`` (3
+    passes) and ``[ingest-sustained]`` (50 passes) lanes for each scanner and
+    the dataset over the files x 10 at batch 4, delivered to the card, cold
+    and warm, with the parse cache's hit rate (the host's time on the card's
+    machine); (b) ``from_pdb_id`` from tests/data as the cache directory
+    (``urlopen`` refuses) onto the card: K1 launched once by
+    ``inter_residue_geometry(use_kernel=True)``, bitwise equal to
+    ``from_pdb``'s, and the antibody form's masks; (c) ``distance_histogram``
+    and ``contact_map`` on config 5's K1 ``d_cb`` (B=1024, L=1024): the counts
+    exactly the CPU's on structures 0-7 and 1016-1023, every row summing to
+    its valid pairs, ms and peak memory; (d) ``profile_to`` around a
+    ``trace("featurize")`` span calling K1, in a child process: the trace names
+    both; ``Timer.block`` waits for the card; (e) a card batch and an antibody batch saved and
+    loaded back onto the card, bitwise; (f) ``examples/train_trfold`` over
+    tests/data on the card, 4 steps at batch 2: finite losses, the C++
+    scanner run by its dataset, s/step.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -305,6 +323,10 @@ phase 21 alone, and prints no result line;
 
 runs phase 1, builds K3, K4-K7 and K8/K9 together and runs phase 22 alone,
 and prints no result line;
+
+    python3 chip_smoke.py --host
+
+runs phase 1, builds K1 and runs phase 23 alone, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -1919,6 +1941,23 @@ COORD_ATOL = COORD_RTOL = 1e-5   # card vs CPU: coordinates, distances (one ulp 
 MDS_FIT_ATOL = 1e-3              # card vs CPU MDS coordinates after a proper Kabsch fit
 
 
+def config5_torsions(np):
+    """BASELINE config 5's backbone torsions: B=1024 x L=1024 x 3, numpy seed 1."""
+    return np.random.RandomState(1).uniform(-3.1, 3.1, (CFG5_B, CFG5_L, 3)).astype(np.float32)
+
+
+def config5_xyz(torch, pt, tor, dev):
+    """Config 5's coordinates on ``dev``: torsions -> NeRF -> the actual CB in
+    slot 4; returns (the NeRF batch, CB, the A=15 coordinates)."""
+    sb5 = pt.StructureBatch.from_dihedrals(tor, device=dev)
+    n, ca, c = (sb5.xyz[:, :, k] for k in range(3))
+    b_v, c_v = ca - n, c - ca
+    cb = -0.58273431 * torch.linalg.cross(b_v, c_v) + 0.56802827 * b_v - 0.54067466 * c_v + ca
+    xyz15 = sb5.xyz.clone()
+    xyz15[:, :, 4] = cb
+    return sb5, cb, xyz15
+
+
 def batch_api_phase(torch, np, dev, smi):
     """Phase 19: BASELINE configs 1-5 on the card, each held against the
     port's CPU path, then the reconstruction path and ``renumber``.
@@ -2066,18 +2105,13 @@ def batch_api_phase(torch, np, dev, smi):
     # -- config 5: B=1024 x L=1024 torsions -> NeRF -> actual CB -> A=15 -> K1 d_cb only
     from protstruc_tpu_torch.ops.nerf import backbone_from_dihedrals
 
-    tor = np.random.RandomState(1).uniform(-3.1, 3.1, (CFG5_B, CFG5_L, 3)).astype(np.float32)
+    tor = config5_torsions(np)
     pt.StructureBatch.from_dihedrals(tor[:2, :8], device=dev)  # warm-up
     reset_launches(pair_maps)
     t0 = time.perf_counter()
     start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     start.record()
-    sb5 = pt.StructureBatch.from_dihedrals(tor, device=dev)
-    n, ca, c = (sb5.xyz[:, :, k] for k in range(3))
-    b_v, c_v = ca - n, c - ca
-    cb = -0.58273431 * torch.linalg.cross(b_v, c_v) + 0.56802827 * b_v - 0.54067466 * c_v + ca
-    xyz15 = sb5.xyz.clone()
-    xyz15[:, :, 4] = cb
+    sb5, cb, xyz15 = config5_xyz(torch, pt, tor, dev)
     mid.record()
     d_cb = pair_maps.pairwise_maps_forward(xyz15, maps=("d_cb",))
     end.record()
@@ -3433,6 +3467,303 @@ def model_parallel_phase(torch, np, dev, smi):
             "errs": errs, "ms": ms, "moe_err": moe_err}
 
 
+# -- phase 23: the host layer -------------------------------------------------------
+INGEST_REPS, SUSTAINED_REPS = 3, 50          # bench.py:304, 628: passes over the bundled PDBs
+DATASET_COPIES, DATASET_BATCH = 10, 4        # bench.py:656: the dataset over files * 10 at batch 4
+FETCH_IDS = ["1REX", "6dc4", "1ad0_DC"]      # resolved from tests/data as the cache directory
+HIST_BINS, HIST_MAX, CONTACT_CUTOFF = 64, 32.0, 8.0   # distance_histogram's and contact_map's defaults
+EXAMPLE_ARGV = ("--steps", "4", "--batch-size", "2")
+PARSED_FIELDS = ("atom_xyz", "atom_mask", "chain_idx", "residue_idx", "chain_id_per_res",
+                 "residue_number", "insertion", "oneletter")
+
+
+@contextlib.contextmanager
+def cache_only():
+    """``fetch_pdb`` resolves from tests/data: the cache directory is set and
+    ``urlopen`` refuses, so a miss fails the phase instead of reaching out."""
+    import os
+    import urllib.request
+
+    def refuse(url, *args, **kwargs):
+        raise OSError(f"phase 23 asked for {url}: the entry should come from the cache")
+
+    saved_env, saved_urlopen = os.environ.get("PROTSTRUC_TPU_PDB_CACHE"), urllib.request.urlopen
+    os.environ["PROTSTRUC_TPU_PDB_CACHE"] = str(DATA)
+    urllib.request.urlopen = refuse
+    try:
+        yield
+    finally:
+        urllib.request.urlopen = saved_urlopen
+        if saved_env is None:
+            os.environ.pop("PROTSTRUC_TPU_PDB_CACHE")
+        else:
+            os.environ["PROTSTRUC_TPU_PDB_CACHE"] = saved_env
+
+
+def ingest_lanes(torch, np, dev, smi):
+    """Phase 23 (a): the C++ scanner against the NumPy one on every bundled
+    PDB, then bench.py's [ingest] and [ingest-sustained] lanes (host time)."""
+    from protstruc_tpu_torch.pdbio import native
+    from protstruc_tpu_torch.pdbio.dataset import (StructureDataset, clear_parsed_cache,
+                                                   parsed_cache_stats)
+    from protstruc_tpu_torch.pdbio.parser import parse_pdb
+
+    files = sorted(str(p) for p in DATA.glob("*.pdb"))
+    check(native.native_available(), "no C++ scanner: g++ is not on PATH")
+    calls = native.CALLS
+    fast = [parse_pdb(f, use_native=True) for f in files]
+    check(native.CALLS == calls + len(files), f"C++ scans {native.CALLS - calls} for {len(files)} files")
+    for f, a in zip(files, fast):
+        b = parse_pdb(f, use_native=False)
+        check(a.atom_xyz.tobytes() == b.atom_xyz.tobytes(), f"{f}: coordinates differ between scanners")
+        for k in PARSED_FIELDS[1:]:
+            check(np.array_equal(getattr(a, k), getattr(b, k)), f"{f}: {k} differs between scanners")
+        check(a.chain_order == b.chain_order, f"{f}: chain order differs")
+    mb = sum(pathlib.Path(f).stat().st_size for f in files) / 1e6
+    say(f"phase 23 (a) scanners: the C++ scanner ran {len(files)} times, every field of the "
+        f"{len(files)} bundled PDBs equal to the NumPy scanner's, coordinates bitwise")
+    out = {}
+    for name, use_native in (("numpy", False), ("native", True)):
+        for f in files:  # warm the page cache
+            parse_pdb(f, use_native=use_native)
+        for lane, reps in (("ingest", INGEST_REPS), ("ingest-sustained", SUSTAINED_REPS)):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                for f in files:
+                    parse_pdb(f, use_native=use_native)
+            dt = time.perf_counter() - t0
+            n = reps * len(files)
+            out[f"{lane} {name}"] = n / dt
+            say(f"phase 23 (a) [{lane}] {name} [{smi}; host time on the card's machine, warm page "
+                f"cache]: {n} parses ({mb * reps:.1f} MB) in {dt * 1e3:.1f} ms -> {n / dt:.1f} "
+                f"structures/s, {mb * reps / dt:.1f} MB/s")
+    clear_parsed_cache()
+    for lane in ("cold", "warm"):
+        before = parsed_cache_stats()
+        ds = StructureDataset(files * DATASET_COPIES, batch_size=DATASET_BATCH, device=dev)
+        shapes, batches, structures = set(), 0, 0
+        t0 = time.perf_counter()
+        for batch in ds:
+            check(batch.xyz.is_cuda, "the dataset did not deliver to the card")
+            shapes.add((batch.batch_size, batch.n_residues))
+            batches += 1
+            structures += batch.batch_size
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cs = parsed_cache_stats()
+        hits, misses = cs["hits"] - before["hits"], cs["misses"] - before["misses"]
+        check(structures == len(files) * DATASET_COPIES, f"dataset {lane}: {structures} structures")
+        out[f"dataset {lane}"] = structures / dt
+        say(f"phase 23 (a) [ingest-sustained] dataset {lane} [{smi}; host time, batches on the card]: "
+            f"{batches} batches in {dt:.3f} s ({structures / dt:.1f} structures/s), {len(shapes)} "
+            f"(batch, bucket) shapes; parse-cache hit rate {100 * hits / max(hits + misses, 1):.1f}% "
+            f"({hits} hits, {misses} misses; {cs['entries']} entries, {cs['bytes'] / 1e6:.1f} MB)")
+    return out
+
+
+def fetch_to_card(torch, pt, pair_maps, dev):
+    """Phase 23 (b): from_pdb_id from the cache onto the card, K1 once."""
+    with cache_only():
+        reset_launches(pair_maps)
+        sb = pt.StructureBatch.from_pdb_id(FETCH_IDS)
+        g = sb.inter_residue_geometry(use_kernel=True)
+        torch.cuda.synchronize()
+        launches = pair_maps.LAUNCHES
+        ab = pt.AntibodyStructureBatch.from_pdb_id("6dc4", "H", "L")
+    check(launches == 1, f"from_pdb_id -> inter_residue_geometry(use_kernel=True) launched K1 {launches} times")
+    check(sb.xyz.is_cuda and g["d_cb"].is_cuda and ab.xyz.is_cuda, "from_pdb_id did not land on the card")
+    ref_sb = pt.StructureBatch.from_pdb([str(DATA / f"{i}.pdb") for i in FETCH_IDS], device=dev)
+    ref = ref_sb.inter_residue_geometry(use_kernel=True)
+    for k in ("xyz", "atom_mask", "chain_idx", "residue_idx"):
+        a, b = getattr(ref_sb, k), getattr(sb, k)
+        check(a.dtype == b.dtype and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(),
+              f"from_pdb_id {k} differs from from_pdb's")
+    check(sb.chain_ids == ref_sb.chain_ids and sb.seq == ref_sb.seq, "from_pdb_id metadata differs")
+    n = {k: unequal(ref[k], g[k]) if ref[k].is_floating_point() else int((ref[k] != g[k]).sum())
+         for k in ref}
+    check(sum(n.values()) == 0, f"from_pdb_id maps differ from from_pdb's at {n} entries")
+    ab_ref = pt.AntibodyStructureBatch.from_pdb(str(DATA / "6dc4.pdb"), "H", "L", device=dev)
+    check(sorted(ab.residue_masks) == sorted(ab_ref.residue_masks), "antibody mask names differ")
+    for k, v in ab_ref.residue_masks.items():
+        check(ab.residue_masks[k].is_cuda, f"antibody from_pdb_id mask {k} is not on the card")
+        check(torch.equal(ab.residue_masks[k], v), f"antibody from_pdb_id mask {k} differs from from_pdb's")
+    say(f"phase 23 (b) fetch: StructureBatch.from_pdb_id({FETCH_IDS}) from the cache directory "
+        f"{DATA.name}/ on the card (B={sb.batch_size}, L={sb.n_residues}); "
+        f"inter_residue_geometry(use_kernel=True): K1 launches {launches}, the {len(g)} outputs bitwise "
+        f"equal to from_pdb's; AntibodyStructureBatch.from_pdb_id('6dc4', 'H', 'L'): "
+        f"{len(ab.residue_masks)} masks equal to from_pdb's")
+    return launches
+
+
+def histograms_config5(torch, np, pt, pair_maps, dev, smi):
+    """Phase 23 (c): distance_histogram and contact_map on config 5's K1 d_cb."""
+    from protstruc_tpu_torch.ops import histogram
+
+    _, _, xyz15 = config5_xyz(torch, pt, config5_torsions(np), dev)
+    d_cb = pair_maps.pairwise_maps_forward(xyz15, maps=("d_cb",))["d_cb"]
+    del xyz15
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    peaks = {}
+    for name, fn in (("distance_histogram", lambda: histogram.distance_histogram(d_cb)),
+                     ("contact_map", lambda: histogram.contact_map(d_cb, cutoff=CONTACT_CUTOFF))):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    hist = histogram.distance_histogram(d_cb)
+    contact = histogram.contact_map(d_cb, cutoff=CONTACT_CUTOFF)
+    valid = (torch.isfinite(d_cb) & (d_cb >= 0) & (d_cb < HIST_MAX)).sum(dim=(1, 2))
+    check(hist.dtype == torch.int32 and hist.shape == (CFG5_B, HIST_BINS), f"histogram {hist.dtype} {tuple(hist.shape)}")
+    check(torch.equal(hist.sum(1).long(), valid), "a histogram row does not sum to its valid-pair count")
+    rows = list(CFG5_PLAIN_ROWS)
+    d_rows = d_cb[rows].cpu()
+    cpu_hist = histogram.distance_histogram(d_rows)
+    dn = d_rows.numpy()
+    ok = np.isfinite(dn) & (dn >= 0) & (dn < HIST_MAX)
+    bins = (np.where(ok, dn, 0) / np.float32(HIST_MAX) * np.float32(HIST_BINS)).astype(np.int64)
+    np_hist = np.stack([np.bincount(bins[r][ok[r]], minlength=HIST_BINS) for r in range(len(rows))])
+    check(torch.equal(hist[rows].cpu(), cpu_hist), "card histogram differs from the CPU's on the held rows")
+    check(np.array_equal(cpu_hist.numpy(), np_hist), "CPU histogram differs from numpy's bincount")
+    check(torch.equal(contact[rows].cpu(), histogram.contact_map(d_rows, cutoff=CONTACT_CUTOFF)),
+          "card contact map differs from the CPU's on the held rows")
+    del contact
+    torch.cuda.empty_cache()
+    ms_hist = event_ms(torch, lambda: histogram.distance_histogram(d_cb))
+    ms_contact = event_ms(torch, lambda: histogram.contact_map(d_cb, cutoff=CONTACT_CUTOFF))
+    pairs = d_cb.numel()
+    say(f"phase 23 (c) histograms, config 5 B={CFG5_B} L={CFG5_L} K1 d_cb [{smi}]: distance_histogram "
+        f"({HIST_BINS} bins to {HIST_MAX} A) {ms_hist:.4f} ms ({pairs / ms_hist / 1e6:.2f} G pairs/s), peak "
+        f"{peaks['distance_histogram']:.3f} GiB over d_cb; contact_map (< {CONTACT_CUTOFF} A) {ms_contact:.4f} ms, "
+        f"peak {peaks['contact_map']:.3f} GiB; counts exactly the CPU's (and numpy bincount's) on structures "
+        f"{rows[0]}-{rows[7]} and {rows[8]}-{rows[-1]}, every row sums to its valid pairs "
+        f"({int(valid.sum())} of {pairs}); contact maps equal on those rows")
+    del d_cb, hist, valid
+    torch.cuda.empty_cache()
+    return {"hist_ms": ms_hist, "contact_ms": ms_contact, "peak_gib": peaks}
+
+
+def profiling_in_fresh_process():
+    """Phase 23 (d), run by a child process on a fresh CUDA context: in this
+    process, after phase 22, a ``profile_to`` trace has lost K1's kernel
+    record (its ``cudaLaunchKernel`` is there, the kernel activity is not;
+    PERF.md §7), which a fresh process does not show."""
+    code = ("import torch, chip_smoke, protstruc_tpu_torch as pt; "
+            "chip_smoke.profiling_on_card(torch, pt, torch.device('cuda', 0))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    for ln in proc.stdout.splitlines():
+        say(ln)
+    check(proc.returncode == 0,
+          f"phase 23 (d) failed in its process (rc {proc.returncode}):\n{proc.stderr[-4000:]}")
+
+
+def profiling_on_card(torch, pt, dev):
+    """Phase 23 (d): a trace span around K1 in a profile_to trace; Timer.block."""
+    from protstruc_tpu_torch.utils.profiling import Timer, profile_to, trace
+
+    sb = pt.StructureBatch.from_pdb([str(DATA / p) for p in PDBS], device=dev)
+    sb.inter_residue_geometry(use_kernel=True)  # K1 built and warm
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_to(tmp):
+            with trace("featurize"):
+                sb.inter_residue_geometry(use_kernel=True)
+            torch.cuda.synchronize()
+        traces = list(pathlib.Path(tmp).glob("*.json"))
+        check(len(traces) == 1, f"profile_to wrote {len(traces)} traces")
+        names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    k1 = sorted(n for n in names if n and "pair_maps_kernel" in n)
+    check("featurize" in names, "the trace span is not in the trace")
+    check(bool(k1), "K1's kernel is not in the trace")
+    x = torch.randn(2048, 2048, device=dev)
+    with Timer("matmuls") as t:
+        y = x
+        for _ in range(20):
+            y = y @ x
+        t.block({"y": [y]})
+    check(torch.cuda.current_stream().query(), "Timer.block returned before the card's work ended")
+    say(f"phase 23 (d) profiling: profile_to's Chrome trace names the span 'featurize' and K1 "
+        f"({', '.join(n[:60] for n in k1)}); Timer.block over 20 (2048 x 2048) matmuls {t.elapsed * 1e3:.3f} ms, "
+        f"the stream idle after it")
+    del x, y
+
+
+def serialization_on_card(torch, pt, dev):
+    """Phase 23 (e): card batches saved and loaded back onto the card, bitwise."""
+    from protstruc_tpu_torch.utils.serialization import load_structure_batch, save_structure_batch
+
+    batches = {"plain": pt.StructureBatch.from_pdb([str(DATA / p) for p in PDBS], device=dev).standardize(),
+               "antibody": pt.AntibodyStructureBatch.from_pdb([str(DATA / "6dc4.pdb"),
+                                                               str(DATA / "15c8_HL.pdb")], "H", "L",
+                                                              device=dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, b in batches.items():
+            path = str(pathlib.Path(tmp) / label)
+            save_structure_batch(b, path)
+            back = load_structure_batch(path)
+            check(type(back) is type(b), f"{label}: loaded a {type(back).__name__}")
+            tensors = {k: (getattr(b, k), getattr(back, k)) for k in ("xyz", "atom_mask", "chain_idx",
+                                                                      "residue_idx", "mu", "std")}
+            tensors.update({f"mask {k}": (v, back.residue_masks[k])
+                            for k, v in (getattr(b, "residue_masks", None) or {}).items()})
+            for k, (a, c) in tensors.items():
+                check((a is None) == (c is None), f"{label}: {k} presence")
+                if a is not None:
+                    check(c.is_cuda, f"{label}: {k} is not on the card after the round trip")
+                    check(a.dtype == c.dtype and a.cpu().numpy().tobytes() == c.cpu().numpy().tobytes(),
+                          f"{label}: {k} not bitwise equal after the round trip")
+            for k in ("chain_ids", "seq", "standardized", "heavy_chain_id", "light_chain_id",
+                      "antigen_chain_ids", "numbering_scheme", "keep_fv_only"):
+                check(getattr(b, k, None) == getattr(back, k, None), f"{label}: {k} differs")
+    say(f"phase 23 (e) serialization: a standardized batch of {PDBS} and an antibody batch "
+        f"(6dc4, 15c8_HL) saved and loaded back onto the card, every tensor bitwise")
+
+
+def example_on_card(torch, smi):
+    """Phase 23 (f): examples/train_trfold over all of tests/data on the card."""
+    from protstruc_tpu_torch.examples import train_trfold
+    from protstruc_tpu_torch.pdbio import native
+    from protstruc_tpu_torch.pdbio.dataset import clear_parsed_cache
+
+    clear_parsed_cache()  # (a) cached every bundled file: the example parses them anew
+    calls = native.CALLS
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        written = train_trfold.main(["--data", str(DATA), *EXAMPLE_ARGV])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = log.getvalue().strip().splitlines()
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", log.getvalue())]
+    steps = int(EXAMPLE_ARGV[1])
+    check(written == [], f"train_trfold wrote {written}")
+    check(lines[0].endswith("backend=cuda"), f"train_trfold did not run on the card: {lines[0]}")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"train_trfold losses {losses}")
+    check(native.CALLS > calls, "train_trfold's dataset never ran the C++ scanner")
+    say(f"phase 23 (f) example train_trfold {' '.join(EXAMPLE_ARGV)} over {DATA.name}/ on the card "
+        f"[{smi}]: {wall:.2f} s ({wall / steps:.3f} s/step with the model's setup and the first "
+        f"step's warm-up); C++ scans {native.CALLS - calls}; " + " | ".join(lines))
+    return wall / steps
+
+
+def host_phase(torch, np, dev, smi):
+    """Phase 23: (a)-(f) in order; returns the numbers it printed."""
+    from protstruc_tpu_torch.ops import pair_maps
+
+    import protstruc_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    ingest = ingest_lanes(torch, np, dev, smi)
+    fetch_launches = fetch_to_card(torch, pt, pair_maps, dev)
+    hist = histograms_config5(torch, np, pt, pair_maps, dev, smi)
+    profiling_in_fresh_process()
+    serialization_on_card(torch, pt, dev)
+    s_per_step = example_on_card(torch, smi)
+    say(f"phase 23 host layer: ok in {time.perf_counter() - t0:.2f} s")
+    return {"ingest": ingest, "fetch_k1_launches": fetch_launches, **hist, "example_s_per_step": s_per_step}
+
+
 def main():
     import numpy as np
     import torch
@@ -3442,7 +3773,7 @@ def main():
               file=sys.stderr)
         return 1
     modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api",
-             "--design", "--scale-out", "--model-parallel")
+             "--design", "--scale-out", "--model-parallel", "--host")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -3524,6 +3855,12 @@ def main():
                                               flash_attn.load_library)))
         say(f"phase 22: K3, K4-K7 and K8/K9 built or loaded in {time.perf_counter() - t0:.2f} s")
         model_parallel_phase(torch, np, dev, smi)
+        return 0
+    if sys.argv[1:] == ["--host"]:
+        t0 = time.perf_counter()
+        pair_maps.load_library()
+        say(f"phase 23: K1 built or loaded in {time.perf_counter() - t0:.2f} s")
+        host_phase(torch, np, dev, smi)
         return 0
     if tri_only:
         t0 = time.perf_counter()
@@ -4008,6 +4345,10 @@ def main():
 
     # -- 22. model parallelism inside FoldModel -------------------------------------------
     model_parallel = model_parallel_phase(torch, np, dev, smi)
+
+    # -- 23. the host layer ---------------------------------------------------------------
+    torch.cuda.empty_cache()
+    host_phase(torch, np, dev, smi)
 
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)

@@ -17,7 +17,10 @@ constructors from dihedrals (NeRF), frames and sequences, rigid moves and
 standardization, selections, diffusion (``ops/diffusion.py``),
 reconstruction from the pair maps (``ops/reconstruct.py``), and the
 antibody batch (``AntibodyStructureBatch``) with numbering-scheme
-conversion (``numbering.py``, the ``renumber`` command).
+conversion (``numbering.py``, the ``renumber`` command); and the host layer:
+the C++ PDB scanner (``pdbio/native.py``), cache-first ``from_pdb_id``,
+the ``PDB`` wrappers, serialization, checks, profiling, ``compat.py`` and
+the reference-layout shims.
 """
 
 from protstruc_tpu_torch import geometry, vocab
@@ -25,6 +28,9 @@ from protstruc_tpu_torch.antibody import AntibodyStructureBatch
 from protstruc_tpu_torch.batch import StructureBatch
 from protstruc_tpu_torch.constants import MAX_N_ATOMS_PER_RESIDUE
 from protstruc_tpu_torch.vocab import AA, ATOM, CDR_NAMES
+
+# the reference-layout alias module: `import protstruc_tpu_torch.general`
+from protstruc_tpu_torch import general  # noqa: F401
 
 __all__ = ["StructureBatch", "AntibodyStructureBatch", "ATOM", "AA", "CDR_NAMES", "geometry",
            "vocab", "MAX_N_ATOMS_PER_RESIDUE"]

@@ -168,6 +168,7 @@ def cmd_info(args) -> int:
 
     import protstruc_tpu_torch
     from protstruc_tpu_torch.ops.cuda_lib import find_nvcc
+    from protstruc_tpu_torch.pdbio.native import native_available
 
     cuda = torch.cuda.is_available()
     print(json.dumps({
@@ -178,6 +179,7 @@ def cmd_info(args) -> int:
         "devices": ([torch.cuda.get_device_name(i)
                      for i in range(torch.cuda.device_count())] if cuda else []),
         "nvcc": find_nvcc(),
+        "native_parser": native_available(),
     }, indent=2))
     return 0
 
@@ -407,7 +409,7 @@ def main(argv=None) -> int:
                     choices=["auto", "chothia", "kabat", "imgt"])
     rn.set_defaults(fn=cmd_renumber)
 
-    i = sub.add_parser("info", help="torch / CUDA / nvcc status")
+    i = sub.add_parser("info", help="torch / CUDA / nvcc / C++ PDB scanner status")
     i.set_defaults(fn=cmd_info)
 
     sv = sub.add_parser("serve", help="JSONL request loop over the warmed featurizer")

@@ -205,14 +205,25 @@ class AntibodyStructureBatch(StructureBatch):
     # ------------------------------------------------------------------
 
     @classmethod
-    def from_pdb_id(cls, pdb_id, heavy_chain_id=None, light_chain_id=None,
-                    antigen_chain_ids=None, numbering_scheme: str = "chothia",
-                    keep_fv_only: bool = False, device: DeviceLike = "cuda"):
-        """Fetch entries and build an antibody batch: needs the PDB fetcher
-        (``pdbio/fetch.py``), which is not yet ported (ROADMAP A.9)."""
-        raise NotImplementedError(
-            "AntibodyStructureBatch.from_pdb_id needs pdbio/fetch.py, which is not yet "
-            "ported (ROADMAP A.9); fetch the file and call from_pdb")
+    def from_pdb_id(
+        cls,
+        pdb_id: Union[str, List[str]],
+        heavy_chain_id: Union[str, List[str], None] = None,
+        light_chain_id: Union[str, List[str], None] = None,
+        antigen_chain_ids: Union[str, List, None] = None,
+        numbering_scheme: str = "chothia",
+        keep_fv_only: bool = False,
+        device: DeviceLike = "cuda",
+    ) -> "AntibodyStructureBatch":
+        """Fetch entries (local cache first, ``pdbio/fetch.py``) and build an
+        antibody batch with its masks through :meth:`from_pdb`."""
+        from protstruc_tpu_torch.pdbio.fetch import fetch_pdb
+
+        paths = [fetch_pdb(i) for i in _always_list(pdb_id)]
+        return cls.from_pdb(paths, heavy_chain_id=heavy_chain_id, light_chain_id=light_chain_id,
+                            antigen_chain_ids=antigen_chain_ids,
+                            numbering_scheme=numbering_scheme, keep_fv_only=keep_fv_only,
+                            device=device)
 
     @classmethod
     def from_pdb(

@@ -199,6 +199,16 @@ class StructureBatch:
         return cls._from_parsed(parse_pdb_files(paths), device=dev)
 
     @classmethod
+    def from_pdb_id(cls, pdb_id: Union[str, List[str]],
+                    device: DeviceLike = "cuda") -> "StructureBatch":
+        """Fetch PDB entries (local cache first, ``pdbio/fetch.py``) and build
+        a batch on ``device``, as :meth:`from_pdb` does from the files."""
+        from protstruc_tpu_torch.pdbio.fetch import fetch_pdb
+
+        ids = pdb_id if isinstance(pdb_id, list) else [pdb_id]
+        return cls.from_pdb([fetch_pdb(i) for i in ids], device=device)
+
+    @classmethod
     def _from_parsed(cls, parsed, target_length=None,
                      device: DeviceLike = "cuda") -> "StructureBatch":
         """Pad a list of parsed single structures into one batch.

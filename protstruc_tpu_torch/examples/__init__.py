@@ -6,10 +6,13 @@ package's ``examples/`` scripts::
     python -m protstruc_tpu_torch.examples.framediff_backbones tests/data/1REX.pdb 200
     python -m protstruc_tpu_torch.examples.generate_backbones tests/data/1REX.pdb 100
     python -m protstruc_tpu_torch.examples.reconstruct_pipeline tests/data/1REX.pdb 300
+    python -m protstruc_tpu_torch.examples.train_trfold --data tests/data --steps 20
 
-Each takes ``<pdb> [steps] [--device cpu] [--seed N]``, runs on the card by
-default, and writes under ``out/`` in the working directory.  Every ``main``
-returns what it wrote.
+Each but ``train_trfold`` takes ``<pdb> [steps] [--device cpu] [--seed N]``
+and writes under ``out/`` in the working directory; ``train_trfold`` takes
+``--data DIR --steps N --batch-size B --lr LR --device D`` and writes
+nothing.  Each runs on the card by default, and every ``main`` returns what
+it wrote.
 """
 
 from __future__ import annotations

@@ -33,7 +33,22 @@ from protstruc_tpu_torch.constants import ideal
 
 __all__ = ["dot", "norm", "unit", "angle", "dihedral", "gram_schmidt", "place_fourth_atom",
            "ideal_local_frame", "ideal_backbone_coordinates", "ideal_carbonyl_oxygen",
-           "fix_chirality", "kabsch", "masked_kabsch"]
+           "fix_chirality", "kabsch", "masked_kabsch",
+           # the reconstruction entry points, forwarded by __getattr__ (the
+           # reference exposes them from its geometry module); listed so that
+           # star-imports and compat's NumPy-echo namespace cover them
+           "reconstruct_backbone_distmat_from_interresidue_geometry",
+           "initialize_backbone_with_mds"]
+
+
+def __getattr__(name):
+    # deferred: ops/reconstruct.py imports this module
+    if name in ("reconstruct_backbone_distmat_from_interresidue_geometry",
+                "initialize_backbone_with_mds"):
+        from protstruc_tpu_torch.ops import reconstruct
+
+        return getattr(reconstruct, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@
   and stacked on the host, then moved to ``device`` with one pinned,
   non-blocking copy per tensor, so the copy overlaps the consumer's work.
 * A process-global, byte-budgeted LRU of parsed structures, keyed by
-  ``(path, mtime_ns, size)``, so epoch 2+ skips parsing.
+  ``(path, mtime_ns, size)``, so epoch 2+ skips parsing
+  (:func:`parsed_cache_stats` counts its hits and misses,
+  :func:`clear_parsed_cache` empties it).
 * Epoch order: ``np.random.RandomState(seed + epoch).shuffle``, the JAX
   package's exact order.
 
@@ -31,7 +33,10 @@ import numpy as np
 
 from protstruc_tpu_torch.utils.buckets import DEFAULT_BUCKETS, bucket_length
 
-__all__ = ["StructureDataset"]
+__all__ = ["StructureDataset", "parsed_cache_stats", "clear_parsed_cache"]
+
+#: Name of an epoch's producer thread.
+PRODUCER_THREAD = "StructureDataset-producer"
 
 
 def _parsed_nbytes(parsed) -> int:
@@ -46,13 +51,17 @@ class _ParsedLRU:
         self._lock = threading.Lock()
         self._od: "OrderedDict" = OrderedDict()
         self.bytes = 0
+        self.hits = 0
+        self.misses = 0
 
     def get(self, key):
         with self._lock:
             item = self._od.get(key)
             if item is None:
+                self.misses += 1
                 return None
             self._od.move_to_end(key)
+            self.hits += 1
             return item[0]
 
     def put(self, key, parsed):
@@ -69,9 +78,32 @@ class _ParsedLRU:
                 _, (_, freed) = self._od.popitem(last=False)
                 self.bytes -= freed
 
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._od), "bytes": self.bytes,
+                    "hits": self.hits, "misses": self.misses,
+                    "hit_rate": self.hits / max(self.hits + self.misses, 1)}
+
+    def clear(self):
+        """Drop every entry (the hit and miss counts stay)."""
+        with self._lock:
+            self._od.clear()
+            self.bytes = 0
+
 
 # default budget 1 GiB of host-side arrays; PROTSTRUC_TPU_PARSE_CACHE_BYTES overrides
 _CACHE = _ParsedLRU(int(os.environ.get("PROTSTRUC_TPU_PARSE_CACHE_BYTES", 1 << 30)))
+
+
+def parsed_cache_stats() -> dict:
+    """Entries, bytes, hits, misses and hit rate of the process-global
+    parsed-structure cache."""
+    return _CACHE.stats()
+
+
+def clear_parsed_cache():
+    """Empty the process-global parsed-structure cache."""
+    _CACHE.clear()
 
 
 class StructureDataset:
@@ -207,7 +239,7 @@ class StructureDataset:
             finally:
                 _put(_END)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True, name=PRODUCER_THREAD)
         t.start()
         try:
             while True:
@@ -219,4 +251,8 @@ class StructureDataset:
             if error:
                 raise error[0]
         finally:
+            # an abandoned epoch (break) ends its producer before the caller
+            # goes on: a daemon thread still inside torch's C++ (pinning, a
+            # device copy) at interpreter exit can abort the process
             stop.set()
+            t.join()

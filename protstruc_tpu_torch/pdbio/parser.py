@@ -1,8 +1,8 @@
 """Fixed-column PDB parser with reference-equivalent tidy semantics.
 
-A NumPy-only copy of ``protstruc_tpu/pdbio/parser.py`` with the NumPy atom
-scanner only (the C++ scanner is not ported yet, so there is no
-``use_native`` switch).  Keep the two in step.
+A copy of ``protstruc_tpu/pdbio/parser.py``: the atom records are scanned by
+the C++ scanner (``pdbio/native.py``) where it can be built, else by the
+NumPy scanner below.  Keep the two packages in step.
 
 Pipeline parity with the reference's biotite-based layer
 (dohlee/protstruc pdb.py):
@@ -21,8 +21,9 @@ Pipeline parity with the reference's biotite-based layer
    crashes via ``list.index`` on an atom name foreign to its residue type —
    such atoms are skipped (robustness divergence, documented).
 
-The hot atom-record scan is vectorized with NumPy on the raw byte buffer
-(the reference does O(atoms) Python iterations, pdb.py:140-151).
+The hot atom-record scan is one C++ pass over the raw byte buffer
+(``csrc/pdb_parser.cpp``), or vectorized NumPy on it (the reference does
+O(atoms) Python iterations, pdb.py:140-151).
 """
 
 from __future__ import annotations
@@ -238,6 +239,7 @@ def parse_pdb(
     source: Union[str, os.PathLike, _io.IOBase],
     chains: Sequence[str] = None,
     residue_range_by_chain: Dict[str, tuple] = None,
+    use_native: bool = True,
 ) -> ParsedStructure:
     """Parse one PDB file/handle into a :class:`ParsedStructure`.
 
@@ -248,6 +250,14 @@ def parse_pdb(
         residue_range_by_chain: optional ``{chain_id: (lo, hi)}`` inclusive
             author-numbering filter; chains listed in ``chains`` but absent
             here are kept whole (Fv-region filtering, pdb.py:242-259).
+        use_native: scan the atom records with the C++ scanner
+            (``pdbio/native.py``) when there is one; without ``g++`` it is
+            unavailable and the NumPy scanner runs.  A failed build raises.
+            The C++ scanner is lenient where the NumPy scanner is strict, on
+            corrupt input only: it reads a corrupt numeric field as 0 where
+            NumPy raises ``ValueError``, and skips ATOM/HETATM lines shorter
+            than 54 characters.  ``PROTSTRUC_TPU_NO_NATIVE`` (any non-empty
+            value) forces the NumPy scanner, as ``use_native=False`` does.
     """
     data = _read_bytes(source)
 
@@ -255,11 +265,17 @@ def parse_pdb(
 
     if looks_like_cif(data):
         rec = parse_atom_records_cif(data)
-        # normalize to the byte-string dtype regime of the PDB scanner
+        # normalize to the byte-string dtype regime of the PDB scanners
         for k in ("atom_name", "altloc", "res_name", "chain_id", "icode"):
             rec[k] = np.char.encode(rec[k], "ascii")
     else:
-        rec = _parse_atom_records(_read_model1_lines(data))
+        rec = None
+        if use_native and not os.environ.get("PROTSTRUC_TPU_NO_NATIVE"):
+            from protstruc_tpu_torch.pdbio.native import parse_atom_records_native
+
+            rec = parse_atom_records_native(data)  # None without g++
+        if rec is None:
+            rec = _parse_atom_records(_read_model1_lines(data))
 
     rec = _filter_first_altloc(rec)
     rec = _tidy(rec)
