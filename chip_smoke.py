@@ -32,8 +32,8 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
    bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K5's
-   streamed rows pass in both dtypes, the weight gradients in 128 x 128
-   tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
+   streamed rows pass in f32 and wide route in bf16, the weight gradients
+   in 128 x 128 tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
    and incoming) vs the plain path on the CPU; f32 K4-K7 at the FoldModel
@@ -203,10 +203,18 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``;
     (e) ``[mfu-peak]`` (bench.py:348-351: bf16, D=2048, P=1024, 8 heads, 3
     blocks, triangle, remat, B=2, L=256, ``randn * 5``, numpy seed 0):
-    K4-K7 at C=1024 bf16 against their plain versions, then 3 train steps
-    from one init under remat_policy none, tri_dots and dots, fused_tri off
-    and on: losses within 2e-2, ms/step, peak memory and the profiled
-    step's ``aten::bmm`` count (tri_dots 2 fewer a block); (f) TrFold with
+    K5 and K7 through their wide route at C = 144, 160, 256 and 1024 on N
+    = 300, 81 and 2738 rows, and K4-K7 at C=1024 bf16, against their plain
+    versions (each call's route read from the counters: K5, K7 wide, K4, K6
+    streamed); K4-K7 at the step's pair rows (N = 2*256*256) against their
+    plain versions, and timed there beside them and their bounds, K5's and
+    K7's calls split by kernel under torch.profiler (a split kept only
+    where it adds up to the event time); then 3 train steps from one init under
+    remat_policy none, tri_dots and dots, fused_tri off and on: losses
+    within 2e-2, ms/step, peak memory, the profiled step's ``aten::bmm``
+    count (tri_dots 2 fewer a block) and K4-K7's launches by route, the
+    counters reset just before the steps (fused: K5 and K7 wide only, K4
+    and K6 streamed only); (f) TrFold with
     4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
     against CPU from one init: loss, aux, every gradient leaf;
 22. model parallelism inside FoldModel: (a) ``fused_triangle_multiplication``
@@ -331,7 +339,9 @@ runs phase 1, builds K1 and runs phase 23 alone, and prints no result line;
     python3 chip_smoke.py --tri-timing
 
 runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
-K4-K7 timings alone, with the K4-K7 library's ptxas lines, and prints no
+K4-K7 timings alone (the four at C = 128 must take the resident route), then
+phase 21e's K4-K7 timings at ``[mfu-peak]``'s C = 1024 with K5's and K7's
+calls split by kernel, with the K4-K7 library's ptxas lines, and prints no
 result line.  Copied into the root of another checkout and run there, each
 timing mode times that checkout's kernels (skipping what it lacks), so two
 commits can be set side by side on one card (parent, change, change,
@@ -674,10 +684,10 @@ def ptxas_lines(log_path):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             spill = ""
-            k = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)*)E", m.group(1))
-            args = re.findall(r"Li(\d+)E", k.group(3)) if k else []
-            name = (f"{k.group(1)}<{', '.join(['float' if k.group(2) == 'f' else 'bf16', *args])}>"
-                    if k else nested_name(m.group(1)))
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", m.group(1))
+            args = [{"f": "float", "13__nv_bfloat16": "bf16", "Lb1E": "true", "Lb0E": "false"}.get(a, a[2:-1])
+                    for a in re.findall(r"f|13__nv_bfloat16|L[ib]\d+E", k.group(2))] if k else []
+            name = f"{k.group(1)}<{', '.join(args)}>" if k else nested_name(m.group(1))
         elif "spill" in ln and name:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -1123,6 +1133,9 @@ def tri_timings(torch, dev, smi, tri_worst):
     cases = tri_inputs(torch, dev, torch.bfloat16, 128, B=4, L=L_FULL)
     for name in TRI_KERNELS:
         kernel, plain = tri_mul.KERNELS[name]
+        if hasattr(tri_mul, "route"):  # a tree before the wide route has no route query
+            check(tri_mul.route(name, cases[name][0]) == "resident",
+                  f"{name} bf16 C=128 takes the {tri_mul.route(name, cases[name][0])} route, not resident")
         err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=128 train shape")
         tri_worst[name] = max(tri_worst[name], err)
         got = kernel(*cases[name])
@@ -3010,11 +3023,19 @@ def one_rank_group(torch, np, dev, smi, pair_maps, flash_attn):
 
 
 def tri_wide_timings(torch, dev, smi, tri_mul):
-    """K4-K7 at ``[mfu-peak]``'s pair rows (bf16, N = 2*256*256, C = 1024,
-    their streamed passes) beside their plain versions and their bounds,
-    each timed by CUDA events over 2 calls after one warm-up, in the order
-    plain, kernel, kernel, plain (one call of K5 takes most of a second).
-    Returns {name: (kernel ms, plain ms, bound ms, bound_by)}."""
+    """K4-K7 at ``[mfu-peak]``'s pair rows (bf16, N = 2*256*256, C = 1024:
+    K4's and K6's streamed passes, K5's and K7's wide route) beside their
+    plain versions and their bounds, each timed by CUDA events over 2 calls
+    after one warm-up, in the order plain, kernel, kernel, plain; then one
+    call of K5 and of K7 under torch.profiler, its device time split by the
+    kernels of its chain (rows pass, gate GEMM, back-projection, LayerNorm
+    backward, weight gradients, reductions), kept only where its kernels add
+    up to within 5 % of the CUDA-event time (after phase 21d's NCCL group
+    the profiler has been seen to lose some or all of its kernel records).
+    Each kernel's outputs at these rows are held to its plain version's
+    (tri_kernel_vs_plain).  Returns ({name: (kernel ms, plain ms, bound ms,
+    bound_by)}, {name: [(kernel, device ms), ...] or None}, {name: why the
+    split is None}, {name: max abs err})."""
     def ms2(fn):
         fn()
         torch.cuda.synchronize()
@@ -3027,9 +3048,11 @@ def tri_wide_timings(torch, dev, smi, tri_mul):
         return start.elapsed_time(end) / 2
 
     cases = tri_inputs(torch, dev, torch.bfloat16, PEAK_WIDTH["pair_dim"], B=PEAK_B, L=PEAK_L, seed=5)
-    res = {}
+    res, split, why, err = {}, {}, {}, {}
     for name in TRI_KERNELS:
         kernel, plain = tri_mul.KERNELS[name]
+        err[name] = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 [mfu-peak] rows")
+        torch.cuda.empty_cache()
         got = kernel(*cases[name])
         N, C = cases[name][0].shape
         b = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
@@ -3038,34 +3061,86 @@ def tri_wide_timings(torch, dev, smi, tri_mul):
         torch.cuda.empty_cache()
         p1, k1, k2, p2 = (ms2(lambda f=f: f(*cases[name])) for f in (plain, kernel, kernel, plain))
         res[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *b)
-        say(f"phase 21e timing {name} bf16 N={N} C={C} (streamed pass) [{smi}]: kernel "
+        route = tri_mul.route(name, cases[name][0]) if hasattr(tri_mul, "route") else "streamed"
+        say(f"phase 21e timing {name} bf16 N={N} C={C} ({route} route) [{smi}]: kernel "
             f"{res[name][0]:.2f} ms, plain {res[name][1]:.2f} ms (plain/kernel/kernel/plain {p1:.2f}, "
             f"{k1:.2f}, {k2:.2f}, {p2:.2f}); bound {b[0]:.4f} ms ({b[1]})")
+        if name.endswith("bwd"):
+            split[name], tries = None, []
+            for _ in range(2):
+                _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)],
+                                              top=10)
+                tries.append(busy / ITERS)
+                if abs(busy / ITERS - res[name][0]) <= 0.05 * res[name][0]:
+                    split[name] = [(kernel_name(k), ms / ITERS) for k, ms, _ in top]
+                    break
+            if split[name] is None:
+                why[name] = (f"torch.profiler's kernels added up to {', '.join(f'{t:.4f}' for t in tries)} ms "
+                             f"a call in two sessions, not within 5% of the CUDA-event {res[name][0]:.4f} ms")
+            say(f"phase 21e device time {name} C={C} ({route} route) [{smi}]: torch.profiler "
+                + (f"{tries[-1]:.4f} ms a call = " + " + ".join(f"{k} {ms:.4f}" for k, ms in split[name])
+                   if split[name] else f"no split kept: {why[name]}"))
         torch.cuda.empty_cache()
     del cases
     torch.cuda.empty_cache()
-    return res
+    return res, split, why, err
+
+
+#: K5's and K7's wide-route parity shapes (C, B, L): N = B L^2 rows, each
+#: ragged against the 128-row tiles (300, 81 and 2738 rows); C = 144 and 160
+#: ragged against the 64-column gate tiles, the 128-column back-projection
+#: tiles and (144) the 32-deep k steps
+WIDE_CASES = ((256, 3, 10), (256, 2, 37), (1024, 1, 9), (1024, 2, 37), (144, 3, 10), (160, 2, 37))
+
+
+def wide_parity(torch, dev, tri_mul):
+    """K5 and K7 through the wide route (bf16 C = 144, 160, 256 and 1024,
+    ragged N) against their plain versions, every output under tri_budget, and K4 and
+    K6 at C = 1024 against theirs; the route counters must show K5 and K7
+    wide, K4 and K6 streamed (a tree before the wide route, timed against
+    this one, has no route counters).  Returns the largest error of each
+    kernel."""
+    worst = dict.fromkeys(TRI_KERNELS, 0.0)
+    routes = getattr(tri_mul, "ROUTE_LAUNCHES", None)
+    for C, B, L in WIDE_CASES:
+        cases = tri_inputs(torch, dev, torch.bfloat16, C, B=B, L=L)
+        for name in TRI_KERNELS if C == 1024 and L == 37 else ("prologue_bwd", "epilogue_bwd"):
+            want = "wide" if name.endswith("bwd") else "streamed"
+            before = dict(routes[name]) if routes else {}
+            err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"bf16 C={C} {want} route")
+            if routes:
+                took = {k: n - before[k] for k, n in routes[name].items() if n > before[k]}
+                check(took == {want: 1}, f"{name} bf16 C={C} N={B * L * L}: routes {took}, not {want}")
+            worst[name] = max(worst[name], err)
+        del cases
+    return worst
 
 
 def mfu_peak(torch, np, dev, smi, tri_mul):
-    """Phase 21 (e): ``[mfu-peak]`` at bench.py's full width: K4-K7 at C =
-    1024 bf16 against their plain versions first, and timed at the step's
-    pair rows beside them and their bounds, then 3 train steps from one
-    init under each remat policy, fused_tri off (bench.py's form) and on:
-    losses within 2e-2 relative of each other, ms/step (the second step;
-    the first warms up, the third runs under torch.profiler), peak memory,
-    and the ``aten::bmm`` calls of the profiled step."""
+    """Phase 21 (e): ``[mfu-peak]`` at bench.py's full width: K5 and K7
+    through the wide route at C = 144, 160, 256 and 1024 on ragged row
+    counts and K4-K7 at C = 1024 bf16 against their plain versions first
+    (``wide_parity``), then at the step's pair rows, and timed there beside
+    them and their bounds, K5's and K7's calls split by kernel, then 3 train steps from one init under each
+    remat policy, fused_tri off (bench.py's form) and on: losses within 2e-2
+    relative of each other, ms/step (the second step; the first warms up,
+    the third runs under torch.profiler), peak memory, the ``aten::bmm``
+    calls of the profiled step, and each kernel's launches by route (the
+    counters reset just before the steps): with fused_tri, K5 and K7 only
+    wide, K4 and K6 streamed."""
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.models.trfold import (TrFold, TrFoldConfig, featurize_for_model,
                                                    make_train_state, train_step)
     from torch.profiler import ProfilerActivity, profile
 
-    cases = tri_inputs(torch, dev, torch.bfloat16, PEAK_WIDTH["pair_dim"])
-    tri_err = {name: tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=1024")
-               for name in TRI_KERNELS}
-    del cases
-    say(f"phase 21e parity K4-K7 bf16 C=1024 (streamed passes): ok, max abs err {tri_err}")
-    tri_wide = tri_wide_timings(torch, dev, smi, tri_mul)
+    tri_err = wide_parity(torch, dev, tri_mul)
+    say(f"phase 21e parity K5, K7 (wide route) bf16 (C, N) = "
+        f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES)}, K4, K6 (streamed) bf16 C=1024: "
+        f"ok, max abs err {tri_err}")
+    tri_wide, tri_split, split_why, peak_err = tri_wide_timings(torch, dev, smi, tri_mul)
+    say(f"phase 21e parity K4-K7 at [mfu-peak]'s pair rows (N={PEAK_B * PEAK_L ** 2}, C=1024): ok, "
+        f"max abs err {peak_err}")
+    tri_err = {k: max(e, peak_err[k]) for k, e in tri_err.items()}
 
     xyz = np.random.RandomState(0).randn(PEAK_B, PEAK_L, 15, 3).astype(np.float32) * 5.0
     feats = featurize_for_model(pt.StructureBatch.from_xyz(xyz, device=dev))
@@ -3080,6 +3155,8 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
                 init = {k: v.clone() for k, v in model.state_dict().items()}
             model.load_state_dict(init)
             tri_mul.LAUNCHES.update(dict.fromkeys(tri_mul.LAUNCHES, 0))
+            for counts in getattr(tri_mul, "ROUTE_LAUNCHES", {}).values():
+                counts.update(dict.fromkeys(counts, 0))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             losses, ms = [], []
@@ -3107,10 +3184,19 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
             check(all(map(math.isfinite, losses)), f"[mfu-peak] {policy} fused={fused}: losses {losses}")
             check(not fused or all(n > 0 for n in tri_mul.LAUNCHES.values()),
                   f"[mfu-peak] fused: K4-K7 launches {tri_mul.LAUNCHES}")
-            results[(fused, policy)] = (losses, ms[-1], peak, bmm)
+            routes = {k: {r: n for r, n in v.items() if n}
+                      for k, v in getattr(tri_mul, "ROUTE_LAUNCHES", {}).items()}
+            if fused and routes:
+                for name in TRI_KERNELS:
+                    want = "wide" if name.endswith("bwd") else "streamed"
+                    check(list(routes[name]) == [want],
+                          f"[mfu-peak] {policy}: {name} launches by route {routes[name]}, not {want} only")
+            results[(fused, policy)] = (losses, ms[-1], peak, bmm, routes)
             say(f"  [mfu-peak] fused_tri={fused} remat_policy={policy} [{smi}]: {ms[-1]:.2f} ms/step "
                 f"(step 1 {ms[0]:.2f} ms), peak {peak:.2f} GiB, {bmm} bmm GEMMs a step ({calls} "
-                f"aten::bmm calls), losses {losses}; profiled step device busy {busy:.2f} ms: "
+                f"aten::bmm calls), losses {losses}; K4-K7 launches a step by route "
+                f"{ {k: {r: n / PEAK_STEPS for r, n in v.items()} for k, v in routes.items()} }; "
+                f"profiled step device busy {busy:.2f} ms: "
                 + "; ".join(f"{k[:50]} {t:.2f} ms" for k, t in top[:4]))
             del model, params, opt_state, tx
             torch.cuda.empty_cache()
@@ -3125,7 +3211,9 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
     say(f"phase 21e [mfu-peak] bf16 B={PEAK_B} L={PEAK_L} {PEAK_WIDTH} [{smi}]: ok; "
         + "; ".join(f"fused_tri={f} {p}: {r[1]:.2f} ms/step, {r[2]:.2f} GiB, {r[3]} bmm"
                     for (f, p), r in results.items()))
-    return tri_err, tri_wide
+    wide_launches = {name: results[(True, "none")][4].get(name, {}).get("wide", 0)
+                     for name in ("prologue_bwd", "epilogue_bwd")}
+    return tri_err, tri_wide, (tri_split, split_why), wide_launches
 
 
 def moe_card_vs_cpu(torch, np, dev, smi):
@@ -3193,13 +3281,14 @@ def scale_out_phase(torch, np, dev, smi):
     ring_worst = ring_merge_parity(torch, dev, flash_attn, ring_attn)
     launches, ring_err = one_rank_group(torch, np, dev, smi, pair_maps, flash_attn)
     lse_ms = lse_timing(torch, dev, flash_attn, ring_attn, smi)
-    tri_err, tri_wide = mfu_peak(torch, np, dev, smi, tri_mul)
+    tri_err, tri_wide, tri_split, wide_launches = mfu_peak(torch, np, dev, smi, tri_mul)
     torch.cuda.empty_cache()
     moe_card_vs_cpu(torch, np, dev, smi)
     say(f"phase 21 scale-out path: ok in {time.perf_counter() - t0:.2f} s")
     return {"rect": rect, "launches": launches, "lse_err": max(lse_worst["fwd"], lse_worst["bwd"],
                                                                ring_worst, ring_err),
-            "lse_ms": lse_ms, "tri_err_c1024": tri_err, "tri_c1024": tri_wide}
+            "lse_ms": lse_ms, "tri_err_c1024": tri_err, "tri_c1024": tri_wide, "tri_split": tri_split,
+            "wide_launches": wide_launches}
 
 
 # -- phase 22: model parallelism inside FoldModel --------------------------------
@@ -3876,6 +3965,7 @@ def main():
         del models, feats, init
         torch.cuda.empty_cache()
         tri_timings(torch, dev, smi, dict.fromkeys(TRI_KERNELS, 0.0))
+        tri_wide_timings(torch, dev, smi, tri_mul)
         return 0
 
     # -- 2. build -------------------------------------------------------------
@@ -4409,6 +4499,19 @@ def main():
             e["err_c1024_bf16"] = so["tri_err_c1024"][name]
             e["c1024_bf16"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), so["tri_c1024"][name]),
                                    shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows")
+    # K5's and K7's wide route: launches in phase 21e's [mfu-peak] fused_tri
+    # steps (remat none, PEAK_STEPS steps), times at its pair rows
+    for name in ("prologue_bwd", "epilogue_bwd"):
+        kernels.append(dict(entry(f"tri_mul_{name}_wide", "tri_mul.cu", TRI_REPLACES[name],
+                                  so["wide_launches"][name], so["tri_err_c1024"][name],
+                                  *so["tri_c1024"][name], None),
+                            mode="wide route: bf16 C > 128, a chain of mma.sync GEMM kernels; parity "
+                                 "at C=144, 160, 256 and 1024 on ragged N and at the shape below",
+                            shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows",
+                            launches_per_step=so["wide_launches"][name] / PEAK_STEPS,
+                            device_ms_by_kernel=so["tri_split"][0][name] and dict(so["tri_split"][0][name]),
+                            **({"device_ms_by_kernel_missing": so["tri_split"][1][name]}
+                               if name in so["tri_split"][1] else {})))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

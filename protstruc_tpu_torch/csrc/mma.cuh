@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers for Hopper (sm_90a), shared by
-// flash_attn.cu (K8) and tri_mul.cu (K5 and the weight-gradient pass):
+// flash_attn.cu (K8, K9) and tri_mul.cu (K4-K7's resident passes, the wide
+// route's GEMM core and the weight-gradient pass):
 // cp.async copies, ldmatrix fragments, mma.sync m16n8k16 bf16 and m16n8k8
 // tf32 with the 3xTF32 split.  ops/cuda_lib.py hashes this header into the
 // build key of every library that includes it.
@@ -27,10 +28,22 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
+// 16 bytes from src, or 16 zero bytes when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -14,23 +14,30 @@
 //  * bias and LayerNorm gradients are column sums of the f32 values; all
 //    gradients are summed in f32 and cast to T once at the end.
 //
-// Matrix products run inside the kernels.  The resident rows passes (K4-K7)
-// and the weight-gradient pass (K5 and K7) use mma.sync on the tensor cores:
-// bf16 m16n8k16 with f32 accumulators, float32 as 3xTF32 m16n8k8 (x = big +
-// small, three TF32 products, small terms first; helpers in mma.cuh, shared
-// with flash_attn.cu).  The streamed rows passes (K4-K7 where their weights
-// do not fit) use nvcuda::wmma 16x16x16 in bf16 and FMA loops in full f32
+// Matrix products run inside the kernels.  The resident rows passes (K4-K7),
+// the wide route (K5 and K7) and the weight-gradient pass (K5 and K7) use
+// mma.sync on the tensor cores: bf16 m16n8k16 with f32 accumulators,
+// float32 as 3xTF32 m16n8k8 (x = big + small, three TF32 products, small
+// terms first; helpers in mma.cuh, shared with flash_attn.cu).  The streamed
+// rows passes use nvcuda::wmma 16x16x16 in bf16 and FMA loops in full f32
 // (the library is built with FMA contraction on).
 //
-// Which rows pass each kernel takes, chosen by kind, dtype and C in make_plan:
+// Which route each kernel takes, a function of kind, dtype and C alone
+// (make_plan; ps_tri_route reports it):
 //
-//   K4 prologue_fwd_resident_kernel   bf16 C <= 128, float32 C <= 64
-//   K5 prologue_bwd_resident_kernel   the same widths
-//   K6 epilogue_fwd_resident_kernel   the same widths
-//   K7 epilogue_bwd_resident_kernel   the same widths
-//   K4-K7 streamed (prologue_fwd_kernel, prologue_bwd_kernel,
-//      epilogue_fwd_kernel, epilogue_bwd_kernel)
-//                                     every other C (float32 C = 128, C = 256)
+//   resident  K4 prologue_fwd_resident_kernel   bf16 C <= 128, float32 C <= 64
+//             K5 prologue_bwd_resident_kernel   the same widths
+//             K6 epilogue_fwd_resident_kernel   the same widths
+//             K7 epilogue_bwd_resident_kernel   the same widths
+//   wide      K5, K7: wide_ln_kernel, wide_gate_kernel, wide_back_kernel,
+//             wide_ln_bwd_kernel (the note above wide_ln_kernel)
+//                                               bf16 C > 128
+//   streamed  K4, K6 prologue_fwd_kernel, epilogue_fwd_kernel
+//                                               bf16 C > 128, float32 C > 64
+//             K5, K7 prologue_bwd_kernel, epilogue_bwd_kernel
+//                                               float32 C > 64 (C = 128 in
+//                                               the MoE blocks' pair rows)
+// The backward routes end in the weight-gradient pass and the reductions.
 //
 // The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
 // grid min(tiles / warps, SMs)) copies its weights into shared memory once
@@ -86,11 +93,12 @@
 // chunk is staged in f32 in shared memory, where the gates, masks and casts
 // are applied and the result is written out with coalesced stores.  Ragged
 // rows past N are zeros in shared memory and are never stored.  Restaging
-// the weights for every row tile bounds them (PERF.md has the times).  The
-// backward passes keep their cast dpre tiles in shared memory for the back
-// projection too, unless they do not fit (bf16 C = 1024, `[mfu-peak]`'s
-// width): then the back projection reads them from the dpre rows the block
-// just wrote to global memory (Plan::d_global).
+// the weights for every row tile bounds them (PERF.md has the times); the
+// wide route takes the bf16 backward at C > 128 for that reason, so the
+// streamed backward passes run in float32 only.  They keep their cast dpre
+// tiles in shared memory for the back projection too, unless they do not
+// fit (wide C): then the back projection reads them from the dpre rows the
+// block just wrote to global memory (Plan::d_global).
 //
 // The Pallas backwards sum weight gradients into one block that the
 // sequential TPU grid revisits.  Here blocks run in parallel, so:
@@ -105,7 +113,8 @@
 //    to C = 128 the tile is all of C x C, so a row's LayerNorm is computed
 //    once per job; wider, the tile is at most 128 x 128 and each of the
 //    (C / tile)^2 tiles of a job recomputes it (4 times per row per job at
-//    C = 256, which only the streamed rows passes reach).
+//    C = 256, on the streamed route).  The wide route keeps s as a bf16
+//    plane and the pass reads its tile's columns of it instead.
 // No atomics: the result is the same from run to run.  The kernels allocate
 // nothing and do not synchronise.
 
@@ -113,6 +122,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device_scope.cuh"
 #include "mma.cuh"
@@ -131,6 +142,9 @@ constexpr int kWgRows = 64;  // rows per step of the weight-gradient kernel, at 
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr int kErrUnsupportedC = -1;
 constexpr int kErrBadArgs = -2;
+
+// the rows passes a kernel takes (make_plan; ps_tri_route)
+enum Route { kRouteResident = 0, kRouteStreamed = 1, kRouteWide = 2 };
 
 enum Kind { kProFwd = 0, kProBwd = 1, kEpiFwd = 2, kEpiBwd = 3 };
 
@@ -255,7 +269,21 @@ struct Plan {
   int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
   size_t res_smem;
   int d_global;            // streamed backward rows pass: the dpre tiles read back from global
-  long long work_floats;   // f32 scratch: grid*6*C vector partials + chunks*njobs*C*C
+  long long work_floats;   // f32 scratch: grid*6*C vector partials + chunks*njobs*C*C (wide: HostPlan)
+};
+
+// What only the host reads of a call's plan: the route, the SM count and, on
+// the wide route, the workspace's layout in floats: the row tiles' column
+// sums (rtiles, 6, C), the weight-gradient chunks (chunks, njobs, C, C), the
+// LayerNorm statistics (n_ln, 2, N: mean, 1/sigma), dsrc (N, C) and the
+// bf16 LayerNorm planes (n_ln, N, C).  Kept out of Plan, which the kernels
+// take by value: a larger Plan changed the resident passes' code and made
+// them slower (PERF.md section 6).
+struct HostPlan {
+  int route;   // kRouteResident, kRouteStreamed or kRouteWide
+  int nsm;     // the device's SMs
+  int rtiles;  // wide route: 128-row tiles
+  long long off_vpart, off_wpart, off_stats, off_dsrc, off_s;
 };
 
 struct Carver {
@@ -1952,18 +1980,21 @@ constexpr int kWgMi = 2, kWgNj = 4;  // m16 and n16 tiles a warp, at most
 // Shared memory of the weight-gradient kernel, for steps of R = wg_rows
 // rows: the LayerNorm'd rows s (R x lds), and two ring stages each of the
 // step's rows of the source (R x lds, full C) and of the matching R x TM
-// slice of d.
+// slice of d.  On the wide route (from_s) the source is s itself: the ring
+// holds its R x TM slice (stride TM + kPadT) and nothing is recomputed.
 template <typename T>
 struct WgradSmem {
   T* s;
-  T* x;  // (2, R, lds)
+  T* x;  // (2, R, lds), or (2, R, TM + kPadT) from s
   T* d;  // (2, R, TM + kPadT)
 
-  __host__ __device__ static size_t carve(uintptr_t base, const Plan& p, WgradSmem* out) {
+  __host__ __device__ static size_t carve(uintptr_t base, const Plan& p, bool from_s,
+                                          WgradSmem* out) {
     Carver cv{base, 0};
     WgradSmem r{};
-    r.s = (T*)cv.take(sizeof(T) * p.wg_rows * p.lds);
-    r.x = (T*)cv.take(sizeof(T) * 2 * p.wg_rows * p.lds);
+    const int ldx = from_s ? p.wg_tile + kPadT : p.lds;
+    if (!from_s) r.s = (T*)cv.take(sizeof(T) * p.wg_rows * p.lds);
+    r.x = (T*)cv.take(sizeof(T) * 2 * p.wg_rows * ldx);
     r.d = (T*)cv.take(sizeof(T) * 2 * p.wg_rows * (p.wg_tile + kPadT));
     if (out) *out = r;
     return cv.off;
@@ -2086,13 +2117,13 @@ __device__ void ln_smem_rows(const T* x, int R, int C, const T* __restrict__ sc,
   }
 }
 
-template <typename T>
+template <typename T, bool kFromS>
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   WgradSmem<T> sm;
-  WgradSmem<T>::carve((uintptr_t)smem_raw, p, &sm);
+  WgradSmem<T>::carve((uintptr_t)smem_raw, p, kFromS, &sm);
   const int C = p.C, R = p.wg_rows, TM = p.wg_tile, per = C / TM, mt = TM / 16;
-  const int lds = p.lds, ldd = TM + kPadT;
+  const int ldd = TM + kPadT, lds = kFromS ? ldd : p.lds;
   const int tile = blockIdx.x % p.tiles, job = (blockIdx.x / p.tiles) % p.njobs;
   const int chunk = blockIdx.x / (p.tiles * p.njobs);
   const int m0 = (tile / per) * TM, n0 = (tile % per) * TM;
@@ -2101,7 +2132,8 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p)
   const T* x = a.src[job];
   const T* d = a.d[job];
   constexpr int E = 16 / (int)sizeof(T);  // elements a 16-byte piece
-  const int xpieces = C / E, dpieces = TM / E;
+  // the source's columns a step: all of them (s recomputed), or s's [m0, m0 + TM)
+  const int xpieces = (kFromS ? TM : C) / E, dpieces = TM / E, xc0 = kFromS ? m0 : 0;
   // rows [r0, r0 + R) of x and of d's columns [n0, n0 + TM) into ring stage
   // st, one group; rows past rend are zeros (their s is finite, their d 0)
   auto load = [&](int64_t r0, int st) {
@@ -2109,7 +2141,7 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p)
     T* dd = sm.d + st * R * ldd;
     for (int e = threadIdx.x; e < R * xpieces; e += kThreads) {
       const int r = e / xpieces, c = (e % xpieces) * E;
-      if (r0 + r < rend) cp_async16(xd + r * lds + c, x + (r0 + r) * C + c);
+      if (r0 + r < rend) cp_async16(xd + r * lds + c, x + (r0 + r) * C + xc0 + c);
       else *reinterpret_cast<uint4*>(xd + r * lds + c) = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int e = threadIdx.x; e < R * dpieces; e += kThreads) {
@@ -2126,9 +2158,13 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p)
     cp_async_wait_all();
     __syncthreads();  // stage st landed; the readers of s and of the other stage are done
     if (r0 + R < rend) load(r0 + R, st ^ 1);
-    ln_smem_rows<T>(sm.x + st * R * lds, R, C, a.sc[job], a.bi[job], sm.s, lds);
-    __syncthreads();
-    wgrad_products(acc, sm.s, lds, sm.d + st * R * ldd, ldd, m0, mt, R);
+    if constexpr (kFromS) {
+      wgrad_products(acc, sm.x + st * R * lds, lds, sm.d + st * R * ldd, ldd, 0, mt, R);
+    } else {
+      ln_smem_rows<T>(sm.x + st * R * lds, R, C, a.sc[job], a.bi[job], sm.s, lds);
+      __syncthreads();
+      wgrad_products(acc, sm.s, lds, sm.d + st * R * ldd, ldd, m0, mt, R);
+    }
   }
   // C fragments: rows m0 + 16 mi + g (+8), columns n0 + 16 nj + 8 (j & 1) + 2t (+1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp & 3, wn = warp >> 2;
@@ -2155,6 +2191,464 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
     float s = 0.0f;
     for (int g = 0; g < G; ++g) s += part[(size_t)g * M + i];
     out[i] = fromf<T>(s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the wide route of K5 and K7 (bf16, C > 128)
+// ---------------------------------------------------------------------------
+//
+// Replaces, at the widths whose weights do not fit in shared memory, the
+// TPU kernels K5 _prologue_bwd_kernel (protstruc_tpu/ops/tri_mul.py:121) and
+// K7 _epilogue_bwd_kernel (l.279).  At C = 1024 a block cannot own whole
+// rows through the products (64 rows of f32 dsrc are 256 KB), and the
+// streamed pass, which does, restages every weight for every 16-row tile
+// (about 16 MB of weights through L2 a tile, 131 GB a K5 call at N =
+// 2*256*256).  So the backward is a chain of kernels on the caller's stream,
+// its scratch in the wrapper's f32 workspace (no kernel allocates):
+//   1. wide_ln_kernel: s = LN(x) (K7 also t = LN2(p)) cast to bf16 into an
+//      (N, C) plane, each row's mean and 1/sigma kept (f32, fast variance);
+//   2. wide_gate_kernel: the pre-activations of each 128-row x 64-column
+//      output tile, both products that share its columns at once (K5: s @
+//      Wag and s @ Wap, then Wbg and Wbp; K7: s @ Wog and t @ Wo), then the
+//      gate backward in the epilogue: dpre (and du) cast to bf16 into the
+//      dpre planes, and the tile's f32 column sums of the two gradients;
+//   3. wide_back_kernel: dsrc (N, C, f32) = sum_k dpre_k @ W_k^T, one product
+//      of depth 4C (K5), or C for each of K7's two (run one after the other
+//      into the same plane);
+//   4. wide_ln_bwd_kernel: dx from dsrc, and the 128-row tile's column sums
+//      of dsrc * xhat and dsrc;
+//   5. wgrad_kernel<bf16, true>: dW = s^T @ dpre with s read from step 1's
+//      plane, not recomputed;
+//   6. reduce_kernel: the 128-row tiles' column sums in tile order, the
+//      weight-gradient chunks in chunk order (no atomics: the same bits on
+//      every run).
+// Steps 2, 3 and 5 are products of 8 N C^2 operations each (K5), bound by
+// the tensor cores (3.34 ms for K5's twelve (N, C) x (C, C) products at N =
+// 2*256*256, C = 1024 on an H100 at 989 TFLOP/s bf16).  Steps 2 and 3 share
+// one GEMM core (wide_mainloop): 128-row block tiles of 8 warps (2 x 4, each
+// 64 rows x 32 columns), a ring of 3-4 stages of 32-deep A and B tiles
+// copied by 16-byte cp.async (rows past N and columns past C zero-filled,
+// never read), padded shared memory that ldmatrix reads without bank
+// conflicts, mma.sync m16n8k16 bf16 with f32 accumulators, two blocks an SM
+// on a persistent grid, and the next tile's first stages issued before the
+// current tile's epilogue.  The weights are staged once per 128-row tile
+// (not per 16), so a product moves about 17 GB through L2 at that shape
+// instead of K5's 131 GB.  The core takes B row-major (k, n) for the gate
+// products (ldmatrix.trans) or as rows of W, (n, k), for the
+// back-projections (ldmatrix); the epilogue is the caller's.
+// Rounding points are the plain versions': s and t cast to bf16, f32
+// accumulation, dpre and du cast to bf16 before the back-projection and the
+// weight gradients, dsrc in f32, column sums in f32, every gradient cast
+// once at the end.  Only the order of the sums differs.
+
+constexpr int kWideBM = 128;               // rows of a GEMM tile and of a column-sum tile
+constexpr int kWideBK = 32;                // depth of a ring stage
+constexpr int kWideLdk = kWideBK + 8;      // row stride of k-contiguous stage tiles (80 bytes)
+constexpr int kWideGateN = 64;             // columns of each of a gate tile's two products
+constexpr int kWideLdn = kWideGateN + 8;   // row stride of the gate's (k, n) weight tiles (144 bytes)
+constexpr int kWideBackN = 128;            // columns of a back-projection tile
+constexpr int kWideThreads = 256;
+constexpr int kWideLnRows = 8;             // rows a block of wide_ln_kernel at a time (one a warp)
+// ring stages of the gate core: K5 (one row operand) 4, K7 (two) 3, so two blocks fit an SM
+__host__ __device__ constexpr int wide_gate_stages(int na) { return na == 1 ? 4 : 3; }
+constexpr int kWideBackStages = 4;
+
+// One ring stage of the core: NA row tiles A (BM x BK, k contiguous; the
+// gate's second product may read its own) and its B tiles: the gate's two
+// (BK x 64 each, n contiguous) or the back-projection's one (128 rows of W
+// x BK, k contiguous).
+template <bool kNK, int NA>
+struct WideStage {
+  static constexpr int NH = kNK ? 1 : 2;  // products an output tile holds
+  static constexpr int A_ELEMS = kWideBM * kWideLdk;
+  static constexpr int B_ELEMS = kNK ? kWideBackN * kWideLdk : kWideBK * kWideLdn;
+  static constexpr int ELEMS = NA * A_ELEMS + NH * B_ELEMS;
+};
+
+// The accumulators of a warp: NH products of 4 m16 x (4 / NH) n8 fragments.
+// Fragment (h, i, j): rows 64 wm + 16 i + g (+ 8), columns (gate) 16 wn +
+// 8 j + 2t (+1) of product h, or (back-projection) 32 wn + 8 j + 2t (+1).
+template <bool kNK>
+struct WideAcc {
+  static constexpr int NH = kNK ? 1 : 2;
+  float c[NH][4][4 / NH][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 / NH; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[h][i][j][e] = 0.0f;
+  }
+};
+
+// The products of one landed stage (two k16 steps) into the warp's
+// accumulators.
+template <bool kNK, int NA>
+__device__ __forceinline__ void wide_stage_mma(const bf16* stage, WideAcc<kNK>& acc) {
+  using S = WideStage<kNK, NA>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp >> 2, wn = warp & 3;
+  const bf16* B0 = stage + NA * S::A_ELEMS;
+#pragma unroll
+  for (int kk = 0; kk < kWideBK / 16; ++kk) {
+    uint32_t b[2][4];
+    if constexpr (kNK) {
+      // rows n of W (this warp's 32 columns, 16 at a time), k contiguous
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        ldsm_x4(b[q], B0 + (32 * wn + 16 * q + (lane >> 4) * 8 + (lane & 7)) * kWideLdk + 16 * kk +
+                          ((lane >> 3) & 1) * 8);
+    } else {
+      // rows k of each product's weight tile, n contiguous: this warp's 16 columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        ldsm_x4_trans(b[h], B0 + h * S::B_ELEMS +
+                                (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * kWideLdn + 16 * wn +
+                                (lane >> 4) * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int aoff = (64 * wm + 16 * i + (lane & 15)) * kWideLdk + 16 * kk + (lane >> 4) * 8;
+      uint32_t a[4];
+      ldsm_x4(a, stage + aoff);
+      if constexpr (kNK) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          mma_bf16(acc.c[0][i][2 * q], a, b[q][0], b[q][1]);
+          mma_bf16(acc.c[0][i][2 * q + 1], a, b[q][2], b[q][3]);
+        }
+      } else {
+        mma_bf16(acc.c[0][i][0], a, b[0][0], b[0][1]);
+        mma_bf16(acc.c[0][i][1], a, b[0][2], b[0][3]);
+        if constexpr (NA == 2) ldsm_x4(a, stage + S::A_ELEMS + aoff);
+        mma_bf16(acc.c[1][i][0], a, b[1][0], b[1][1]);
+        mma_bf16(acc.c[1][i][1], a, b[1][2], b[1][3]);
+      }
+    }
+  }
+}
+
+// The GEMM core: a persistent walk over ntiles output tiles, each nk
+// k-steps deep, through a ring of STAGES stages (one cp.async group a
+// step).  load(stage, tile, ks) issues the copies of k-step ks of `tile`
+// into `stage` (no commit); epilogue(tile, acc) consumes a tile's
+// accumulators.  The next tile's first STAGES - 1 stages are in flight
+// while the epilogue runs.
+template <bool kNK, int NA, int STAGES, typename Load, typename Epilogue>
+__device__ __forceinline__ void wide_mainloop(bf16* ring, int64_t ntiles, int nk, Load&& load,
+                                              Epilogue&& epilogue) {
+  using S = WideStage<kNK, NA>;
+  auto prologue = [&](int64_t tile) {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load(ring + s * S::ELEMS, tile, s);
+      cp_async_commit();
+    }
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < ntiles) prologue(tile);
+  WideAcc<kNK> acc;
+  for (; tile < ntiles; tile += gridDim.x) {
+    acc.zero();
+    for (int ks = 0; ks < nk; ++ks) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // k-step ks landed everywhere; step ks - 1's readers are done
+      const int pf = ks + STAGES - 1;
+      if (pf < nk) load(ring + (pf % STAGES) * S::ELEMS, tile, pf);
+      cp_async_commit();
+      wide_stage_mma<kNK, NA>(ring + (ks % STAGES) * S::ELEMS, acc);
+    }
+    __syncthreads();  // every stage read: the next tile may refill them
+    if (tile + gridDim.x < ntiles) prologue(tile + gridDim.x);
+    epilogue(tile, acc);
+  }
+  cp_async_wait_all();
+}
+
+// 16-byte piece e of a tile of 8 * pieces columns: row r0 + e / pieces of a
+// row-major source of stride ld, from column c0, into dst (stride ldd);
+// pieces of rows at or past rend or of columns at or past cend (a multiple
+// of 8) are zero-filled (and not read).
+__device__ __forceinline__ void wide_copy(bf16* dst, int ldd, const bf16* __restrict__ src,
+                                          int64_t ld, int64_t r0, int64_t rend, int c0, int cend,
+                                          int pieces, int e) {
+  const int r = e / pieces, c = (e % pieces) * 8;
+  const bool valid = r0 + r < rend && c0 + c < cend;
+  cp_async16_zfill(dst + r * ldd + c, valid ? src + (r0 + r) * ld + c0 + c : src, valid);
+}
+
+// Step 1: the LayerNorm of job blockIdx.y's rows into a bf16 plane, and each
+// row's mean and 1/sigma: one warp a row, the row read in bf16 pairs.
+struct WideLnArgs {
+  const bf16* src[2];
+  const bf16* sc[2];
+  const bf16* bi[2];
+  bf16* s[2];
+  float* mu[2];
+  float* inv[2];
+};
+
+__global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs a, int N, int C) {
+  const int job = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* __restrict__ sc = a.sc[job];
+  const bf16* __restrict__ bi = a.bi[job];
+  for (int64_t row = (int64_t)blockIdx.x * kWideLnRows + warp; row < N;
+       row += (int64_t)gridDim.x * kWideLnRows) {
+    const bf16* x = a.src[job] + row * C;
+    float sum = 0.0f, sq = 0.0f;
+    for (int c = 2 * lane; c < C; c += 64) {
+      float v0, v1;
+      load_pair(x + c, v0, v1);
+      sum += v0 + v1;
+      sq += v0 * v0 + v1 * v1;
+    }
+    const float mu = warp_sum(sum) / C;
+    const float inv = rsqrtf(warp_sum(sq) / C - mu * mu + kEps);
+    bf16* s = a.s[job] + row * C;
+    for (int c = 2 * lane; c < C; c += 64) {
+      float v0, v1, s0, s1, b0, b1;
+      load_pair(x + c, v0, v1);
+      load_pair(sc + c, s0, s1);
+      load_pair(bi + c, b0, b1);
+      store_pair(s + c, (v0 - mu) * inv * s0 + b0, (v1 - mu) * inv * s1 + b1);
+    }
+    if (lane == 0) {
+      a.mu[job][row] = mu;
+      a.inv[job][row] = inv;
+    }
+  }
+}
+
+// Step 2: the gate products and the gate backward.  Job h of K5 is (Wag,
+// Wap) or (Wbg, Wbp) against s; K7's one job is (Wog against s, Wo against
+// t).  With the gate pre-activation G and the projection P at a point and
+// its cotangent ct (times the mask in K5): sg = sigmoid(G + bg), pj = P +
+// bp, d[0] = ct pj sg (1 - sg) (dag, dbg; K7's dpre), d[1] = ct sg (dap,
+// dbp; K7's du).
+struct WideGateArgs {
+  const bf16* a[2];        // the row operands of the two products (s, s or s, t)
+  const bf16* w[2][2];     // [job][product] weights (C, C), stored (in, out)
+  const bf16* bias[2][2];  // [job][product]
+  const bf16* ct[2];       // [job] cotangent rows (N, C)
+  const bf16* mask;        // K5: (N,); K7: none
+  bf16* d[2][2];           // [job][product] the cast gradients, (N, C) planes
+  int vidx[2][2];          // [job][product] slot of their column sums among the six vectors
+  float* vpart;            // (row tiles, 6, C) column sums
+  int njobs;
+};
+
+template <int NA>
+__host__ __device__ constexpr size_t wide_gate_smem() {
+  return sizeof(bf16) * wide_gate_stages(NA) * WideStage<false, NA>::ELEMS +
+         sizeof(float) * 4 * kWideGateN;
+}
+
+template <int NA>
+__global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs a, int N, int C) {
+  using S = WideStage<false, NA>;
+  constexpr int STAGES = wide_gate_stages(NA);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  // the warps' column sums, [wm][product][64]
+  float* csum = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * STAGES * S::ELEMS);
+  const int nct = (C + kWideGateN - 1) / kWideGateN, nk = (C + kWideBK - 1) / kWideBK;
+  const int64_t rtiles = ((int64_t)N + kWideBM - 1) / kWideBM;
+  const int64_t ntiles = rtiles * a.njobs * nct;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // tiles: the column tile fastest, then the job, then the row tile
+  auto load = [&](bf16* stage, int64_t tile, int ks) {
+    const int nt = (int)(tile % nct), job = (int)((tile / nct) % a.njobs);
+    const int64_t r0 = tile / ((int64_t)nct * a.njobs) * kWideBM;
+    const int k0 = ks * kWideBK;
+#pragma unroll
+    for (int q = 0; q < NA; ++q)
+#pragma unroll
+      for (int e = tid; e < kWideBM * kWideBK / 8; e += kWideThreads)
+        wide_copy(stage + q * S::A_ELEMS, kWideLdk, a.a[q], C, r0, N, k0, C, kWideBK / 8, e);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      for (int e = tid; e < kWideBK * kWideGateN / 8; e += kWideThreads)
+        wide_copy(stage + NA * S::A_ELEMS + h * S::B_ELEMS, kWideLdn, a.w[job][h], C, k0, C,
+                  nt * kWideGateN, C, kWideGateN / 8, e);
+  };
+  auto epilogue = [&](int64_t tile, const WideAcc<false>& acc) {
+    const int nt = (int)(tile % nct), job = (int)((tile / nct) % a.njobs);
+    const int64_t mt = tile / ((int64_t)nct * a.njobs);
+    // this warp's 16 columns: all past C, or none (C % 16 == 0)
+    const int n0 = nt * kWideGateN + 16 * wn;
+    const bool live = n0 < C;
+    const bf16* bg = a.bias[job][0] + n0;
+    const bf16* bp = a.bias[job][1] + n0;
+    const bf16* ct = a.ct[job];
+    float sums[2][2][2] = {};  // [product][j][e]: this lane's rows, summed
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t row = mt * kWideBM + 64 * wm + 16 * i + g + 8 * rr;
+        if (row >= N || !live) continue;
+        const float m = a.mask ? tof(a.mask[row]) : 1.0f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 8 * j + 2 * t;  // the column, from n0
+          float c0, c1, g0, g1, p0, p1;
+          load_pair(ct + row * C + n0 + c, c0, c1);
+          load_pair(bg + c, g0, g1);
+          load_pair(bp + c, p0, p1);
+          float dg[2], dp[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ctm = (e ? c1 : c0) * m;
+            const float sg = sigmoidf(acc.c[0][i][j][2 * rr + e] + (e ? g1 : g0));
+            const float pj = acc.c[1][i][j][2 * rr + e] + (e ? p1 : p0);
+            dg[e] = ctm * pj * sg * (1.0f - sg);
+            dp[e] = ctm * sg;
+            sums[0][j][e] += dg[e];
+            sums[1][j][e] += dp[e];
+          }
+          store_pair(a.d[job][0] + row * C + n0 + c, dg[0], dg[1]);
+          store_pair(a.d[job][1] + row * C + n0 + c, dp[0], dp[1]);
+        }
+      }
+    // the tile's column sums: the warp's 64 rows by shuffles, then the two
+    // row halves (wm) in order
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = column_sum(sums[h][j][e]);
+          if (g == 0) csum[(wm * 2 + h) * kWideGateN + 16 * wn + 8 * j + 2 * t + e] = v;
+        }
+    __syncthreads();
+    if (tid < 2 * kWideGateN && nt * kWideGateN + tid % kWideGateN < C) {
+      const int h = tid / kWideGateN, c = tid % kWideGateN;
+      a.vpart[(mt * 6 + a.vidx[job][h]) * C + nt * kWideGateN + c] =
+          csum[h * kWideGateN + c] + csum[(2 + h) * kWideGateN + c];
+    }
+  };
+  wide_mainloop<false, NA, STAGES>(ring, ntiles, nk, load, epilogue);
+}
+
+// Step 3: dsrc (N, C, f32) = sum over k < nmat of a_k @ w_k^T, depth nmat C;
+// k-step ks reads plane ks / (C / BK) of a and the same columns of w's rows.
+struct WideBackArgs {
+  const bf16* a[4];  // cast cotangent planes (N, C)
+  const bf16* w[4];  // weights (C, C), stored (in, out): row n of w is column n of w^T
+  int nmat;
+  float* dsrc;       // (N, C)
+};
+
+constexpr size_t kWideBackSmem = sizeof(bf16) * kWideBackStages * WideStage<true, 1>::ELEMS;
+
+__global__ void __launch_bounds__(kWideThreads, 2) wide_back_kernel(WideBackArgs a, int N, int C) {
+  using S = WideStage<true, 1>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int nct = (C + kWideBackN - 1) / kWideBackN, kper = (C + kWideBK - 1) / kWideBK;
+  const int nk = a.nmat * kper;
+  const int64_t ntiles = ((int64_t)N + kWideBM - 1) / kWideBM * nct;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  auto load = [&](bf16* stage, int64_t tile, int ks) {
+    const int nt = (int)(tile % nct), k = ks / kper, k0 = (ks % kper) * kWideBK;
+    const int64_t r0 = tile / nct * kWideBM;
+    for (int e = tid; e < kWideBM * kWideBK / 8; e += kWideThreads)
+      wide_copy(stage, kWideLdk, a.a[k], C, r0, N, k0, C, kWideBK / 8, e);
+    for (int e = tid; e < kWideBackN * kWideBK / 8; e += kWideThreads)
+      wide_copy(stage + S::A_ELEMS, kWideLdk, a.w[k], C, (int64_t)nt * kWideBackN, C, k0, C,
+                kWideBK / 8, e);
+  };
+  auto epilogue = [&](int64_t tile, const WideAcc<true>& acc) {
+    const int n0 = (int)(tile % nct) * kWideBackN + 32 * wn;
+    const int64_t r0 = tile / nct * kWideBM + 64 * wm;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int64_t row = r0 + 16 * i + g + 8 * rr;
+        if (row >= N) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          if (n < C)
+            store_pair(a.dsrc + row * C + n, acc.c[0][i][j][2 * rr], acc.c[0][i][j][2 * rr + 1]);
+        }
+      }
+  };
+  wide_mainloop<true, 1, kWideBackStages>(ring, ntiles, nk, load, epilogue);
+}
+
+// Step 4: the LayerNorm backward, a 128-row tile a block: dx = inv (dxh -
+// mean(dxh) - xhat mean(dxh xhat)), dxh = dsrc scale.  The warps take rows
+// for the two row means; then each thread owns column pairs and walks the
+// tile's rows in order for dx and the tile's column sums of dsrc * xhat and
+// dsrc (slots va, vb of the vector partials).
+struct WideLnBwdArgs {
+  const float* dsrc;
+  const bf16* x;
+  const float* mu;
+  const float* inv;
+  const bf16* sc;
+  bf16* dx;
+  float* vpart;
+  int va, vb;
+};
+
+__global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs a, int N, int C) {
+  __shared__ float rmu[kWideBM], rinv[kWideBM], rm1[kWideBM], rm2[kWideBM];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t tile = blockIdx.x, r0 = tile * kWideBM;
+  const int nrows = (int)min((int64_t)kWideBM, (int64_t)N - r0);
+  for (int r = warp; r < nrows; r += kWideThreads / 32) {
+    const int64_t row = r0 + r;
+    const float mu = a.mu[row], inv = a.inv[row];
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int c = 2 * lane; c < C; c += 64) {
+      float d0, d1, x0, x1, k0, k1;
+      load_pair(a.dsrc + row * C + c, d0, d1);
+      load_pair(a.x + row * C + c, x0, x1);
+      load_pair(a.sc + c, k0, k1);
+      const float e0 = d0 * k0, e1 = d1 * k1;
+      s1 += e0 + e1;
+      s2 += e0 * ((x0 - mu) * inv) + e1 * ((x1 - mu) * inv);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      rmu[r] = mu;
+      rinv[r] = inv;
+      rm1[r] = s1 / C;
+      rm2[r] = s2 / C;
+    }
+  }
+  __syncthreads();
+  for (int c = 2 * tid; c < C; c += 2 * kWideThreads) {
+    float k0, k1;
+    load_pair(a.sc + c, k0, k1);
+    float sx0 = 0.0f, sx1 = 0.0f, sb0 = 0.0f, sb1 = 0.0f;
+    for (int r = 0; r < nrows; ++r) {
+      const int64_t row = r0 + r;
+      const float mu = rmu[r], inv = rinv[r], m1 = rm1[r], m2 = rm2[r];
+      float d0, d1, x0, x1;
+      load_pair(a.dsrc + row * C + c, d0, d1);
+      load_pair(a.x + row * C + c, x0, x1);
+      const float xh0 = (x0 - mu) * inv, xh1 = (x1 - mu) * inv;
+      store_pair(a.dx + row * C + c, inv * (d0 * k0 - m1 - xh0 * m2),
+                 inv * (d1 * k1 - m1 - xh1 * m2));
+      sx0 += d0 * xh0;
+      sx1 += d1 * xh1;
+      sb0 += d0;
+      sb1 += d1;
+    }
+    store_pair(a.vpart + (tile * 6 + a.va) * C + c, sx0, sx1);
+    store_pair(a.vpart + (tile * 6 + a.vb) * C + c, sb0, sb1);
   }
 }
 
@@ -2185,12 +2679,14 @@ size_t rows_smem(const Plan& p, int kind) {
 
 // Tiles, grids and scratch for one call.  Deterministic for a given device,
 // kind, dtype, N and C, so the launch recomputes what the workspace query
-// returned.  Returns kErrUnsupportedC when C is not a multiple of 16 or its
-// tiles do not fit in shared memory.
+// returned.  The route is a function of kind, dtype and C alone (the table
+// at the top).  Returns kErrUnsupportedC when C is not a multiple of 16 or
+// its tiles do not fit in shared memory.
 template <typename T>
-int make_plan(int device, int kind, int N, int C, Plan* out) {
+int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   if (C < 16 || C % 16 != 0 || N < 0) return kErrUnsupportedC;
   Plan p{};
+  HostPlan h{};
   p.N = N;
   p.C = C;
   p.TNK = C % 64 == 0 ? 64 : (C % 32 == 0 ? 32 : 16);
@@ -2198,14 +2694,19 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
   p.ldw = p.TNK + kPadT;
   p.ldf = p.TNK + kPadF;
   p.ldc = C + kPadF;
+  p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
+  p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
+  // bf16 backward: resident where its weights fit (C <= 128), else wide
+  const bool wide = is_bwd(kind) && sizeof(T) == 2 && !p.resident;
+  h.route = p.resident ? kRouteResident : (wide ? kRouteWide : kRouteStreamed);
   int TR = 0;
-  // A backward rows pass whose dpre tiles do not fit beside the rest (bf16
-  // C = 1024: four 16 x C tiles are 129 KiB) reads them back from the global
+  // A backward rows pass whose dpre tiles do not fit beside the rest (float32
+  // C = 1024: four 16 x C tiles are 257 KiB) reads them back from the global
   // dpre it writes anyway, through L2: each block reads only rows it wrote,
   // after a barrier.  The last tile's rows past N read whatever follows them
   // (the next dpre plane, or the wrappers' padding of 64 rows after the last,
   // ops/tri_mul.py _DPRE_TAIL); those rows of dsrc are never used.
-  for (p.d_global = 0; p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
+  for (p.d_global = 0; h.route != kRouteWide && p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
     for (TR = sizeof(T) == 2 ? 64 : 32; TR >= 16; TR /= 2) {
       p.TR = TR;
       p.smem = rows_smem<T>(p, kind);
@@ -2213,15 +2714,13 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
     }
     if (TR >= 16) break;
   }
-  if (TR < 16) return kErrUnsupportedC;
-  int nsm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  if (h.route != kRouteWide && TR < 16) return kErrUnsupportedC;
+  cudaError_t err = cudaDeviceGetAttribute(&h.nsm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  p.ntiles = (N + p.TR - 1) / p.TR;
+  const int nsm = h.nsm;
+  p.ntiles = h.route == kRouteWide ? 0 : (N + p.TR - 1) / p.TR;
   p.grid = p.ntiles < 2 * nsm ? p.ntiles : 2 * nsm;
   p.work_floats = 0;
-  p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
-  p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
   if (p.resident) {  // one block an SM: its registers leave room for no second
     const long long need = ((long long)N + 16 * res_warps(kind) - 1) / (16 * res_warps(kind));
     p.res_grid = (int)(need < nsm ? need : nsm);
@@ -2234,7 +2733,7 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
     const int per = C / p.wg_tile;
     p.tiles = per * per;
     for (p.wg_rows = kWgRows; p.wg_rows >= 16; p.wg_rows /= 2) {
-      p.wg_smem = WgradSmem<T>::carve(0, p, nullptr);
+      p.wg_smem = WgradSmem<T>::carve(0, p, wide, nullptr);
       if (p.wg_smem <= kSmemLimit) break;
     }
     if (p.wg_rows < 16) return kErrUnsupportedC;
@@ -2247,11 +2746,126 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
       p.chunk_rows = (rows + p.wg_rows - 1) / p.wg_rows * p.wg_rows;
       p.chunks = (N + p.chunk_rows - 1) / p.chunk_rows;
     }
-    const int vgrid = p.grid > p.res_grid ? p.grid : p.res_grid;
-    p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
+    if (h.route == kRouteWide) {
+      h.rtiles = (N + kWideBM - 1) / kWideBM;
+      long long off = 0;
+      auto take = [&](long long floats) {  // 128-byte aligned regions
+        const long long at = off;
+        off += (floats + 31) / 32 * 32;
+        return at;
+      };
+      h.off_vpart = take((long long)h.rtiles * 6 * C);
+      h.off_wpart = take((long long)p.chunks * p.njobs * C * C);
+      h.off_stats = take(2LL * n_ln(kind) * N);
+      h.off_dsrc = take((long long)N * C);
+      h.off_s = take((long long)n_ln(kind) * N * C / 2);
+      p.work_floats = off;
+    } else {
+      const int vgrid = p.grid > p.res_grid ? p.grid : p.res_grid;
+      p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
+    }
   }
   *out = p;
+  if (host) *host = h;
   return 0;
+}
+
+// The wide route's chain (the note above wide_ln_kernel) on stream st, its
+// scratch carved from the workspace as make_plan laid it out.
+int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a, bf16* dvec,
+             bf16* dmat, float* work, cudaStream_t st) {
+  const int N = p.N, C = p.C, nln = n_ln(kind);
+  const bool pro = kind == kProBwd;
+  float* vpart = work + h.off_vpart;
+  float* wpart = work + h.off_wpart;
+  float* stats = work + h.off_stats;
+  float* dsrc = work + h.off_dsrc;
+  bf16* s = reinterpret_cast<bf16*>(work + h.off_s);
+  cudaError_t err;
+  // 1. s = LN(x) (and K7's t = LN2(p)), their statistics
+  WideLnArgs ln{};
+  for (int j = 0; j < nln; ++j) {
+    ln.src[j] = j ? a.aux : a.x;
+    ln.sc[j] = a.vec[3 * j];
+    ln.bi[j] = a.vec[3 * j + 1];
+    ln.s[j] = s + (size_t)j * N * C;
+    ln.mu[j] = stats + (size_t)2 * j * N;
+    ln.inv[j] = ln.mu[j] + N;
+  }
+  const long long ln_need = ((long long)N + kWideLnRows - 1) / kWideLnRows;
+  const int ln_grid = (int)(ln_need < 64LL * h.nsm ? ln_need : 64LL * h.nsm);
+  wide_ln_kernel<<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 2. the gate products and the gate backward: dpre planes, column sums
+  WideGateArgs ga{};
+  ga.a[0] = s;
+  ga.a[1] = s + (size_t)(nln - 1) * N * C;
+  ga.mask = pro ? a.aux : nullptr;
+  ga.vpart = vpart;
+  ga.njobs = pro ? 2 : 1;
+  for (int j = 0; j < ga.njobs; ++j) {
+    ga.ct[j] = a.ct[j];
+    for (int h = 0; h < 2; ++h) {
+      ga.w[j][h] = a.mat[2 * j + h];
+      ga.vidx[j][h] = pro ? 2 + 2 * j + h : (h ? 5 : 2);
+      ga.bias[j][h] = a.vec[ga.vidx[j][h]];
+      ga.d[j][h] = a.dpre + (size_t)(2 * j + h) * N * C;
+    }
+  }
+  const long long gate_tiles = (long long)h.rtiles * ga.njobs * ((C + kWideGateN - 1) / kWideGateN);
+  const int gate_grid = (int)(gate_tiles < 2LL * h.nsm ? gate_tiles : 2LL * h.nsm);
+  if (pro) {
+    if ((err = set_smem(wide_gate_kernel<1>, wide_gate_smem<1>())) != cudaSuccess) return (int)err;
+    wide_gate_kernel<1><<<gate_grid, kWideThreads, wide_gate_smem<1>(), st>>>(ga, N, C);
+  } else {
+    if ((err = set_smem(wide_gate_kernel<2>, wide_gate_smem<2>())) != cudaSuccess) return (int)err;
+    wide_gate_kernel<2><<<gate_grid, kWideThreads, wide_gate_smem<2>(), st>>>(ga, N, C);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 3, 4. dsrc = sum_k dpre_k @ W_k^T, then the LayerNorm backward (K7: LN1's,
+  // then LN2's through the same dsrc plane)
+  const long long back_tiles = (long long)h.rtiles * ((C + kWideBackN - 1) / kWideBackN);
+  const int back_grid = (int)(back_tiles < 2LL * h.nsm ? back_tiles : 2LL * h.nsm);
+  if ((err = set_smem(wide_back_kernel, kWideBackSmem)) != cudaSuccess) return (int)err;
+  for (int j = 0; j < nln; ++j) {
+    WideBackArgs ba{};
+    ba.nmat = pro ? 4 : 1;
+    for (int k = 0; k < ba.nmat; ++k) {
+      ba.a[k] = a.dpre + (size_t)(j + k) * N * C;
+      ba.w[k] = a.mat[j + k];
+    }
+    ba.dsrc = dsrc;
+    wide_back_kernel<<<back_grid, kWideThreads, kWideBackSmem, st>>>(ba, N, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    WideLnBwdArgs lb{};
+    lb.dsrc = dsrc;
+    lb.x = j ? a.aux : a.x;
+    lb.mu = ln.mu[j];
+    lb.inv = ln.inv[j];
+    lb.sc = a.vec[3 * j];
+    lb.dx = a.out[j];
+    lb.vpart = vpart;
+    lb.va = 3 * j;
+    lb.vb = 3 * j + 1;
+    wide_ln_bwd_kernel<<<h.rtiles, kWideThreads, 0, st>>>(lb, N, C);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // 5. weight gradients from the LayerNorm planes
+  WgradArgs<bf16> g{};
+  for (int j = 0; j < p.njobs; ++j) {
+    g.src[j] = (!pro && j == 1) ? s + (size_t)N * C : s;
+    g.d[j] = a.dpre + (size_t)j * N * C;
+  }
+  g.part = wpart;
+  if ((err = set_smem(wgrad_kernel<bf16, true>, p.wg_smem)) != cudaSuccess) return (int)err;
+  wgrad_kernel<bf16, true><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 6. the row tiles' column sums, the chunks' weight gradients, in order
+  const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
+  reduce_kernel<bf16><<<(int)((mv + 255) / 256), 256, 0, st>>>(vpart, h.rtiles, mv, dvec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  reduce_kernel<bf16><<<(int)((mm + 255) / 256), 256, 0, st>>>(wpart, p.chunks, mm, dmat);
+  return (int)cudaGetLastError();
 }
 
 // Launch the rows kernel of `kind`, then (backward) the weight-gradient pass
@@ -2260,7 +2874,8 @@ int make_plan(int device, int kind, int N, int C, Plan* out) {
 template <typename T>
 int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) {
   Plan p;
-  int rc = make_plan<T>(device, kind, N, C, &p);
+  HostPlan h;
+  int rc = make_plan<T>(device, kind, N, C, &p, &h);
   if (rc != 0) return rc;
   if (N == 0) return 0;
   const bool pro = kind <= kProBwd;
@@ -2324,6 +2939,10 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     const void* need[] = {a.x, a.aux, a.ct[0], a.mat[0], a.mat[1], a.out[0], a.out[1], a.dpre};
     if (!aligned16(need)) return kErrBadArgs;
   }
+  if (h.route == kRouteWide) {
+    if constexpr (std::is_same<T, bf16>::value) return run_wide(p, h, kind, a, dvec, dmat, work, st);
+    return kErrBadArgs;  // make_plan gives float32 no wide route
+  }
   const int vgrid = p.resident ? p.res_grid : p.grid;  // blocks that wrote vector partials
   if (p.resident && pro) {
     if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
@@ -2331,12 +2950,16 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   } else if (p.resident) {
     if ((err = set_smem(epilogue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
     epilogue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-  } else if (pro) {
-    if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-    prologue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+  } else if constexpr (std::is_same<T, float>::value) {  // the streamed backward passes are float32's
+    if (pro) {
+      if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
+      prologue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    } else {
+      if ((err = set_smem(epilogue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
+      epilogue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    }
   } else {
-    if ((err = set_smem(epilogue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-    epilogue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
+    return kErrBadArgs;  // make_plan gives bf16 backward no streamed route
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -2349,8 +2972,8 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     g.d[j] = a.dpre + (size_t)j * N * C;
   }
   g.part = work + (size_t)(p.grid > p.res_grid ? p.grid : p.res_grid) * 6 * C;
-  if ((err = set_smem(wgrad_kernel<T>, p.wg_smem)) != cudaSuccess) return (int)err;
-  wgrad_kernel<T><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
+  if ((err = set_smem(wgrad_kernel<T, false>, p.wg_smem)) != cudaSuccess) return (int)err;
+  wgrad_kernel<T, false><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
@@ -2377,9 +3000,22 @@ int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, v
 extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
                                 long long* work_floats) {
   Plan p;
-  int rc = dtype == 0 ? make_plan<float>(device, kind, N, C, &p)
-                      : (dtype == 1 ? make_plan<bf16>(device, kind, N, C, &p) : kErrBadArgs);
+  int rc = dtype == 0 ? make_plan<float>(device, kind, N, C, &p, nullptr)
+                      : (dtype == 1 ? make_plan<bf16>(device, kind, N, C, &p, nullptr) : kErrBadArgs);
   if (rc == 0) *work_floats = p.work_floats;
+  return rc;
+}
+
+// The rows pass that `kind` (0 K4, 1 K5, 2 K6, 3 K7) takes for dtype (0 f32,
+// 1 bf16) at width C, into *route: 0 resident, 1 streamed, 2 wide (the
+// table at the top; N does not change it).  Returns 0, -1 when C is not
+// supported, or a CUDA error code.
+extern "C" int ps_tri_route(int device, int kind, int dtype, int N, int C, int* route) {
+  Plan p;
+  HostPlan h;
+  int rc = dtype == 0 ? make_plan<float>(device, kind, N, C, &p, &h)
+                      : (dtype == 1 ? make_plan<bf16>(device, kind, N, C, &p, &h) : kErrBadArgs);
+  if (rc == 0) *route = h.route;
   return rc;
 }
 

@@ -468,9 +468,7 @@ def moe_check(dev, say):
         m = MoEMLP(128, n_experts=8, hidden_dim=512, device=dev,
                    mesh=mesh if ep else None, ep_axis="dp" if ep else None)
         whole = MoEMLP(128, n_experts=8, hidden_dim=512, device=dev)
-        gen = torch.Generator().manual_seed(6)
-        for mod in whole.modules():   # the router too: MoEMLP's own reset draws the experts
-            mod.reset_parameters(gen)
+        whole.reset_parameters(torch.Generator().manual_seed(6))
         sd = whole.state_dict()
         m.load_state_dict(cut_params(sd, moe_param_shardings(sd, mesh), mesh) if ep else sd)
         xi = (cut(x, ("dp",), mesh) if ep else x).clone().requires_grad_()

@@ -1,8 +1,8 @@
 """Timing-only probes of the port's tile kernels: K1 and K3, the pair-map
 kernels on one tile skeleton, the backward kernels K2 and K9, and the
-streamed rows passes of K4 and K5 at wide C.
+streamed rows pass of K4 at wide C.
 
-    python -m protstruc_tpu_torch.experiments.pair_tile_probe [K1 K2 K3 K9 K4 K5]
+    python -m protstruc_tpu_torch.experiments.pair_tile_probe [K1 K2 K3 K9 K4]
 
 Each probe is the checkout's own ``csrc/pair_maps.cu``,
 ``csrc/model_features.cu``, ``csrc/pair_maps_bwd.cu``,
@@ -36,13 +36,7 @@ plain forward.  The probes:
 * K4's streamed rows pass (bf16, N = 2*256*256, ``[mfu-peak]``'s pair rows)
   at C = 1024 on 32- and 16-row tiles instead of its 64: every row tile
   restages all four C x C weights, so the time a call against the tile
-  height says what the restaging costs;
-* K5's streamed rows pass (bf16, same N) at C = 512 and 1024 with its cast
-  dpre tiles read back from global memory (``Plan::d_global``, which C =
-  1024 takes as built) on 16-row tiles, the height both widths take as
-  built: at C = 512 the difference to the kernel as built is what the
-  global reads cost together with the shared memory they free (blocks an
-  SM), at C = 1024 it is a control.
+  height says what the restaging costs.
 
 A probe that drops a phase computes wrong values by design; its outputs are
 never read.  The card's name and power limit head the output.  This module
@@ -75,10 +69,8 @@ __device__ __forceinline__ float launder(float x) {
 __device__ __forceinline__ V3 launder(V3 a) { return V3{launder(a.x), launder(a.y), launder(a.z)}; }
 '''
 
-# the plan's row-tile height and its choice of where the dpre tiles live
-# (csrc/tri_mul.cu make_plan)
+# the plan's row-tile height (csrc/tri_mul.cu make_plan)
 _TRI_TR = "    for (TR = sizeof(T) == 2 ? 64 : 32; TR >= 16; TR /= 2) {"
-_TRI_DG = "  for (p.d_global = 0; p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {"
 
 # (kernel, probe) -> {file: [(anchor, replacement)]}
 VARIANTS: Dict[Tuple[str, str], Dict[str, Sequence[Tuple[str, str]]]] = {
@@ -147,10 +139,6 @@ VARIANTS: Dict[Tuple[str, str], Dict[str, Sequence[Tuple[str, str]]]] = {
     ("K4", "as built"): {},
     ("K4", "32-row tiles"): {"tri_mul.cu": [(_TRI_TR, _TRI_TR.replace("sizeof(T) == 2 ? 64 : 32", "32"))]},
     ("K4", "16-row tiles"): {"tri_mul.cu": [(_TRI_TR, _TRI_TR.replace("sizeof(T) == 2 ? 64 : 32", "16"))]},
-    ("K5", "as built"): {},
-    ("K5", "dpre from global"): {"tri_mul.cu": [
-        (_TRI_TR, _TRI_TR.replace("sizeof(T) == 2 ? 64 : 32", "16")),
-        (_TRI_DG, _TRI_DG.replace("p.d_global = 0;", "p.d_global = is_bwd(kind) ? 1 : 0;"))]},
     ("K9", "bf16 dh <= 32 unbounded"): {"flash_attn.cu": [(
         "__launch_bounds__(kBwdWarps * 32, (sizeof(T) == 2 && DH <= 32) ? 4 : 1)",
         "__launch_bounds__(kBwdWarps * 32)")]},
@@ -162,12 +150,11 @@ _GRID_BLOCKS_PER_SM = {("K1", "persistent grid"): 4}
 _PAIR_TILE = {("K2", "2 pairs a lane"): (2, 64, 32, 8)}
 
 _MAIN = {"K1": "pair_maps.cu", "K2": "pair_maps_bwd.cu", "K3": "model_features.cu",
-         "K9": "flash_attn.cu", "K4": "tri_mul.cu", "K5": "tri_mul.cu"}
-_FLAGS = {"K9": cuda_lib.NVCC_FLAGS_FMA, "K4": cuda_lib.NVCC_FLAGS_FMA,
-          "K5": cuda_lib.NVCC_FLAGS_FMA}   # the others: cuda_lib.NVCC_FLAGS
+         "K9": "flash_attn.cu", "K4": "tri_mul.cu"}
+_FLAGS = {"K9": cuda_lib.NVCC_FLAGS_FMA, "K4": cuda_lib.NVCC_FLAGS_FMA}   # the others: cuda_lib.NVCC_FLAGS
 _HEADERS = ("pair_maps.cuh", "device_scope.cuh", "mma.cuh")
-# (warm-up calls, timed calls): K4 and K5 at C = 1024 take 0.1-1 s a call
-_WARMUP_ITERS = {"K4": (1, 3), "K5": (1, 3)}
+# (warm-up calls, timed calls): K4 at C = 1024 takes 0.1 s a call
+_WARMUP_ITERS = {"K4": (1, 3)}
 
 
 def variant_sources(kernel: str, probe: str) -> Dict[str, str]:
@@ -230,10 +217,10 @@ def _flash_args(dev, dtype, B, H, dh, L, permuted, masked, seed=0):
     return q, k, v, bias, kmask, do, lse, delta
 
 
-def _tri_args(dev, name, C, N=2 * 256 * 256, seed=0):
-    """bf16 inputs of K4 (``prologue_fwd``) or K5 (``prologue_bwd``): pair
-    rows, a mask with every tenth row off, the ten prologue weights and (K5)
-    the two cotangents, from a card generator seeded ``seed``."""
+def _tri_args(dev, C, N=2 * 256 * 256, seed=0):
+    """bf16 inputs of K4 (``prologue_fwd``): pair rows, a mask with every
+    tenth row off and the ten prologue weights, from a card generator seeded
+    ``seed``."""
     gen = torch.Generator(dev).manual_seed(seed)
 
     def t(*shape, scale=1.0, shift=0.0):
@@ -243,10 +230,7 @@ def _tri_args(dev, name, C, N=2 * 256 * 256, seed=0):
     w = [t(C, scale=0.2, shift=1.0), t(C, scale=0.2)]
     for _ in range(4):
         w += [t(C, C, scale=C ** -0.5), t(C, scale=0.1)]
-    args = [t(N, C, shift=0.3), m, *w]
-    if name == "prologue_bwd":
-        args += [t(N, C), t(N, C)]
-    return args
+    return [t(N, C, shift=0.3), m, *w]
 
 
 def _load_flash():
@@ -295,14 +279,9 @@ def main(argv: Sequence[str] = ()) -> int:
                        {"f32 train B=4 H=4 dh=32 L=256": lambda: flash_attn.flash_bwd(*train),
                         "bf16 [attn] B=1 H=8 dh=32 L=4096": lambda: flash_attn.flash_bwd(*attn)})
     if "K4" in kernels:
-        k4 = _tri_args(dev, "prologue_fwd", 1024)
+        k4 = _tri_args(dev, 1024)
         calls["K4"] = (("tri_mul", tri_mul.load_library),
                        {"bf16 N=131072 C=1024": lambda: tri_mul.prologue_fwd(*k4)})
-    if "K5" in kernels:
-        k5 = {C: _tri_args(dev, "prologue_bwd", C) for C in (512, 1024)}
-        calls["K5"] = (("tri_mul", tri_mul.load_library),
-                       {f"bf16 N=131072 C={C}": (lambda a=a: tri_mul.prologue_bwd(*a))
-                        for C, a in k5.items()})
     kept = {stem: cuda_lib._LIBS.get(stem) for stem in ("pair_maps", "model_features", "pair_maps_bwd",
                                                          "flash_attn", "tri_mul")}
     kept_flash = flash_attn._LIB

@@ -92,6 +92,8 @@ class MoEMLP(nn.Module):
         self.b2 = nn.Parameter(torch.zeros((El, D), device=device))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
+        """The experts, then the router, from ``gen`` (a model that walks its
+        modules draws the router once more after this)."""
         # flax lecun_normal on (E, in, out): fan_in = in x E (the expert axis
         # counts as receptive field); an expert-parallel rank keeps its chunk
         # of the whole draws
@@ -103,6 +105,7 @@ class MoEMLP(nn.Module):
                 w.copy_(whole[self.ep_index * El:(self.ep_index + 1) * El])
         nn.init.zeros_(self.b1)
         nn.init.zeros_(self.b2)
+        self.router.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         sh = self.shard

@@ -28,6 +28,7 @@ formulas, not taken by autograd of the forward.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -35,8 +36,8 @@ import torch
 from protstruc_tpu_torch.ops import cuda_lib
 
 __all__ = ["fused_triangle_multiplication", "tri_prod", "in_tri_prod", "prologue_fwd", "prologue_bwd",
-           "epilogue_fwd", "epilogue_bwd", "KERNELS", "LAUNCHES", "load_library",
-           "library_path"]
+           "epilogue_fwd", "epilogue_bwd", "KERNELS", "LAUNCHES", "ROUTE_LAUNCHES", "ROUTES", "route",
+           "load_library", "library_path"]
 
 _EPS = 1e-6  # flax.linen.LayerNorm default
 _SOURCES = ("tri_mul.cu",)
@@ -50,6 +51,16 @@ LAUNCHES: Dict[str, int] = {"prologue_fwd": 0, "prologue_bwd": 0,
 
 #: Workspace kinds of ``ps_tri_workspace``, one per kernel.
 _KIND = {"prologue_fwd": 0, "prologue_bwd": 1, "epilogue_fwd": 2, "epilogue_bwd": 3}
+
+#: The rows passes of ``ps_tri_route``, by its code: weights resident in
+#: shared memory (bf16 C <= 128, float32 C <= 64), streamed through it (the
+#: other widths), or the wide route's chain of GEMM kernels (K5 and K7 in
+#: bf16 at C > 128; their streamed passes run in float32 only).
+ROUTES = ("resident", "streamed", "wide")
+
+#: The launches of ``LAUNCHES`` split by the route each took.
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: dict.fromkeys(ROUTES if name.endswith("bwd") else ROUTES[:2], 0) for name in _KIND}
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +180,8 @@ def load_library() -> ctypes.CDLL:
     lib = cuda_lib.load("tri_mul", _SOURCES, cuda_lib.NVCC_FLAGS_FMA)
     lib.ps_tri_workspace.restype = _I
     lib.ps_tri_workspace.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.ps_tri_route.restype = _I
+    lib.ps_tri_route.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     head = [_I, _I, _I, _I]  # device, dtype, N, C
     for name, n_ptrs in (("ps_tri_prologue_fwd", 14), ("ps_tri_prologue_bwd", 19),
                          ("ps_tri_epilogue_fwd", 11), ("ps_tri_epilogue_bwd", 17)):
@@ -216,6 +229,23 @@ def _workspace(lib, name, x) -> int:
     return out.value
 
 
+def route(name, x) -> str:
+    """The rows pass kernel ``name`` takes for CUDA rows ``x (N, C)``:
+    "resident", "streamed" or "wide" (``ps_tri_route``: a function of the
+    kernel, the dtype and C, so it is asked once for each)."""
+    return _route(name, x.dtype, x.shape[1], x.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _route(name, dtype, C, device_index):
+    code = _I(-1)
+    rc = load_library().ps_tri_route(device_index, _KIND[name], _DTYPES[dtype], 0, C,
+                                     ctypes.byref(code))
+    if rc != 0:
+        raise RuntimeError(f"ps_tri_route for {name} at C={C} in {dtype} failed with code {rc}")
+    return ROUTES[code.value]
+
+
 def _launch(name, fn, x, *args):
     """Launch kernel ``name`` on ``x``'s stream (the library checks C first;
     no kernel starts, and nothing is counted, at N = 0)."""
@@ -226,6 +256,7 @@ def _launch(name, fn, x, *args):
     _rc_check(rc, f"tri_mul {name} kernel launch", x)
     if N:
         LAUNCHES[name] += 1
+        ROUTE_LAUNCHES[name][route(name, x)] += 1
 
 
 def _weight_shapes(C, kinds):
@@ -254,8 +285,9 @@ def _aligned16(t):
 
 
 #: rows of padding after the last dpre plane: a streamed backward rows pass
-#: that reads its dpre tiles back from global memory (wide C) reads a whole
-#: last tile, up to 64 rows, past row N (csrc/tri_mul.cu make_plan)
+#: that reads its dpre tiles back from global memory (float32 C = 1024)
+#: reads a whole last tile, up to 64 rows, past row N (csrc/tri_mul.cu
+#: make_plan); the wide route reads no row past N
 _DPRE_TAIL = 64
 
 

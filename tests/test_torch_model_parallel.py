@@ -125,9 +125,7 @@ def _inputs():
         params[name]["structure.backbone_update.update.kernel"] = upd.astype(np.float32)
     E, D, H = MOE_DIMS
     m = moe.MoEMLP(D, n_experts=E, hidden_dim=H, device=DEVICE)
-    gen = torch.Generator().manual_seed(4)
-    for mod in m.modules():   # the router too: MoEMLP's own reset draws the experts only
-        mod.reset_parameters(gen)
+    m.reset_parameters(torch.Generator().manual_seed(4))
     moe_x = rng.randn(WORLD, 6, D).astype(np.float32)
     moe_mask = rng.rand(WORLD, 6) > 0.25
     return {"xyz": xyz, "feats": feats, "params": params, "widths": WIDTHS, "ipa": IPA,

@@ -1,0 +1,231 @@
+"""K5's and K7's wide route on the card, emulated in plain torch and checked
+on the CPU.
+
+At bf16 widths C > 128 (``[mfu-peak]``'s C = 1024)
+``csrc/tri_mul.cu`` runs the triangle prologue backward (K5) and the
+epilogue backward (K7) as a chain of GEMM kernels instead of one rows pass.
+Their sums run in another order than the plain versions'.  This file
+emulates the chain step by step:
+
+* the LayerNorm of every row in f32 (fast variance), cast to bf16 once into
+  a plane (K7: ``s`` and ``t``);
+* the gate products in 128-row x 64-column output tiles (the last row and
+  column tiles ragged), both products that share the tile's columns, 32-deep k steps
+  accumulated in f32 (bf16 products are exact in f32; the last step
+  ragged where C is not a multiple of 32); the gate backward on
+  the tile, ``dpre`` (K7: ``dpre`` and ``du``) cast to bf16 once, and the
+  tile's column sums of the f32 gradients;
+* ``dsrc`` in 128 x 128 f32 tiles, one product of depth 4C (K5) over the
+  four cast planes and their weights, 32 deep a step (K7: ``dsrc`` and ``dt``
+  one after the other);
+* the LayerNorm backward per 128-row tile, with the tile's column sums of
+  ``dsrc * xhat`` and ``dsrc``;
+* the weight gradients ``s^T @ dpre`` from the bf16 planes in chunks of
+  rows, 64 rows a step, the chunk partials summed in chunk order;
+* the row tiles' column sums summed in tile order.
+
+Each emulation is held to the plain version (``_prologue_bwd_plain``,
+``_epilogue_bwd_plain``) and to the Pallas op in interpret mode under
+``jax.vjp`` (``_prologue_op``, ``_epilogue_op``) at C = 256 and C = 144
+(ragged against the column tiles and the k steps) on N = 300 rows (ragged
+against the 128-row tiles): every output within 5e-2 of max|ref|
+(tests/test_tri_mul.py:49-60).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from protstruc_tpu.ops.tri_mul import _epilogue_op, _prologue_op
+from protstruc_tpu_torch.ops.tri_mul import (ROUTE_LAUNCHES, ROUTES, _epilogue_bwd_plain,
+                                             _prologue_bwd_plain)
+
+torch.set_num_threads(1)
+
+N = 300
+BM, BK, GATE_N, BACK_N = 128, 32, 64, 128   # row tile, k step, gate and back-projection tile columns
+WG_STEP, WG_CHUNK = 64, 192                 # weight-gradient rows a step and a chunk
+EPS = 1e-6
+
+
+def _ln(x, lns, lnb):
+    mu = x.mean(-1, keepdim=True)
+    inv = torch.rsqrt((x * x).mean(-1, keepdim=True) - mu * mu + EPS)
+    xhat = (x - mu) * inv
+    return (xhat * lns + lnb).to(torch.bfloat16), xhat, inv
+
+
+def _ksteps(a, b):
+    """``a @ b`` of bf16 operands in f32, accumulated 32 deep a step."""
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], BK):
+        acc += a[:, k0:k0 + BK].float() @ b[k0:k0 + BK].float()
+    return acc
+
+
+def _gate(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, ct, mask):
+    """The gate GEMM with its epilogue: the cast gradients (gate, projection)
+    and the f32 column sums of each 128-row tile."""
+    n, C = a_gate.shape[0], w_gate.shape[1]
+    d = [torch.zeros((n, C), dtype=torch.bfloat16) for _ in range(2)]
+    sums = torch.zeros((2, (n + BM - 1) // BM, C))
+    for t, r0 in enumerate(range(0, n, BM)):
+        rows = slice(r0, min(n, r0 + BM))
+        for n0 in range(0, C, GATE_N):
+            cols = slice(n0, n0 + GATE_N)
+            sg = torch.sigmoid(_ksteps(a_gate[rows], w_gate[:, cols]) + b_gate[cols])
+            pj = _ksteps(a_proj[rows], w_proj[:, cols]) + b_proj[cols]
+            ctm = ct[rows, cols].float() * mask[rows, None]
+            grads = (ctm * pj * sg * (1.0 - sg), ctm * sg)
+            for h, g in enumerate(grads):
+                d[h][rows, cols] = g.to(torch.bfloat16)
+                sums[h, t, cols] = g.sum(0)
+    return d, sums
+
+
+def _back(planes, weights):
+    """dsrc (f32) = sum_k planes[k] @ weights[k]^T in 128 x 128 tiles, the
+    k steps running over the planes in order."""
+    n, C = planes[0].shape[0], weights[0].shape[0]
+    dsrc = torch.zeros((n, C))
+    for r0 in range(0, n, BM):
+        rows = slice(r0, min(n, r0 + BM))
+        for n0 in range(0, C, BACK_N):
+            cols = slice(n0, min(C, n0 + BACK_N))
+            acc = torch.zeros((rows.stop - r0, cols.stop - n0))
+            for p, w in zip(planes, weights):
+                acc += _ksteps(p[rows], w[cols].t())
+            dsrc[rows, cols] = acc
+    return dsrc
+
+
+def _ln_bwd(dsrc, xhat, inv, lns):
+    """dx (bf16) and each 128-row tile's column sums of dsrc * xhat and dsrc."""
+    dxh = dsrc * lns
+    dx = inv * (dxh - dxh.mean(-1, keepdim=True) - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    tiles = [slice(r0, r0 + BM) for r0 in range(0, dsrc.shape[0], BM)]
+    sums = torch.stack([torch.stack([(dsrc[r] * xhat[r]).sum(0), dsrc[r].sum(0)]) for r in tiles], 1)
+    return dx.to(torch.bfloat16), sums
+
+
+def _in_tile_order(tile_sums):
+    """(tiles, C) partials summed tile by tile, cast once."""
+    acc = torch.zeros(tile_sums.shape[-1])
+    for part in tile_sums:
+        acc += part
+    return acc.to(torch.bfloat16)
+
+
+def _wgrad(s, d):
+    """s^T @ d from the bf16 planes, chunks of rows summed in chunk order."""
+    C = s.shape[1]
+    out = torch.zeros((C, C))
+    for c0 in range(0, s.shape[0], WG_CHUNK):
+        part = torch.zeros((C, C))
+        for r0 in range(c0, min(s.shape[0], c0 + WG_CHUNK), WG_STEP):
+            rows = slice(r0, min(s.shape[0], c0 + WG_CHUNK, r0 + WG_STEP))
+            part += s[rows].float().t() @ d[rows].float()
+        out += part
+    return out.to(torch.bfloat16)
+
+
+def _emulated_k5(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp, da, db):
+    f = lambda v: v.float()  # noqa: E731
+    s, xhat, inv = _ln(x.float(), f(lns), f(lnb))
+    planes, vec = [], {}
+    for h, (wg, bg, wp, bp, ct) in enumerate(((wag, bag, wap, bap, da), (wbg, bbg, wbp, bbp, db))):
+        d, sums = _gate(s, s, wg, wp, f(bg), f(bp), ct, m.float())
+        planes += d
+        vec[2 + 2 * h], vec[3 + 2 * h] = sums
+    dsrc = _back(planes, (wag, wap, wbg, wbp))
+    dx, (vec[0], vec[1]) = _ln_bwd(dsrc, xhat, inv, f(lns))
+    v = [_in_tile_order(vec[i]) for i in range(6)]
+    w = [_wgrad(s, p) for p in planes]
+    return (dx, v[0], v[1], w[0], v[2], w[1], v[3], w[2], v[4], w[3], v[5])
+
+
+def _emulated_k7(x, p, ln1s, ln1b, wog, bog, ln2s, ln2b, wo, bo, do):
+    f = lambda v: v.float()  # noqa: E731
+    s, xhat1, inv1 = _ln(x.float(), f(ln1s), f(ln1b))
+    t, xhat2, inv2 = _ln(p.float(), f(ln2s), f(ln2b))
+    (dpre, du), (sum_pre, sum_u) = _gate(s, t, wog, wo, f(bog), f(bo), do, torch.ones(x.shape[0]))
+    dx, (v0, v1) = _ln_bwd(_back([dpre], [wog]), xhat1, inv1, f(ln1s))
+    dp, (v3, v4) = _ln_bwd(_back([du], [wo]), xhat2, inv2, f(ln2s))
+    v = [_in_tile_order(a) for a in (v0, v1, sum_pre, v3, v4, sum_u)]
+    return (dx, dp, v[0], v[1], _wgrad(s, dpre), v[2], v[3], v[4], _wgrad(t, du), v[5])
+
+
+def _draw(seed, *shapes):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) * scale + shift for shape, scale, shift in shapes]
+
+
+def _ln_shapes(C):
+    return [((C,), 0.2, 1.0), ((C,), 0.2, 0.0)]
+
+
+def _lin_shapes(C):
+    return [((C, C), C ** -0.5, 0.0), ((C,), 0.1, 0.0)]
+
+
+def _check(ref, got, name):
+    ref, got = np.asarray(ref, np.float32), np.asarray(got, np.float32)
+    assert ref.shape == got.shape, name
+    err, scale = float(np.abs(ref - got).max()), float(np.abs(ref).max())
+    assert err <= 5e-2 * max(scale, 1e-3), (name, err, scale)
+
+
+def _bf16(arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+
+
+def _jax(arrays):
+    out = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    return [a.reshape(1, -1) if a.ndim == 1 else a for a in out]
+
+
+K5_NAMES = ("dx", "lns", "lnb", "wag", "bag", "wap", "bap", "wbg", "bbg", "wbp", "bbp")
+K7_NAMES = ("dx", "dp", "ln1s", "ln1b", "wog", "bog", "ln2s", "ln2b", "wo", "bo")
+
+
+@pytest.mark.parametrize("kernel, C", [("k5", 256), ("k7", 256), ("k5", 144), ("k7", 144)],
+                         ids=["k5", "k7", "k5-C144", "k7-C144"])
+def test_wide_route_matches_plain_and_pallas(kernel, C):
+    if kernel == "k5":
+        rows = [((N, C), 1.0, 0.3)]
+        weights = _ln_shapes(C) + _lin_shapes(C) * 4
+        x, *w, da, db = _draw(18, *rows, *weights, ((N, C), 1.0, 0.0), ((N, C), 1.0, 0.0))
+        mask = np.ones((3, 10, 10), bool)
+        mask[2, 7:, :] = mask[2, :, 7:] = False   # a masked residue's rows and columns
+        m = mask.reshape(N).astype(np.float32)
+        args = _bf16([x, m, *w, da, db])
+        got, plain = _emulated_k5(*args), _prologue_bwd_plain(*args)
+        jm = jnp.asarray(m[:, None]).astype(jnp.bfloat16)
+        jx = _jax([x, *w])
+        _, vjp = jax.vjp(lambda x, *w: _prologue_op(128, True, x, jm, *w), *jx)
+        ref = vjp(tuple(jnp.asarray(a).astype(jnp.bfloat16) for a in (da, db)))
+        names = K5_NAMES
+    else:
+        weights = _ln_shapes(C) + _lin_shapes(C) + _ln_shapes(C) + _lin_shapes(C)
+        x, p, *w, do = _draw(19, ((N, C), 1.0, 0.3), ((N, C), 3.0, 0.0), *weights, ((N, C), 1.0, 0.0))
+        args = _bf16([x, p, *w, do])
+        got, plain = _emulated_k7(*args), _epilogue_bwd_plain(*args)
+        _, vjp = jax.vjp(lambda *a: _epilogue_op(128, True, *a), *_jax([x, p, *w]))
+        ref = vjp(jnp.asarray(do).astype(jnp.bfloat16))
+        names = K7_NAMES
+    for name, r, pl, g in zip(names, ref, plain, got):
+        assert g.dtype == torch.bfloat16 and g.shape == pl.shape, name
+        _check(pl.float().numpy(), g.float().numpy(), f"{name} vs plain")
+        _check(np.asarray(jnp.asarray(r, jnp.float32)).reshape(pl.shape), g.float().numpy(),
+               f"{name} vs pallas")
+
+
+def test_route_counters_name_every_route():
+    """K5 and K7 count launches by resident, streamed and wide; K4 and K6,
+    which have no wide route, by the first two."""
+    assert ROUTES == ("resident", "streamed", "wide")
+    for name, counts in ROUTE_LAUNCHES.items():
+        want = ROUTES if name.endswith("bwd") else ROUTES[:2]
+        assert tuple(counts) == want, name
