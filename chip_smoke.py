@@ -31,8 +31,8 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    featurization at B=256, L=512 on the kernel path vs the plain path, as
    structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
-   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K5's
-   streamed rows pass in f32 and wide route in bf16, the weight gradients
+   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K4-K7's
+   streamed rows passes in f32 and wide route in bf16, the weight gradients
    in 128 x 128 tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
@@ -203,18 +203,17 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     ``_scaled_dot_product_efficient_attention(compute_log_sumexp=True)``;
     (e) ``[mfu-peak]`` (bench.py:348-351: bf16, D=2048, P=1024, 8 heads, 3
     blocks, triangle, remat, B=2, L=256, ``randn * 5``, numpy seed 0):
-    K5 and K7 through their wide route at C = 144, 160, 256 and 1024 on N
-    = 300, 81 and 2738 rows, and K4-K7 at C=1024 bf16, against their plain
-    versions (each call's route read from the counters: K5, K7 wide, K4, K6
-    streamed); K4-K7 at the step's pair rows (N = 2*256*256) against their
-    plain versions, and timed there beside them and their bounds, K5's and
-    K7's calls split by kernel under torch.profiler (a split kept only
-    where it adds up to the event time); then 3 train steps from one init under
-    remat_policy none, tri_dots and dots, fused_tri off and on: losses
-    within 2e-2, ms/step, peak memory, the profiled step's ``aten::bmm``
-    count (tri_dots 2 fewer a block) and K4-K7's launches by route, the
-    counters reset just before the steps (fused: K5 and K7 wide only, K4
-    and K6 streamed only); (f) TrFold with
+    K4-K7 through their wide route at C = 144, 160, 256 and 1024 on N =
+    300, 81 and 2738 rows against their plain versions (each call's route
+    read from the counters: all four wide); K4-K7 at the step's pair rows
+    (N = 2*256*256) against their plain versions, and timed there beside
+    them and their bounds, each call split by kernel under torch.profiler
+    (a split kept only where it adds up to the event time); then 3 train
+    steps from one init under remat_policy none, tri_dots and dots,
+    fused_tri off and on: losses within 2e-2, ms/step, peak memory, the
+    profiled step's ``aten::bmm`` count (tri_dots 2 fewer a block) and
+    K4-K7's launches by route, the counters reset just before the steps
+    (fused: all four wide only); (f) TrFold with
     4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
     against CPU from one init: loss, aux, every gradient leaf;
 22. model parallelism inside FoldModel: (a) ``fused_triangle_multiplication``
@@ -340,8 +339,8 @@ runs phase 1, builds K1 and runs phase 23 alone, and prints no result line;
 
 runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
 K4-K7 timings alone (the four at C = 128 must take the resident route), then
-phase 21e's K4-K7 timings at ``[mfu-peak]``'s C = 1024 with K5's and K7's
-calls split by kernel, with the K4-K7 library's ptxas lines, and prints no
+phase 21e's K4-K7 timings at ``[mfu-peak]``'s C = 1024 with each call
+split by kernel, with the K4-K7 library's ptxas lines, and prints no
 result line.  Copied into the root of another checkout and run there, each
 timing mode times that checkout's kernels (skipping what it lacks), so two
 commits can be set side by side on one card (parent, change, change,
@@ -3024,14 +3023,15 @@ def one_rank_group(torch, np, dev, smi, pair_maps, flash_attn):
 
 def tri_wide_timings(torch, dev, smi, tri_mul):
     """K4-K7 at ``[mfu-peak]``'s pair rows (bf16, N = 2*256*256, C = 1024:
-    K4's and K6's streamed passes, K5's and K7's wide route) beside their
-    plain versions and their bounds, each timed by CUDA events over 2 calls
-    after one warm-up, in the order plain, kernel, kernel, plain; then one
-    call of K5 and of K7 under torch.profiler, its device time split by the
-    kernels of its chain (rows pass, gate GEMM, back-projection, LayerNorm
-    backward, weight gradients, reductions), kept only where its kernels add
-    up to within 5 % of the CUDA-event time (after phase 21d's NCCL group
-    the profiler has been seen to lose some or all of its kernel records).
+    the wide route; a parent tree's K4 and K6 may take their streamed
+    passes) beside their plain versions and their bounds, each timed by
+    CUDA events over 2 calls after one warm-up, in the order plain, kernel,
+    kernel, plain; then calls of each under torch.profiler, its device time
+    split by the kernels of its chain (LayerNorm, gate GEMM, and for K5 and
+    K7 back-projection, LayerNorm backward, weight gradients, reductions),
+    kept only where its kernels add up to within 5 % of the CUDA-event time
+    (after phase 21d's NCCL group the profiler has been seen to lose some or
+    all of its kernel records).
     Each kernel's outputs at these rows are held to its plain version's
     (tri_kernel_vs_plain).  Returns ({name: (kernel ms, plain ms, bound ms,
     bound_by)}, {name: [(kernel, device ms), ...] or None}, {name: why the
@@ -3065,47 +3065,54 @@ def tri_wide_timings(torch, dev, smi, tri_mul):
         say(f"phase 21e timing {name} bf16 N={N} C={C} ({route} route) [{smi}]: kernel "
             f"{res[name][0]:.2f} ms, plain {res[name][1]:.2f} ms (plain/kernel/kernel/plain {p1:.2f}, "
             f"{k1:.2f}, {k2:.2f}, {p2:.2f}); bound {b[0]:.4f} ms ({b[1]})")
-        if name.endswith("bwd"):
-            split[name], tries = None, []
-            for _ in range(2):
-                _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)],
-                                              top=10)
-                tries.append(busy / ITERS)
-                if abs(busy / ITERS - res[name][0]) <= 0.05 * res[name][0]:
-                    split[name] = [(kernel_name(k), ms / ITERS) for k, ms, _ in top]
-                    break
-            if split[name] is None:
-                why[name] = (f"torch.profiler's kernels added up to {', '.join(f'{t:.4f}' for t in tries)} ms "
-                             f"a call in two sessions, not within 5% of the CUDA-event {res[name][0]:.4f} ms")
-            say(f"phase 21e device time {name} C={C} ({route} route) [{smi}]: torch.profiler "
-                + (f"{tries[-1]:.4f} ms a call = " + " + ".join(f"{k} {ms:.4f}" for k, ms in split[name])
-                   if split[name] else f"no split kept: {why[name]}"))
+        split[name], tries = None, []
+        for _ in range(2):
+            _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)],
+                                          top=10)
+            tries.append(busy / ITERS)
+            if abs(busy / ITERS - res[name][0]) <= 0.05 * res[name][0]:
+                split[name] = [(kernel_name(k), ms / ITERS) for k, ms, _ in top]
+                break
+        if split[name] is None:
+            why[name] = (f"torch.profiler's kernels added up to {', '.join(f'{t:.4f}' for t in tries)} ms "
+                         f"a call in two sessions, not within 5% of the CUDA-event {res[name][0]:.4f} ms")
+        say(f"phase 21e device time {name} C={C} ({route} route) [{smi}]: torch.profiler "
+            + (f"{tries[-1]:.4f} ms a call = " + " + ".join(f"{k} {ms:.4f}" for k, ms in split[name])
+               if split[name] else f"no split kept: {why[name]}"))
         torch.cuda.empty_cache()
     del cases
     torch.cuda.empty_cache()
     return res, split, why, err
 
 
-#: K5's and K7's wide-route parity shapes (C, B, L): N = B L^2 rows, each
-#: ragged against the 128-row tiles (300, 81 and 2738 rows); C = 144 and 160
+#: K4-K7's wide-route parity shapes (C, B, L): N = B L^2 rows, each ragged
+#: against the 128-row tiles (300, 81 and 2738 rows); C = 144 and 160
 #: ragged against the 64-column gate tiles, the 128-column back-projection
 #: tiles and (144) the 32-deep k steps
 WIDE_CASES = ((256, 3, 10), (256, 2, 37), (1024, 1, 9), (1024, 2, 37), (144, 3, 10), (160, 2, 37))
 
 
+def wide_route(tri_mul, name):
+    """The route kernel ``name`` takes at bf16 C > 128: "wide" where the
+    tree's counters have that route for it, else "streamed" (the forward
+    counters of a tree before K4's and K6's wide route, timed against this
+    one, have no "wide")."""
+    counters = getattr(tri_mul, "ROUTE_LAUNCHES", {})
+    return "wide" if "wide" in counters.get(name, {}) else "streamed"
+
+
 def wide_parity(torch, dev, tri_mul):
-    """K5 and K7 through the wide route (bf16 C = 144, 160, 256 and 1024,
-    ragged N) against their plain versions, every output under tri_budget, and K4 and
-    K6 at C = 1024 against theirs; the route counters must show K5 and K7
-    wide, K4 and K6 streamed (a tree before the wide route, timed against
-    this one, has no route counters).  Returns the largest error of each
-    kernel."""
+    """K4-K7 through the wide route (bf16 C = 144, 160, 256 and 1024, ragged
+    N) against their plain versions, every output under tri_budget; the
+    route counters must show each call on the kernel's ``wide_route`` (a
+    tree before the wide route, timed against this one, has no route
+    counters).  Returns the largest error of each kernel."""
     worst = dict.fromkeys(TRI_KERNELS, 0.0)
     routes = getattr(tri_mul, "ROUTE_LAUNCHES", None)
     for C, B, L in WIDE_CASES:
         cases = tri_inputs(torch, dev, torch.bfloat16, C, B=B, L=L)
-        for name in TRI_KERNELS if C == 1024 and L == 37 else ("prologue_bwd", "epilogue_bwd"):
-            want = "wide" if name.endswith("bwd") else "streamed"
+        for name in TRI_KERNELS:
+            want = wide_route(tri_mul, name)
             before = dict(routes[name]) if routes else {}
             err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"bf16 C={C} {want} route")
             if routes:
@@ -3117,26 +3124,26 @@ def wide_parity(torch, dev, tri_mul):
 
 
 def mfu_peak(torch, np, dev, smi, tri_mul):
-    """Phase 21 (e): ``[mfu-peak]`` at bench.py's full width: K5 and K7
-    through the wide route at C = 144, 160, 256 and 1024 on ragged row
-    counts and K4-K7 at C = 1024 bf16 against their plain versions first
-    (``wide_parity``), then at the step's pair rows, and timed there beside
-    them and their bounds, K5's and K7's calls split by kernel, then 3 train steps from one init under each
-    remat policy, fused_tri off (bench.py's form) and on: losses within 2e-2
+    """Phase 21 (e): ``[mfu-peak]`` at bench.py's full width: K4-K7 through
+    the wide route at C = 144, 160, 256 and 1024 on ragged row counts
+    against their plain versions first (``wide_parity``), then at the
+    step's pair rows, and timed there beside them and their bounds, each
+    call split by kernel, then 3 train steps from one init under each remat
+    policy, fused_tri off (bench.py's form) and on: losses within 2e-2
     relative of each other, ms/step (the second step; the first warms up,
     the third runs under torch.profiler), peak memory, the ``aten::bmm``
     calls of the profiled step, and each kernel's launches by route (the
-    counters reset just before the steps): with fused_tri, K5 and K7 only
-    wide, K4 and K6 streamed."""
+    counters reset just before the steps): with fused_tri, each kernel on
+    its ``wide_route`` only (all four wide)."""
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.models.trfold import (TrFold, TrFoldConfig, featurize_for_model,
                                                    make_train_state, train_step)
     from torch.profiler import ProfilerActivity, profile
 
     tri_err = wide_parity(torch, dev, tri_mul)
-    say(f"phase 21e parity K5, K7 (wide route) bf16 (C, N) = "
-        f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES)}, K4, K6 (streamed) bf16 C=1024: "
-        f"ok, max abs err {tri_err}")
+    say(f"phase 21e parity K4-K7 bf16 (C, N) = "
+        f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES)}, routes "
+        f"{ {name: wide_route(tri_mul, name) for name in TRI_KERNELS} }: ok, max abs err {tri_err}")
     tri_wide, tri_split, split_why, peak_err = tri_wide_timings(torch, dev, smi, tri_mul)
     say(f"phase 21e parity K4-K7 at [mfu-peak]'s pair rows (N={PEAK_B * PEAK_L ** 2}, C=1024): ok, "
         f"max abs err {peak_err}")
@@ -3188,7 +3195,7 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
                       for k, v in getattr(tri_mul, "ROUTE_LAUNCHES", {}).items()}
             if fused and routes:
                 for name in TRI_KERNELS:
-                    want = "wide" if name.endswith("bwd") else "streamed"
+                    want = wide_route(tri_mul, name)
                     check(list(routes[name]) == [want],
                           f"[mfu-peak] {policy}: {name} launches by route {routes[name]}, not {want} only")
             results[(fused, policy)] = (losses, ms[-1], peak, bmm, routes)
@@ -3211,8 +3218,7 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
     say(f"phase 21e [mfu-peak] bf16 B={PEAK_B} L={PEAK_L} {PEAK_WIDTH} [{smi}]: ok; "
         + "; ".join(f"fused_tri={f} {p}: {r[1]:.2f} ms/step, {r[2]:.2f} GiB, {r[3]} bmm"
                     for (f, p), r in results.items()))
-    wide_launches = {name: results[(True, "none")][4].get(name, {}).get("wide", 0)
-                     for name in ("prologue_bwd", "epilogue_bwd")}
+    wide_launches = {name: results[(True, "none")][4].get(name, {}).get("wide", 0) for name in TRI_KERNELS}
     return tri_err, tri_wide, (tri_split, split_why), wide_launches
 
 
@@ -4499,9 +4505,9 @@ def main():
             e["err_c1024_bf16"] = so["tri_err_c1024"][name]
             e["c1024_bf16"] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), so["tri_c1024"][name]),
                                    shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows")
-    # K5's and K7's wide route: launches in phase 21e's [mfu-peak] fused_tri
-    # steps (remat none, PEAK_STEPS steps), times at its pair rows
-    for name in ("prologue_bwd", "epilogue_bwd"):
+    # K4-K7's wide route: launches in phase 21e's [mfu-peak] fused_tri steps
+    # (remat none, PEAK_STEPS steps), times at its pair rows
+    for name in TRI_KERNELS:
         kernels.append(dict(entry(f"tri_mul_{name}_wide", "tri_mul.cu", TRI_REPLACES[name],
                                   so["wide_launches"][name], so["tri_err_c1024"][name],
                                   *so["tri_c1024"][name], None),

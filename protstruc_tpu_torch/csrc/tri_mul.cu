@@ -15,12 +15,12 @@
 //    gradients are summed in f32 and cast to T once at the end.
 //
 // Matrix products run inside the kernels.  The resident rows passes (K4-K7),
-// the wide route (K5 and K7) and the weight-gradient pass (K5 and K7) use
+// the wide route (K4-K7) and the weight-gradient pass (K5 and K7) use
 // mma.sync on the tensor cores: bf16 m16n8k16 with f32 accumulators,
 // float32 as 3xTF32 m16n8k8 (x = big + small, three TF32 products, small
 // terms first; helpers in mma.cuh, shared with flash_attn.cu).  The streamed
-// rows passes use nvcuda::wmma 16x16x16 in bf16 and FMA loops in full f32
-// (the library is built with FMA contraction on).
+// rows passes, float32's alone, use FMA loops in full f32 (the library is
+// built with FMA contraction on).
 //
 // Which route each kernel takes, a function of kind, dtype and C alone
 // (make_plan; ps_tri_route reports it):
@@ -29,15 +29,16 @@
 //             K5 prologue_bwd_resident_kernel   the same widths
 //             K6 epilogue_fwd_resident_kernel   the same widths
 //             K7 epilogue_bwd_resident_kernel   the same widths
-//   wide      K5, K7: wide_ln_kernel, wide_gate_kernel, wide_back_kernel,
-//             wide_ln_bwd_kernel (the note above wide_ln_kernel)
-//                                               bf16 C > 128
+//   wide      K4, K6: wide_ln_kernel, wide_gate_kernel<NA, true>
+//             K5, K7: wide_ln_kernel, wide_gate_kernel<NA, false>,
+//             wide_back_kernel, wide_ln_bwd_kernel
+//             (the note above wide_ln_kernel)   bf16 C > 128
 //   streamed  K4, K6 prologue_fwd_kernel, epilogue_fwd_kernel
-//                                               bf16 C > 128, float32 C > 64
 //             K5, K7 prologue_bwd_kernel, epilogue_bwd_kernel
 //                                               float32 C > 64 (C = 128 in
 //                                               the MoE blocks' pair rows)
-// The backward routes end in the weight-gradient pass and the reductions.
+// bf16 has no streamed route.  The backward routes end in the weight-gradient
+// pass and the reductions.
 //
 // The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
 // grid min(tiles / warps, SMs)) copies its weights into shared memory once
@@ -85,8 +86,8 @@
 // each about a quarter).  The weight-gradient pass is bound by its
 // per-step ring.
 
-// The streamed rows passes.  A block of 256 threads takes TR pair rows at a
-// time (64 in bf16, 32 in f32, fewer where C is wide) and keeps them in
+// The streamed rows passes (float32, C > 64).  A block of 256 threads takes
+// TR pair rows at a time (32, fewer where C is wide) and keeps them in
 // shared memory as the LayerNorm output s (TR x C, T).  The (C, C) weights
 // are streamed through shared memory in TNK x TNK chunks (TNK = 64, 32 or
 // 16, dividing C), so no weight has to fit whole.  Each TR x TNK output
@@ -94,11 +95,11 @@
 // are applied and the result is written out with coalesced stores.  Ragged
 // rows past N are zeros in shared memory and are never stored.  Restaging
 // the weights for every row tile bounds them (PERF.md has the times); the
-// wide route takes the bf16 backward at C > 128 for that reason, so the
-// streamed backward passes run in float32 only.  They keep their cast dpre
-// tiles in shared memory for the back projection too, unless they do not
-// fit (wide C): then the back projection reads them from the dpre rows the
-// block just wrote to global memory (Plan::d_global).
+// wide route takes every bf16 kernel at C > 128 for that reason.  The
+// backward passes keep their cast dpre tiles in shared memory for the back
+// projection too, unless they do not fit (wide C): then the back projection
+// reads them from the dpre rows the block just wrote to global memory
+// (Plan::d_global).
 //
 // The Pallas backwards sum weight gradients into one block that the
 // sequential TPU grid revisits.  Here blocks run in parallel, so:
@@ -120,7 +121,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -131,7 +131,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -163,14 +162,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// block tile accumulators of the streamed rows passes: acc (TR x TN, TR and
-// TN multiples of 16, <= 64) += A (TR x K) @ B (K x TN), A(m, k) =
-// A[m*lda + k], B(k, n) = B[k*ldb + n].  All operands in shared memory.
+// block tile accumulators of the streamed rows passes (float32): acc (TR x
+// TN, TR and TN multiples of 16, <= 64) += A (TR x K) @ B (K x TN), A(m, k)
+// = A[m*lda + k], B(k, n) = B[k*ldb + n].  All operands in shared memory.
 // ---------------------------------------------------------------------------
 
 template <typename T> struct TileAcc;
 
-// f32: FMA loops.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and
+// FMA loops.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and
 // columns tx + 16 j of the tile.
 template <> struct TileAcc<float> {
   float acc[4][4];
@@ -208,50 +207,6 @@ template <> struct TileAcc<float> {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (i < mi && j < nj) S[(ty + 16 * i) * lds + tx + 16 * j] = acc[i][j];
-  }
-};
-
-// bf16: tensor cores.  Warp w owns 16 x 16 fragments w and w + 8 of the tile
-// (row-major over fragments); a 64 x 64 tile has 16.
-template <> struct TileAcc<bf16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
-  int fn_count, nfrag;
-
-  __device__ void init(int tr, int tn) {
-    fn_count = tn / 16;
-    nfrag = (tr / 16) * fn_count;
-    wmma::fill_fragment(c[0], 0.0f);
-    wmma::fill_fragment(c[1], 0.0f);
-  }
-
-  __device__ void mma(const bf16* A, int lda, const bf16* B, int ldb, int K) {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int f = warp + kWarps * q;
-      if (f < nfrag) {
-        const int fm = f / fn_count, fn = f % fn_count;
-        for (int k = 0; k < K; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, A + fm * 16 * lda + k, lda);
-          wmma::load_matrix_sync(b, B + k * ldb + fn * 16, ldb);
-          wmma::mma_sync(c[q], a, b, c[q]);
-        }
-      }
-    }
-  }
-
-  __device__ void store(float* S, int lds) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int f = warp + kWarps * q;
-      if (f < nfrag) {
-        const int fm = f / fn_count, fn = f % fn_count;
-        wmma::store_matrix_sync(S + fm * 16 * lds + fn * 16, c[q], lds, wmma::mem_row_major);
-      }
-    }
   }
 };
 
@@ -2195,24 +2150,38 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 }
 
 // ---------------------------------------------------------------------------
-// the wide route of K5 and K7 (bf16, C > 128)
+// the wide route of K4-K7 (bf16, C > 128)
 // ---------------------------------------------------------------------------
 //
 // Replaces, at the widths whose weights do not fit in shared memory, the
-// TPU kernels K5 _prologue_bwd_kernel (protstruc_tpu/ops/tri_mul.py:121) and
-// K7 _epilogue_bwd_kernel (l.279).  At C = 1024 a block cannot own whole
-// rows through the products (64 rows of f32 dsrc are 256 KB), and the
-// streamed pass, which does, restages every weight for every 16-row tile
-// (about 16 MB of weights through L2 a tile, 131 GB a K5 call at N =
-// 2*256*256).  So the backward is a chain of kernels on the caller's stream,
-// its scratch in the wrapper's f32 workspace (no kernel allocates):
+// TPU kernels K4 _prologue_fwd_kernel (protstruc_tpu/ops/tri_mul.py:107), K5
+// _prologue_bwd_kernel (l.121), K6 _epilogue_fwd_kernel (l.267) and K7
+// _epilogue_bwd_kernel (l.279).  At C = 1024 a block cannot own whole rows
+// through the products (64 rows of f32 dsrc are 256 KB), and the streamed
+// pass, which does, restages every weight for every row tile (K5: about 16
+// MB of weights through L2 a 16-row tile, 131 GB a call at N = 2*256*256;
+// K4: 8 MB a 64-row tile, 17 GB a call).  So each kernel is a chain of
+// kernels on the caller's stream, its scratch in the wrapper's f32
+// workspace (no kernel allocates).  The forwards (K4, K6) run steps 1 and 2:
+//   1. s = LN(x) (K6 also t = LN2(p)) into the bf16 planes;
+//   2. wide_gate_kernel<NA, true>: both products of each 128-row x 64-column
+//      output tile at once (K4: s @ Wag and s @ Wap into a, then Wbg and Wbp
+//      into b; K6: s @ Wog and t @ Wo into out), and the gates in the
+//      epilogue: sigmoid(G + bg) * (P + bp) (* m in K4) in f32, cast once.
+// They bind on the tensor cores: K4's four (N, C) x (C, C) products are 1.1
+// TFLOP, 1.1117 ms at 989 TFLOP/s bf16, K6's two 0.55 TFLOP, 0.5559 ms (N =
+// 2*256*256, C = 1024); the rows and outputs are 0.8 GB (0.24 ms at 3.35
+// TB/s).  The weights are staged once per 128-row tile, not once per 64-row
+// tile as in the streamed pass (8.6 GB through L2 for K4 at that shape
+// instead of 17), through the core's cp.async ring, which overlaps the
+// copies with the products (the streamed pass stages them synchronously).
+// The backwards (K5, K7) run:
 //   1. wide_ln_kernel: s = LN(x) (K7 also t = LN2(p)) cast to bf16 into an
 //      (N, C) plane, each row's mean and 1/sigma kept (f32, fast variance);
-//   2. wide_gate_kernel: the pre-activations of each 128-row x 64-column
-//      output tile, both products that share its columns at once (K5: s @
-//      Wag and s @ Wap, then Wbg and Wbp; K7: s @ Wog and t @ Wo), then the
-//      gate backward in the epilogue: dpre (and du) cast to bf16 into the
-//      dpre planes, and the tile's f32 column sums of the two gradients;
+//   2. wide_gate_kernel<NA, false>: the pre-activations of each 128-row x
+//      64-column output tile as in the forward, then the gate backward in
+//      the epilogue: dpre (and du) cast to bf16 into the dpre planes, and
+//      the tile's f32 column sums of the two gradients;
 //   3. wide_back_kernel: dsrc (N, C, f32) = sum_k dpre_k @ W_k^T, one product
 //      of depth 4C (K5), or C for each of K7's two (run one after the other
 //      into the same plane);
@@ -2237,10 +2206,12 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 // instead of K5's 131 GB.  The core takes B row-major (k, n) for the gate
 // products (ldmatrix.trans) or as rows of W, (n, k), for the
 // back-projections (ldmatrix); the epilogue is the caller's.
-// Rounding points are the plain versions': s and t cast to bf16, f32
-// accumulation, dpre and du cast to bf16 before the back-projection and the
-// weight gradients, dsrc in f32, column sums in f32, every gradient cast
-// once at the end.  Only the order of the sums differs.
+// Rounding points are the plain versions': the LayerNorm statistics in f32
+// (fast variance), s and t cast to bf16, f32 accumulation with the bias
+// added in f32, the gates and the mask applied in f32 and the output cast
+// once; dpre and du cast to bf16 before the back-projection and the weight
+// gradients, dsrc in f32, column sums in f32, every gradient cast once at
+// the end.  Only the order of the sums differs.
 
 constexpr int kWideBM = 128;               // rows of a GEMM tile and of a column-sum tile
 constexpr int kWideBK = 32;                // depth of a ring stage
@@ -2250,7 +2221,7 @@ constexpr int kWideLdn = kWideGateN + 8;   // row stride of the gate's (k, n) we
 constexpr int kWideBackN = 128;            // columns of a back-projection tile
 constexpr int kWideThreads = 256;
 constexpr int kWideLnRows = 8;             // rows a block of wide_ln_kernel at a time (one a warp)
-// ring stages of the gate core: K5 (one row operand) 4, K7 (two) 3, so two blocks fit an SM
+// ring stages of the gate core: K4, K5 (one row operand) 4, K6, K7 (two) 3, so two blocks fit an SM
 __host__ __device__ constexpr int wide_gate_stages(int na) { return na == 1 ? 4 : 3; }
 constexpr int kWideBackStages = 4;
 
@@ -2423,38 +2394,39 @@ __global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs a,
   }
 }
 
-// Step 2: the gate products and the gate backward.  Job h of K5 is (Wag,
-// Wap) or (Wbg, Wbp) against s; K7's one job is (Wog against s, Wo against
-// t).  With the gate pre-activation G and the projection P at a point and
-// its cotangent ct (times the mask in K5): sg = sigmoid(G + bg), pj = P +
-// bp, d[0] = ct pj sg (1 - sg) (dag, dbg; K7's dpre), d[1] = ct sg (dap,
-// dbp; K7's du).
+// Step 2: the gate products, then the forward's gates or the gate
+// backward.  Job h of K4 and K5 is (Wag, Wap) or (Wbg, Wbp) against s; K6's
+// and K7's one job is (Wog against s, Wo against t).  With the gate
+// pre-activation G and the projection P at a point: sg = sigmoid(G + bg),
+// pj = P + bp.  Forward (kFwd): d[h][0] = sg pj m (K4's a and b, m the
+// mask; K6's out, m = 1).  Backward, with the point's cotangent ct (times
+// the mask in K5): d[h][0] = ct pj sg (1 - sg) (dag, dbg; K7's dpre), d[h][1]
+// = ct sg (dap, dbp; K7's du), and the tile's column sums of both.
 struct WideGateArgs {
   const bf16* a[2];        // the row operands of the two products (s, s or s, t)
   const bf16* w[2][2];     // [job][product] weights (C, C), stored (in, out)
   const bf16* bias[2][2];  // [job][product]
-  const bf16* ct[2];       // [job] cotangent rows (N, C)
-  const bf16* mask;        // K5: (N,); K7: none
-  bf16* d[2][2];           // [job][product] the cast gradients, (N, C) planes
-  int vidx[2][2];          // [job][product] slot of their column sums among the six vectors
-  float* vpart;            // (row tiles, 6, C) column sums
+  const bf16* ct[2];       // backward: [job] cotangent rows (N, C)
+  const bf16* mask;        // K4, K5: (N,); K6, K7: none
+  bf16* d[2][2];           // [job][product] the cast gradients, (N, C) planes; forward: [job][0] the output
+  int vidx[2][2];          // backward: [job][product] slot of their column sums among the six vectors
+  float* vpart;            // backward: (row tiles, 6, C) column sums
   int njobs;
 };
 
-template <int NA>
+// the ring, and the backward's column sums of the warps
+template <int NA, bool kFwd>
 __host__ __device__ constexpr size_t wide_gate_smem() {
   return sizeof(bf16) * wide_gate_stages(NA) * WideStage<false, NA>::ELEMS +
-         sizeof(float) * 4 * kWideGateN;
+         (kFwd ? 0 : sizeof(float) * 4 * kWideGateN);
 }
 
-template <int NA>
+template <int NA, bool kFwd>
 __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs a, int N, int C) {
   using S = WideStage<false, NA>;
   constexpr int STAGES = wide_gate_stages(NA);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  // the warps' column sums, [wm][product][64]
-  float* csum = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * STAGES * S::ELEMS);
   const int nct = (C + kWideGateN - 1) / kWideGateN, nk = (C + kWideBK - 1) / kWideBK;
   const int64_t rtiles = ((int64_t)N + kWideBM - 1) / kWideBM;
   const int64_t ntiles = rtiles * a.njobs * nct;
@@ -2481,56 +2453,85 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
     const int64_t mt = tile / ((int64_t)nct * a.njobs);
     // this warp's 16 columns: all past C, or none (C % 16 == 0)
     const int n0 = nt * kWideGateN + 16 * wn;
-    const bool live = n0 < C;
-    const bf16* bg = a.bias[job][0] + n0;
-    const bf16* bp = a.bias[job][1] + n0;
-    const bf16* ct = a.ct[job];
-    float sums[2][2][2] = {};  // [product][j][e]: this lane's rows, summed
+    if constexpr (kFwd) {  // the gates
+      if (n0 >= C) return;
+      float bg[2][2], bp[2][2];  // [j][e]: the biases of this lane's columns n0 + 8 j + 2 t + e
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 2; ++j) {
+        load_pair(a.bias[job][0] + n0 + 8 * j + 2 * t, bg[j][0], bg[j][1]);
+        load_pair(a.bias[job][1] + n0 + 8 * j + 2 * t, bp[j][0], bp[j][1]);
+      }
+      bf16* out = a.d[job][0];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int64_t row = mt * kWideBM + 64 * wm + 16 * i + g + 8 * rr;
-        if (row >= N || !live) continue;
-        const float m = a.mask ? tof(a.mask[row]) : 1.0f;
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = 8 * j + 2 * t;  // the column, from n0
-          float c0, c1, g0, g1, p0, p1;
-          load_pair(ct + row * C + n0 + c, c0, c1);
-          load_pair(bg + c, g0, g1);
-          load_pair(bp + c, p0, p1);
-          float dg[2], dp[2];
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = mt * kWideBM + 64 * wm + 16 * i + g + 8 * rr;
+          if (row >= N) continue;
+          const float m = a.mask ? tof(a.mask[row]) : 1.0f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              v[e] = sigmoidf(acc.c[0][i][j][2 * rr + e] + bg[j][e]) *
+                     (acc.c[1][i][j][2 * rr + e] + bp[j][e]) * m;
+            store_pair(out + row * C + n0 + 8 * j + 2 * t, v[0], v[1]);
+          }
+        }
+    } else {  // the gate backward
+      const bool live = n0 < C;
+      const bf16* bg = a.bias[job][0] + n0;
+      const bf16* bp = a.bias[job][1] + n0;
+      const bf16* ct = a.ct[job];
+      float sums[2][2][2] = {};  // [product][j][e]: this lane's rows, summed
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = mt * kWideBM + 64 * wm + 16 * i + g + 8 * rr;
+          if (row >= N || !live) continue;
+          const float m = a.mask ? tof(a.mask[row]) : 1.0f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = 8 * j + 2 * t;  // the column, from n0
+            float c0, c1, g0, g1, p0, p1;
+            load_pair(ct + row * C + n0 + c, c0, c1);
+            load_pair(bg + c, g0, g1);
+            load_pair(bp + c, p0, p1);
+            float dg[2], dp[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float ctm = (e ? c1 : c0) * m;
+              const float sg = sigmoidf(acc.c[0][i][j][2 * rr + e] + (e ? g1 : g0));
+              const float pj = acc.c[1][i][j][2 * rr + e] + (e ? p1 : p0);
+              dg[e] = ctm * pj * sg * (1.0f - sg);
+              dp[e] = ctm * sg;
+              sums[0][j][e] += dg[e];
+              sums[1][j][e] += dp[e];
+            }
+            store_pair(a.d[job][0] + row * C + n0 + c, dg[0], dg[1]);
+            store_pair(a.d[job][1] + row * C + n0 + c, dp[0], dp[1]);
+          }
+        }
+      // the tile's column sums: the warp's 64 rows by shuffles, then the two
+      // row halves (wm) in order, through the warps' sums [wm][product][64]
+      float* csum = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * STAGES * S::ELEMS);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float ctm = (e ? c1 : c0) * m;
-            const float sg = sigmoidf(acc.c[0][i][j][2 * rr + e] + (e ? g1 : g0));
-            const float pj = acc.c[1][i][j][2 * rr + e] + (e ? p1 : p0);
-            dg[e] = ctm * pj * sg * (1.0f - sg);
-            dp[e] = ctm * sg;
-            sums[0][j][e] += dg[e];
-            sums[1][j][e] += dp[e];
+            const float v = column_sum(sums[h][j][e]);
+            if (g == 0) csum[(wm * 2 + h) * kWideGateN + 16 * wn + 8 * j + 2 * t + e] = v;
           }
-          store_pair(a.d[job][0] + row * C + n0 + c, dg[0], dg[1]);
-          store_pair(a.d[job][1] + row * C + n0 + c, dp[0], dp[1]);
-        }
+      __syncthreads();
+      if (tid < 2 * kWideGateN && nt * kWideGateN + tid % kWideGateN < C) {
+        const int h = tid / kWideGateN, c = tid % kWideGateN;
+        a.vpart[(mt * 6 + a.vidx[job][h]) * C + nt * kWideGateN + c] =
+            csum[h * kWideGateN + c] + csum[(2 + h) * kWideGateN + c];
       }
-    // the tile's column sums: the warp's 64 rows by shuffles, then the two
-    // row halves (wm) in order
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = column_sum(sums[h][j][e]);
-          if (g == 0) csum[(wm * 2 + h) * kWideGateN + 16 * wn + 8 * j + 2 * t + e] = v;
-        }
-    __syncthreads();
-    if (tid < 2 * kWideGateN && nt * kWideGateN + tid % kWideGateN < C) {
-      const int h = tid / kWideGateN, c = tid % kWideGateN;
-      a.vpart[(mt * 6 + a.vidx[job][h]) * C + nt * kWideGateN + c] =
-          csum[h * kWideGateN + c] + csum[(2 + h) * kWideGateN + c];
     }
   };
   wide_mainloop<false, NA, STAGES>(ring, ntiles, nk, load, epilogue);
@@ -2696,8 +2697,9 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   p.ldc = C + kPadF;
   p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
   p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
-  // bf16 backward: resident where its weights fit (C <= 128), else wide
-  const bool wide = is_bwd(kind) && sizeof(T) == 2 && !p.resident;
+  // bf16: resident where its weights fit (C <= 128), else wide, never
+  // streamed; float32: resident at C <= 64, else streamed
+  const bool wide = sizeof(T) == 2 && !p.resident;
   h.route = p.resident ? kRouteResident : (wide ? kRouteWide : kRouteStreamed);
   int TR = 0;
   // A backward rows pass whose dpre tiles do not fit beside the rest (float32
@@ -2706,19 +2708,19 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   // after a barrier.  The last tile's rows past N read whatever follows them
   // (the next dpre plane, or the wrappers' padding of 64 rows after the last,
   // ops/tri_mul.py _DPRE_TAIL); those rows of dsrc are never used.
-  for (p.d_global = 0; h.route != kRouteWide && p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
-    for (TR = sizeof(T) == 2 ? 64 : 32; TR >= 16; TR /= 2) {
+  for (p.d_global = 0; h.route == kRouteStreamed && p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
+    for (TR = 32; TR >= 16; TR /= 2) {
       p.TR = TR;
       p.smem = rows_smem<T>(p, kind);
       if (p.smem <= kSmemLimit) break;
     }
     if (TR >= 16) break;
   }
-  if (h.route != kRouteWide && TR < 16) return kErrUnsupportedC;
+  if (h.route == kRouteStreamed && TR < 16) return kErrUnsupportedC;
   cudaError_t err = cudaDeviceGetAttribute(&h.nsm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int nsm = h.nsm;
-  p.ntiles = h.route == kRouteWide ? 0 : (N + p.TR - 1) / p.TR;
+  p.ntiles = h.route == kRouteStreamed ? (N + p.TR - 1) / p.TR : 0;
   p.grid = p.ntiles < 2 * nsm ? p.ntiles : 2 * nsm;
   p.work_floats = 0;
   if (p.resident) {  // one block an SM: its registers leave room for no second
@@ -2746,43 +2748,57 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
       p.chunk_rows = (rows + p.wg_rows - 1) / p.wg_rows * p.wg_rows;
       p.chunks = (N + p.chunk_rows - 1) / p.chunk_rows;
     }
-    if (h.route == kRouteWide) {
-      h.rtiles = (N + kWideBM - 1) / kWideBM;
-      long long off = 0;
-      auto take = [&](long long floats) {  // 128-byte aligned regions
-        const long long at = off;
-        off += (floats + 31) / 32 * 32;
-        return at;
-      };
-      h.off_vpart = take((long long)h.rtiles * 6 * C);
-      h.off_wpart = take((long long)p.chunks * p.njobs * C * C);
-      h.off_stats = take(2LL * n_ln(kind) * N);
-      h.off_dsrc = take((long long)N * C);
-      h.off_s = take((long long)n_ln(kind) * N * C / 2);
-      p.work_floats = off;
-    } else {
-      const int vgrid = p.grid > p.res_grid ? p.grid : p.res_grid;
+    if (h.route != kRouteWide) {
+      const int vgrid = p.resident ? p.res_grid : p.grid;  // blocks that write vector partials
       p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
     }
+  }
+  if (h.route == kRouteWide) {  // the forward takes the statistics and the planes alone
+    h.rtiles = (N + kWideBM - 1) / kWideBM;
+    long long off = 0;
+    auto take = [&](long long floats) {  // 128-byte aligned regions
+      const long long at = off;
+      off += (floats + 31) / 32 * 32;
+      return at;
+    };
+    if (is_bwd(kind)) {
+      h.off_vpart = take((long long)h.rtiles * 6 * C);
+      h.off_wpart = take((long long)p.chunks * p.njobs * C * C);
+    }
+    h.off_stats = take(2LL * n_ln(kind) * N);
+    if (is_bwd(kind)) h.off_dsrc = take((long long)N * C);
+    h.off_s = take((long long)n_ln(kind) * N * C / 2);
+    p.work_floats = off;
   }
   *out = p;
   if (host) *host = h;
   return 0;
 }
 
+template <int NA, bool kFwd>
+int launch_wide_gate(const WideGateArgs& ga, int grid, int N, int C, cudaStream_t st) {
+  constexpr size_t smem = wide_gate_smem<NA, kFwd>();
+  const cudaError_t err = set_smem(wide_gate_kernel<NA, kFwd>, smem);
+  if (err != cudaSuccess) return (int)err;
+  wide_gate_kernel<NA, kFwd><<<grid, kWideThreads, smem, st>>>(ga, N, C);
+  return (int)cudaGetLastError();
+}
+
 // The wide route's chain (the note above wide_ln_kernel) on stream st, its
-// scratch carved from the workspace as make_plan laid it out.
+// scratch carved from the workspace as make_plan laid it out: steps 1 and 2
+// for the forward (K4, K6), 1-6 for the backward (K5, K7; dvec and dmat are
+// the backward's).
 int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a, bf16* dvec,
              bf16* dmat, float* work, cudaStream_t st) {
   const int N = p.N, C = p.C, nln = n_ln(kind);
-  const bool pro = kind == kProBwd;
+  const bool pro = kind <= kProBwd, bwd = is_bwd(kind);
   float* vpart = work + h.off_vpart;
   float* wpart = work + h.off_wpart;
   float* stats = work + h.off_stats;
   float* dsrc = work + h.off_dsrc;
   bf16* s = reinterpret_cast<bf16*>(work + h.off_s);
   cudaError_t err;
-  // 1. s = LN(x) (and K7's t = LN2(p)), their statistics
+  // 1. s = LN(x) (and K6's and K7's t = LN2(p)), their statistics
   WideLnArgs ln{};
   for (int j = 0; j < nln; ++j) {
     ln.src[j] = j ? a.aux : a.x;
@@ -2796,7 +2812,8 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
   const int ln_grid = (int)(ln_need < 64LL * h.nsm ? ln_need : 64LL * h.nsm);
   wide_ln_kernel<<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 2. the gate products and the gate backward: dpre planes, column sums
+  // 2. the gate products, then the gates (forward: a and b, or out) or the
+  // gate backward (dpre planes, column sums)
   WideGateArgs ga{};
   ga.a[0] = s;
   ga.a[1] = s + (size_t)(nln - 1) * N * C;
@@ -2809,19 +2826,16 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
       ga.w[j][h] = a.mat[2 * j + h];
       ga.vidx[j][h] = pro ? 2 + 2 * j + h : (h ? 5 : 2);
       ga.bias[j][h] = a.vec[ga.vidx[j][h]];
-      ga.d[j][h] = a.dpre + (size_t)(2 * j + h) * N * C;
+      ga.d[j][h] = bwd ? a.dpre + (size_t)(2 * j + h) * N * C : (h ? nullptr : a.out[j]);
     }
   }
   const long long gate_tiles = (long long)h.rtiles * ga.njobs * ((C + kWideGateN - 1) / kWideGateN);
   const int gate_grid = (int)(gate_tiles < 2LL * h.nsm ? gate_tiles : 2LL * h.nsm);
-  if (pro) {
-    if ((err = set_smem(wide_gate_kernel<1>, wide_gate_smem<1>())) != cudaSuccess) return (int)err;
-    wide_gate_kernel<1><<<gate_grid, kWideThreads, wide_gate_smem<1>(), st>>>(ga, N, C);
-  } else {
-    if ((err = set_smem(wide_gate_kernel<2>, wide_gate_smem<2>())) != cudaSuccess) return (int)err;
-    wide_gate_kernel<2><<<gate_grid, kWideThreads, wide_gate_smem<2>(), st>>>(ga, N, C);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int rc = pro ? (bwd ? launch_wide_gate<1, false>(ga, gate_grid, N, C, st)
+                            : launch_wide_gate<1, true>(ga, gate_grid, N, C, st))
+                     : (bwd ? launch_wide_gate<2, false>(ga, gate_grid, N, C, st)
+                            : launch_wide_gate<2, true>(ga, gate_grid, N, C, st));
+  if (rc != 0 || !bwd) return rc;
   // 3, 4. dsrc = sum_k dpre_k @ W_k^T, then the LayerNorm backward (K7: LN1's,
   // then LN2's through the same dsrc plane)
   const long long back_tiles = (long long)h.rtiles * ((C + kWideBackN - 1) / kWideBackN);
@@ -2868,9 +2882,9 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
   return (int)cudaGetLastError();
 }
 
-// Launch the rows kernel of `kind`, then (backward) the weight-gradient pass
-// and the two reductions.  ptrs follow the C entry points' order after the
-// dtype, N and C arguments.
+// Launch the rows kernel of `kind` (the wide route: its chain), then
+// (backward) the weight-gradient pass and the two reductions.  ptrs follow
+// the C entry points' order after the dtype, N and C arguments.
 template <typename T>
 int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) {
   Plan p;
@@ -2895,6 +2909,7 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   // the resident passes and the weight-gradient pass copy rows and weights
   // in 16-byte pieces (cp.async), and read cotangents and write outputs in
   // pairs: the wrappers hand all of them over 16-byte aligned
+  // forward: the outputs, then the f32 workspace (the wide route's)
   if (kind == kEpiFwd) {
     a.out[0] = (T*)rest[0];
     const void* need[] = {a.x, a.aux, a.mat[0], a.mat[1], a.out[0]};
@@ -2902,6 +2917,8 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     if (p.resident) {
       if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
       epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
+    } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
+      return run_wide(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
     } else {
       if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
       epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
@@ -2916,6 +2933,8 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     if (p.resident) {
       if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
       prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
+    } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
+      return run_wide(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
     } else {
       if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
       prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
@@ -2971,7 +2990,7 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     g.bi[j] = second ? a.vec[4] : a.vec[1];
     g.d[j] = a.dpre + (size_t)j * N * C;
   }
-  g.part = work + (size_t)(p.grid > p.res_grid ? p.grid : p.res_grid) * 6 * C;
+  g.part = work + (size_t)vgrid * 6 * C;
   if ((err = set_smem(wgrad_kernel<T, false>, p.wg_smem)) != cudaSuccess) return (int)err;
   wgrad_kernel<T, false><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -2994,9 +3013,10 @@ int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, v
 
 }  // namespace
 
-// Scratch that the backward of `kind` (0 K4, 1 K5, 2 K6, 3 K7) needs, in
-// floats, for dtype (0 f32, 1 bf16) at N rows of width C.  Returns 0, or
-// -1 when C is not supported.
+// Scratch that `kind` (0 K4, 1 K5, 2 K6, 3 K7) needs, in floats, for dtype
+// (0 f32, 1 bf16) at N rows of width C: every backward's, and the wide
+// route's forward (its LayerNorm planes and statistics; 0 on the other
+// routes).  Returns 0, or -1 when C is not supported.
 extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
                                 long long* work_floats) {
   Plan p;
@@ -3020,19 +3040,19 @@ extern "C" int ps_tri_route(int device, int kind, int dtype, int N, int C, int* 
 }
 
 // All tensors are contiguous, on `device`, in the stream dtype (0 f32, 1 bf16):
-// rows (N, C), the mask (N,), vectors (C,), matrices (C, C) stored (in, out).
-// Each launches on `stream` and returns 0 or a CUDA error code (-1: C not
-// supported).
+// rows (N, C), the mask (N,), vectors (C,), matrices (C, C) stored (in, out);
+// work holds ps_tri_workspace floats of kind.  Each launches on `stream` and
+// returns 0 or a CUDA error code (-1: C not supported).
 
 extern "C" int ps_tri_prologue_fwd(int device, int dtype, int N, int C, const void* x,
                                    const void* m, const void* lns, const void* lnb,
                                    const void* wag, const void* bag, const void* wap,
                                    const void* bap, const void* wbg, const void* bbg,
                                    const void* wbp, const void* bbp, void* a, void* b,
-                                   void* stream) {
+                                   void* work, void* stream) {
   void* const ptrs[] = {(void*)x, (void*)m, (void*)lns, (void*)lnb, (void*)wag, (void*)bag,
                         (void*)wap, (void*)bap, (void*)wbg, (void*)bbg, (void*)wbp, (void*)bbp,
-                        a, b};
+                        a, b, work};
   return dispatch(device, kProFwd, dtype, N, C, ptrs, stream);
 }
 
@@ -3055,9 +3075,9 @@ extern "C" int ps_tri_epilogue_fwd(int device, int dtype, int N, int C, const vo
                                    const void* p, const void* ln1s, const void* ln1b,
                                    const void* wog, const void* bog, const void* ln2s,
                                    const void* ln2b, const void* wo, const void* bo, void* out,
-                                   void* stream) {
+                                   void* work, void* stream) {
   void* const ptrs[] = {(void*)x, (void*)p, (void*)ln1s, (void*)ln1b, (void*)wog, (void*)bog,
-                        (void*)ln2s, (void*)ln2b, (void*)wo, (void*)bo, out};
+                        (void*)ln2s, (void*)ln2b, (void*)wo, (void*)bo, out, work};
   return dispatch(device, kEpiFwd, dtype, N, C, ptrs, stream);
 }
 

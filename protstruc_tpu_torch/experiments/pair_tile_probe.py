@@ -1,12 +1,11 @@
 """Timing-only probes of the port's tile kernels: K1 and K3, the pair-map
-kernels on one tile skeleton, the backward kernels K2 and K9, and the
-streamed rows pass of K4 at wide C.
+kernels on one tile skeleton, and the backward kernels K2 and K9.
 
-    python -m protstruc_tpu_torch.experiments.pair_tile_probe [K1 K2 K3 K9 K4]
+    python -m protstruc_tpu_torch.experiments.pair_tile_probe [K1 K2 K3 K9]
 
 Each probe is the checkout's own ``csrc/pair_maps.cu``,
-``csrc/model_features.cu``, ``csrc/pair_maps_bwd.cu``,
-``csrc/flash_attn.cu`` or ``csrc/tri_mul.cu`` (with the headers) with one phase
+``csrc/model_features.cu``, ``csrc/pair_maps_bwd.cu`` or
+``csrc/flash_attn.cu`` (with the headers) with one phase
 dropped or one choice changed, made by replacing a line of the source (each
 anchor is checked, so a probe fails loudly once the source moves on), built
 with the library's own nvcc flags, and timed beside the kernel as it
@@ -32,11 +31,7 @@ plain forward.  The probes:
   source), and with the j atoms read from the stage where each map needs
   them (volatile loads, map by map) rather than once a pair;
 * K9's bf16 instantiations at dh <= 32 at any register count (the kernel
-  holds them to 128 for four blocks an SM);
-* K4's streamed rows pass (bf16, N = 2*256*256, ``[mfu-peak]``'s pair rows)
-  at C = 1024 on 32- and 16-row tiles instead of its 64: every row tile
-  restages all four C x C weights, so the time a call against the tile
-  height says what the restaging costs.
+  holds them to 128 for four blocks an SM).
 
 A probe that drops a phase computes wrong values by design; its outputs are
 never read.  The card's name and power limit head the output.  This module
@@ -55,7 +50,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from protstruc_tpu_torch.ops import cuda_lib, flash_attn, model_features, pair_maps, tri_mul
+from protstruc_tpu_torch.ops import cuda_lib, flash_attn, model_features, pair_maps
 
 __all__ = ["VARIANTS", "variant_sources", "main"]
 
@@ -68,9 +63,6 @@ __device__ __forceinline__ float launder(float x) {
 }
 __device__ __forceinline__ V3 launder(V3 a) { return V3{launder(a.x), launder(a.y), launder(a.z)}; }
 '''
-
-# the plan's row-tile height (csrc/tri_mul.cu make_plan)
-_TRI_TR = "    for (TR = sizeof(T) == 2 ? 64 : 32; TR >= 16; TR /= 2) {"
 
 # (kernel, probe) -> {file: [(anchor, replacement)]}
 VARIANTS: Dict[Tuple[str, str], Dict[str, Sequence[Tuple[str, str]]]] = {
@@ -136,9 +128,6 @@ VARIANTS: Dict[Tuple[str, str], Dict[str, Sequence[Tuple[str, str]]]] = {
         "        pair_bwd(I, ca_j, cb_j, o_j, bit, g, ai, aj);\n"
         "      }\n")]},
     ("K9", "as built"): {},
-    ("K4", "as built"): {},
-    ("K4", "32-row tiles"): {"tri_mul.cu": [(_TRI_TR, _TRI_TR.replace("sizeof(T) == 2 ? 64 : 32", "32"))]},
-    ("K4", "16-row tiles"): {"tri_mul.cu": [(_TRI_TR, _TRI_TR.replace("sizeof(T) == 2 ? 64 : 32", "16"))]},
     ("K9", "bf16 dh <= 32 unbounded"): {"flash_attn.cu": [(
         "__launch_bounds__(kBwdWarps * 32, (sizeof(T) == 2 && DH <= 32) ? 4 : 1)",
         "__launch_bounds__(kBwdWarps * 32)")]},
@@ -150,11 +139,9 @@ _GRID_BLOCKS_PER_SM = {("K1", "persistent grid"): 4}
 _PAIR_TILE = {("K2", "2 pairs a lane"): (2, 64, 32, 8)}
 
 _MAIN = {"K1": "pair_maps.cu", "K2": "pair_maps_bwd.cu", "K3": "model_features.cu",
-         "K9": "flash_attn.cu", "K4": "tri_mul.cu"}
-_FLAGS = {"K9": cuda_lib.NVCC_FLAGS_FMA, "K4": cuda_lib.NVCC_FLAGS_FMA}   # the others: cuda_lib.NVCC_FLAGS
+         "K9": "flash_attn.cu"}
+_FLAGS = {"K9": cuda_lib.NVCC_FLAGS_FMA}   # the others: cuda_lib.NVCC_FLAGS
 _HEADERS = ("pair_maps.cuh", "device_scope.cuh", "mma.cuh")
-# (warm-up calls, timed calls): K4 at C = 1024 takes 0.1 s a call
-_WARMUP_ITERS = {"K4": (1, 3)}
 
 
 def variant_sources(kernel: str, probe: str) -> Dict[str, str]:
@@ -217,22 +204,6 @@ def _flash_args(dev, dtype, B, H, dh, L, permuted, masked, seed=0):
     return q, k, v, bias, kmask, do, lse, delta
 
 
-def _tri_args(dev, C, N=2 * 256 * 256, seed=0):
-    """bf16 inputs of K4 (``prologue_fwd``): pair rows, a mask with every
-    tenth row off and the ten prologue weights, from a card generator seeded
-    ``seed``."""
-    gen = torch.Generator(dev).manual_seed(seed)
-
-    def t(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(torch.bfloat16)
-
-    m = (torch.arange(N, device=dev) % 10 != 0).to(torch.bfloat16)
-    w = [t(C, scale=0.2, shift=1.0), t(C, scale=0.2)]
-    for _ in range(4):
-        w += [t(C, C, scale=C ** -0.5), t(C, scale=0.1)]
-    return [t(N, C, shift=0.3), m, *w]
-
-
 def _load_flash():
     flash_attn._LIB = None
     return flash_attn.load_library()
@@ -278,12 +249,8 @@ def main(argv: Sequence[str] = ()) -> int:
         calls["K9"] = (("flash_attn", _load_flash),
                        {"f32 train B=4 H=4 dh=32 L=256": lambda: flash_attn.flash_bwd(*train),
                         "bf16 [attn] B=1 H=8 dh=32 L=4096": lambda: flash_attn.flash_bwd(*attn)})
-    if "K4" in kernels:
-        k4 = _tri_args(dev, 1024)
-        calls["K4"] = (("tri_mul", tri_mul.load_library),
-                       {"bf16 N=131072 C=1024": lambda: tri_mul.prologue_fwd(*k4)})
     kept = {stem: cuda_lib._LIBS.get(stem) for stem in ("pair_maps", "model_features", "pair_maps_bwd",
-                                                         "flash_attn", "tri_mul")}
+                                                         "flash_attn")}
     kept_flash = flash_attn._LIB
     max_grid, sms = pair_maps._MAX_GRID, torch.cuda.get_device_properties(dev).multi_processor_count
     pair_tile = pair_maps.PAIR_TILE
@@ -297,8 +264,7 @@ def main(argv: Sequence[str] = ()) -> int:
                 pair_maps._MAX_GRID = _GRID_BLOCKS_PER_SM.get((kernel, probe), 0) * sms or max_grid
                 pair_maps.PAIR_TILE = _PAIR_TILE.get((kernel, probe), pair_tile)
                 for shape, fn in fns.items():
-                    times.setdefault((kernel, probe, shape), []).append(
-                        _time_ms(fn, *_WARMUP_ITERS.get(kernel, (2, 10))))
+                    times.setdefault((kernel, probe, shape), []).append(_time_ms(fn))
                 pair_maps._MAX_GRID, pair_maps.PAIR_TILE = max_grid, pair_tile
     finally:
         pair_maps._MAX_GRID, pair_maps.PAIR_TILE = max_grid, pair_tile

@@ -53,14 +53,12 @@ LAUNCHES: Dict[str, int] = {"prologue_fwd": 0, "prologue_bwd": 0,
 _KIND = {"prologue_fwd": 0, "prologue_bwd": 1, "epilogue_fwd": 2, "epilogue_bwd": 3}
 
 #: The rows passes of ``ps_tri_route``, by its code: weights resident in
-#: shared memory (bf16 C <= 128, float32 C <= 64), streamed through it (the
-#: other widths), or the wide route's chain of GEMM kernels (K5 and K7 in
-#: bf16 at C > 128; their streamed passes run in float32 only).
+#: shared memory (bf16 C <= 128, float32 C <= 64), streamed through it
+#: (float32 C > 64), or the wide route's chain of GEMM kernels (bf16 C > 128).
 ROUTES = ("resident", "streamed", "wide")
 
 #: The launches of ``LAUNCHES`` split by the route each took.
-ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {
-    name: dict.fromkeys(ROUTES if name.endswith("bwd") else ROUTES[:2], 0) for name in _KIND}
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROUTES, 0) for name in _KIND}
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +181,8 @@ def load_library() -> ctypes.CDLL:
     lib.ps_tri_route.restype = _I
     lib.ps_tri_route.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     head = [_I, _I, _I, _I]  # device, dtype, N, C
-    for name, n_ptrs in (("ps_tri_prologue_fwd", 14), ("ps_tri_prologue_bwd", 19),
-                         ("ps_tri_epilogue_fwd", 11), ("ps_tri_epilogue_bwd", 17)):
+    for name, n_ptrs in (("ps_tri_prologue_fwd", 15), ("ps_tri_prologue_bwd", 19),
+                         ("ps_tri_epilogue_fwd", 12), ("ps_tri_epilogue_bwd", 17)):
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = head + [_P] * n_ptrs + [_P]  # ... pointers, stream
@@ -219,14 +217,15 @@ def _rc_check(rc, what, x):
         raise RuntimeError(f"{what} failed with code {rc}")
 
 
-def _workspace(lib, name, x) -> int:
-    """Floats of f32 scratch that backward kernel ``name`` needs for ``x``."""
+def _workspace(lib, name, x) -> torch.Tensor:
+    """The f32 scratch that kernel ``name`` needs for ``x``, on its device (a
+    forward needs some on the wide route alone)."""
     N, C = x.shape
     out = ctypes.c_longlong(0)
     rc = lib.ps_tri_workspace(x.device.index, _KIND[name], _DTYPES[x.dtype], N, C,
                               ctypes.byref(out))
     _rc_check(rc, "ps_tri_workspace", x)
-    return out.value
+    return torch.empty((out.value,), dtype=torch.float32, device=x.device)
 
 
 def route(name, x) -> str:
@@ -272,8 +271,9 @@ def _prologue_fwd_cuda(x, m, *w):
     _check("prologue_fwd", x, [x, m, *w], [(N, C), (N,)] + _weight_shapes(C, _PRO_W))
     x, w = _aligned16(x), [_aligned16(t) for t in w]
     lib = load_library()
+    ws = _workspace(lib, "prologue_fwd", x)
     a, b = torch.empty_like(x), torch.empty_like(x)
-    _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, x, m, *w, a, b)
+    _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, x, m, *w, a, b, ws)
     return a, b
 
 
@@ -306,12 +306,11 @@ def _prologue_bwd_cuda(x, m, *rest):
     x, da, db = _aligned16(x), _aligned16(da), _aligned16(db)
     w = [_aligned16(t) for t in w]
     lib = load_library()
-    work = _workspace(lib, "prologue_bwd", x)
+    ws = _workspace(lib, "prologue_bwd", x)
     dx = torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((4, C, C), dtype=x.dtype, device=x.device)
     dpre = _dpre_buffer(4, N, C, x)
-    ws = torch.empty((work,), dtype=torch.float32, device=x.device)
     _launch("prologue_bwd", lib.ps_tri_prologue_bwd, x, x, m, *w, da, db,
             dx, dvec, dmat, dpre, ws)
     return (dx, dvec[0], dvec[1], dmat[0], dvec[2], dmat[1], dvec[3],
@@ -323,8 +322,9 @@ def _epilogue_fwd_cuda(x, p, *w):
     _check("epilogue_fwd", x, [x, p, *w], [(N, C), (N, C)] + _weight_shapes(C, _EPI_W))
     x, p, w = _aligned16(x), _aligned16(p), [_aligned16(t) for t in w]
     lib = load_library()
+    ws = _workspace(lib, "epilogue_fwd", x)
     out = torch.empty_like(x)
-    _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, x, p, *w, out)
+    _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, x, p, *w, out, ws)
     return out
 
 
@@ -336,12 +336,11 @@ def _epilogue_bwd_cuda(x, p, *rest):
     x, p, do = _aligned16(x), _aligned16(p), _aligned16(do)
     w = [_aligned16(t) for t in w]
     lib = load_library()
-    work = _workspace(lib, "epilogue_bwd", x)
+    ws = _workspace(lib, "epilogue_bwd", x)
     dx, dp = torch.empty_like(x), torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((2, C, C), dtype=x.dtype, device=x.device)
     dpre = _dpre_buffer(2, N, C, x)
-    ws = torch.empty((work,), dtype=torch.float32, device=x.device)
     _launch("epilogue_bwd", lib.ps_tri_epilogue_bwd, x, x, p, *w, do,
             dx, dp, dvec, dmat, dpre, ws)
     return (dx, dp, dvec[0], dvec[1], dmat[0], dvec[2], dvec[3], dvec[4],

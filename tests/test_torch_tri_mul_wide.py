@@ -1,20 +1,26 @@
-"""K5's and K7's wide route on the card, emulated in plain torch and checked
-on the CPU.
+"""K4-K7's wide route on the card, emulated in plain torch and checked on
+the CPU.
 
-At bf16 widths C > 128 (``[mfu-peak]``'s C = 1024)
-``csrc/tri_mul.cu`` runs the triangle prologue backward (K5) and the
-epilogue backward (K7) as a chain of GEMM kernels instead of one rows pass.
+At bf16 widths C > 128 (``[mfu-peak]``'s C = 1024) ``csrc/tri_mul.cu``
+runs the triangle prologue (K4 forward, K5 backward) and the epilogue (K6
+forward, K7 backward) as chains of GEMM kernels instead of one rows pass.
 Their sums run in another order than the plain versions'.  This file
-emulates the chain step by step:
+emulates the chains step by step.  The forwards:
 
 * the LayerNorm of every row in f32 (fast variance), cast to bf16 once into
-  a plane (K7: ``s`` and ``t``);
+  a plane (K6: ``s`` and ``t``);
 * the gate products in 128-row x 64-column output tiles (the last row and
-  column tiles ragged), both products that share the tile's columns, 32-deep k steps
-  accumulated in f32 (bf16 products are exact in f32; the last step
-  ragged where C is not a multiple of 32); the gate backward on
-  the tile, ``dpre`` (K7: ``dpre`` and ``du``) cast to bf16 once, and the
-  tile's column sums of the f32 gradients;
+  column tiles ragged), both products that share the tile's columns,
+  32-deep k steps accumulated in f32, then ``sigmoid(G + bg) * (P + bp)``
+  (times the mask in K4) in f32, cast to bf16 once.
+
+The backwards:
+
+* the same LayerNorm planes (K7: ``s`` and ``t``) and gate products (bf16
+  products are exact in f32; the last k step ragged where C is not a
+  multiple of 32), then the gate backward on the tile, ``dpre`` (K7:
+  ``dpre`` and ``du``) cast to bf16 once, and the tile's column sums of the
+  f32 gradients;
 * ``dsrc`` in 128 x 128 f32 tiles, one product of depth 4C (K5) over the
   four cast planes and their weights, 32 deep a step (K7: ``dsrc`` and ``dt``
   one after the other);
@@ -24,12 +30,13 @@ emulates the chain step by step:
   rows, 64 rows a step, the chunk partials summed in chunk order;
 * the row tiles' column sums summed in tile order.
 
-Each emulation is held to the plain version (``_prologue_bwd_plain``,
-``_epilogue_bwd_plain``) and to the Pallas op in interpret mode under
-``jax.vjp`` (``_prologue_op``, ``_epilogue_op``) at C = 256 and C = 144
-(ragged against the column tiles and the k steps) on N = 300 rows (ragged
-against the 128-row tiles): every output within 5e-2 of max|ref|
-(tests/test_tri_mul.py:49-60).
+Each emulation is held to the plain version (``_prologue_fwd_plain``,
+``_epilogue_fwd_plain``, ``_prologue_bwd_plain``, ``_epilogue_bwd_plain``)
+and to the Pallas op in interpret mode (``_prologue_op``, ``_epilogue_op``;
+the backwards under ``jax.vjp``) at C = 256 and C = 144 (ragged against
+the column tiles and the k steps; the forwards also at 160, ragged against
+the column tiles alone) on N = 300 rows (ragged against the 128-row
+tiles): every output within 5e-2 of max|ref| (tests/test_tri_mul.py:49-60).
 """
 
 import jax
@@ -40,7 +47,8 @@ import torch
 
 from protstruc_tpu.ops.tri_mul import _epilogue_op, _prologue_op
 from protstruc_tpu_torch.ops.tri_mul import (ROUTE_LAUNCHES, ROUTES, _epilogue_bwd_plain,
-                                             _prologue_bwd_plain)
+                                             _epilogue_fwd_plain, _prologue_bwd_plain,
+                                             _prologue_fwd_plain)
 
 torch.set_num_threads(1)
 
@@ -65,23 +73,39 @@ def _ksteps(a, b):
     return acc
 
 
-def _gate(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, ct, mask):
-    """The gate GEMM with its epilogue: the cast gradients (gate, projection)
-    and the f32 column sums of each 128-row tile."""
+def _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj):
+    """The gate GEMM's output tiles: (row tile index, rows, columns, the
+    gate's sigmoid, the projection plus its bias), all f32."""
     n, C = a_gate.shape[0], w_gate.shape[1]
-    d = [torch.zeros((n, C), dtype=torch.bfloat16) for _ in range(2)]
-    sums = torch.zeros((2, (n + BM - 1) // BM, C))
     for t, r0 in enumerate(range(0, n, BM)):
         rows = slice(r0, min(n, r0 + BM))
         for n0 in range(0, C, GATE_N):
             cols = slice(n0, n0 + GATE_N)
             sg = torch.sigmoid(_ksteps(a_gate[rows], w_gate[:, cols]) + b_gate[cols])
             pj = _ksteps(a_proj[rows], w_proj[:, cols]) + b_proj[cols]
-            ctm = ct[rows, cols].float() * mask[rows, None]
-            grads = (ctm * pj * sg * (1.0 - sg), ctm * sg)
-            for h, g in enumerate(grads):
-                d[h][rows, cols] = g.to(torch.bfloat16)
-                sums[h, t, cols] = g.sum(0)
+            yield t, rows, cols, sg, pj
+
+
+def _gate_fwd(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, mask):
+    """The forward's gate GEMM: sigmoid(G + bg) (P + bp) m in f32, cast once."""
+    out = torch.zeros((a_gate.shape[0], w_gate.shape[1]), dtype=torch.bfloat16)
+    for _, rows, cols, sg, pj in _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj):
+        out[rows, cols] = (sg * pj * mask[rows, None]).to(torch.bfloat16)
+    return out
+
+
+def _gate(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, ct, mask):
+    """The gate GEMM with its epilogue: the cast gradients (gate, projection)
+    and the f32 column sums of each 128-row tile."""
+    n, C = a_gate.shape[0], w_gate.shape[1]
+    d = [torch.zeros((n, C), dtype=torch.bfloat16) for _ in range(2)]
+    sums = torch.zeros((2, (n + BM - 1) // BM, C))
+    for t, rows, cols, sg, pj in _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj):
+        ctm = ct[rows, cols].float() * mask[rows, None]
+        grads = (ctm * pj * sg * (1.0 - sg), ctm * sg)
+        for h, g in enumerate(grads):
+            d[h][rows, cols] = g.to(torch.bfloat16)
+            sums[h, t, cols] = g.sum(0)
     return d, sums
 
 
@@ -129,6 +153,20 @@ def _wgrad(s, d):
             part += s[rows].float().t() @ d[rows].float()
         out += part
     return out.to(torch.bfloat16)
+
+
+def _emulated_k4(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp):
+    f = lambda v: v.float()  # noqa: E731
+    s, _, _ = _ln(x.float(), f(lns), f(lnb))
+    return tuple(_gate_fwd(s, s, wg, wp, f(bg), f(bp), m.float())
+                 for wg, bg, wp, bp in ((wag, bag, wap, bap), (wbg, bbg, wbp, bbp)))
+
+
+def _emulated_k6(x, p, ln1s, ln1b, wog, bog, ln2s, ln2b, wo, bo):
+    f = lambda v: v.float()  # noqa: E731
+    s, _, _ = _ln(x.float(), f(ln1s), f(ln1b))
+    t, _, _ = _ln(p.float(), f(ln2s), f(ln2b))
+    return _gate_fwd(s, t, wog, wo, f(bog), f(bo), torch.ones(x.shape[0]))
 
 
 def _emulated_k5(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp, da, db):
@@ -186,6 +224,13 @@ def _jax(arrays):
     return [a.reshape(1, -1) if a.ndim == 1 else a for a in out]
 
 
+def _mask():
+    """N = 3 x 10 x 10 pair rows with one masked residue's rows and columns."""
+    mask = np.ones((3, 10, 10), bool)
+    mask[2, 7:, :] = mask[2, :, 7:] = False
+    return mask.reshape(N).astype(np.float32)
+
+
 K5_NAMES = ("dx", "lns", "lnb", "wag", "bag", "wap", "bap", "wbg", "bbg", "wbp", "bbp")
 K7_NAMES = ("dx", "dp", "ln1s", "ln1b", "wog", "bog", "ln2s", "ln2b", "wo", "bo")
 
@@ -197,9 +242,7 @@ def test_wide_route_matches_plain_and_pallas(kernel, C):
         rows = [((N, C), 1.0, 0.3)]
         weights = _ln_shapes(C) + _lin_shapes(C) * 4
         x, *w, da, db = _draw(18, *rows, *weights, ((N, C), 1.0, 0.0), ((N, C), 1.0, 0.0))
-        mask = np.ones((3, 10, 10), bool)
-        mask[2, 7:, :] = mask[2, :, 7:] = False   # a masked residue's rows and columns
-        m = mask.reshape(N).astype(np.float32)
+        m = _mask()
         args = _bf16([x, m, *w, da, db])
         got, plain = _emulated_k5(*args), _prologue_bwd_plain(*args)
         jm = jnp.asarray(m[:, None]).astype(jnp.bfloat16)
@@ -222,10 +265,36 @@ def test_wide_route_matches_plain_and_pallas(kernel, C):
                f"{name} vs pallas")
 
 
+@pytest.mark.parametrize("kernel, C", [("k4", 256), ("k6", 256), ("k4", 144), ("k6", 144),
+                                       ("k4", 160), ("k6", 160)],
+                         ids=["k4", "k6", "k4-C144", "k6-C144", "k4-C160", "k6-C160"])
+def test_wide_forward_matches_plain_and_pallas(kernel, C):
+    if kernel == "k4":
+        x, *w = _draw(16, ((N, C), 1.0, 0.3), *_ln_shapes(C), *(_lin_shapes(C) * 4))
+        m = _mask()
+        args = _bf16([x, m, *w])
+        got, plain = _emulated_k4(*args), _prologue_fwd_plain(*args)
+        jx = _jax([x, *w])
+        ref = _prologue_op(128, True, jx[0], jnp.asarray(m[:, None]).astype(jnp.bfloat16), *jx[1:])
+        names = "ab"
+    else:
+        weights = _ln_shapes(C) + _lin_shapes(C) + _ln_shapes(C) + _lin_shapes(C)
+        x, p, *w = _draw(17, ((N, C), 1.0, 0.3), ((N, C), 3.0, 0.0), *weights)
+        args = _bf16([x, p, *w])
+        got, plain, ref = ((_emulated_k6(*args),), (_epilogue_fwd_plain(*args),),
+                           (_epilogue_op(128, True, *_jax([x, p, *w])),))
+        names = ("out",)
+    for name, r, pl, g in zip(names, ref, plain, got):
+        assert g.dtype == torch.bfloat16 and g.shape == pl.shape, name
+        _check(pl.float().numpy(), g.float().numpy(), f"{name} vs plain")
+        _check(np.asarray(jnp.asarray(r, jnp.float32)), g.float().numpy(), f"{name} vs pallas")
+        if kernel == "k4":
+            assert not g[torch.from_numpy(m) == 0].any(), f"{name}: masked rows not zero"
+
+
 def test_route_counters_name_every_route():
-    """K5 and K7 count launches by resident, streamed and wide; K4 and K6,
-    which have no wide route, by the first two."""
+    """K4-K7 count launches by resident, streamed and wide: every kernel has
+    a wide route (bf16 C > 128)."""
     assert ROUTES == ("resident", "streamed", "wide")
     for name, counts in ROUTE_LAUNCHES.items():
-        want = ROUTES if name.endswith("bwd") else ROUTES[:2]
-        assert tuple(counts) == want, name
+        assert tuple(counts) == ROUTES, name
