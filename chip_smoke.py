@@ -31,9 +31,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    featurization at B=256, L=512 on the kernel path vs the plain path, as
    structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
-   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (K4-K7's
-   streamed rows passes in f32 and wide route in bf16, the weight gradients
-   in 128 x 128 tiles) on a ragged N = 2*37*37 with masked rows, and C = 128 on N =
+   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (in f32 K5's
+   and K7's wide route and K4's and K6's streamed rows passes, in bf16 at
+   256 the wide route, the weight gradients in 128 x 128 tiles) on a ragged
+   N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
    and incoming) vs the plain path on the CPU; f32 K4-K7 at the FoldModel
@@ -55,7 +56,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    shape the train path gives it, after each output is held against the plain
    version's under the budgets below, then under torch.profiler, its device
    time split by the kernels of the call (K5 and K7: rows pass, weight-gradient
-   pass, reductions);
+   pass, reductions); then 9b, the same train step and K4-K7 in float32 (the
+   model's default dtype; K5 and K7 on the wide route, K4 and K6 streamed),
+   the step's K4-K7 launches counted by route, its losses within 1e-5
+   relative of unfused;
 10. K3 vs its plain version at B=2 and L = 1, 2, 31, 33, 37, 127, 129, 300,
     512, the degenerate probes and B=256, L=512 (``randn * 10``, numpy seed
     0), f32 and bf16 planes;
@@ -213,7 +217,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     fused_tri off and on: losses within 2e-2, ms/step, peak memory, the
     profiled step's ``aten::bmm`` count (tri_dots 2 fewer a block) and
     K4-K7's launches by route, the counters reset just before the steps
-    (fused: all four wide only); (f) TrFold with
+    (fused: all four wide only); before the steps, float32 K4-K7 at C = 80,
+    144, 256 and 1024 on ragged N and on the step's pair rows (K5 and K7
+    wide, K4 and K6 streamed, read from the counters), and timed at the
+    step's rows, split by kernel; (f) TrFold with
     4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
     against CPU from one init: loss, aux, every gradient leaf;
 22. model parallelism inside FoldModel: (a) ``fused_triangle_multiplication``
@@ -281,11 +288,15 @@ phase 12, K8/K9's launches a phase 20 IF train step as
 sharded model as ``model_parallel_launches``, K4-K7's launches by phase
 22's row-block calls alone as ``row_block_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time; K1's rectangular mode and K8/K9's lse entry
-point as entries of their own, launches from phase 21 (d)), largest error, card and plain times, its bound (the larger of the
+point as entries of their own, launches from phase 21 (d); K5's and K7's
+float32 wide route as entries of their own, launches from phase 9b's one
+counted step; every K4-K7 entry's float32 times at C = 128 and 1024),
+largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
 over the H100 SXM peak for
-their type: 989 TFLOP/s bf16, 67 TFLOP/s f32) and, where one PyTorch call
+their type: 989 TFLOP/s bf16, 67 TFLOP/s f32; K4-K7's float32 products as
+three TF32 products at 494.7 TFLOP/s, 3xTF32) and, where one PyTorch call
 computes the same function, that call's time.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -340,7 +351,10 @@ runs phase 1, builds K1 and runs phase 23 alone, and prints no result line;
 runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
 K4-K7 timings alone (the four at C = 128 must take the resident route), then
 phase 21e's K4-K7 timings at ``[mfu-peak]``'s C = 1024 with each call
-split by kernel, with the K4-K7 library's ptxas lines, and prints no
+split by kernel; then the same in float32: phase 9b's step and K4-K7 at C
+= 128, K4-K7 at C = 1024 (a streamed pass timed once a turn), K4-K7 at
+the FoldModel's N = 4*256*256, C = 64 (all four resident) and phase 13's
+FoldModel step, with the K4-K7 library's ptxas lines, and prints no
 result line.  Copied into the root of another checkout and run there, each
 timing mode times that checkout's kernels (skipping what it lacks), so two
 commits can be set side by side on one card (parent, change, change,
@@ -1070,13 +1084,15 @@ def compare_losses(fused, plain, rtol, label):
         check(abs(a - b) <= rtol * abs(b), f"{label} step {i}: fused loss {a!r} vs unfused {b!r}")
 
 
-def train_step_timing(torch, smi, models, feats, init):
+def train_step_timing(torch, smi, models, feats, init, label="phase 9", dtype="bf16", loss_rtol=None):
     """Phase 9's train step at the ``[mfu-fused]`` width, fused_tri against
     unfused, in turns; prints ms/step and peak memory, then one step of each
     under torch.profiler (device busy, the top kernels).  Three steps already
     moved the parameters far from the init (the loss grows), so every timed
     step starts again from the initial parameters: each times the same
-    workload, on sound values."""
+    workload, on sound values.  With ``loss_rtol`` the fused step's losses
+    must lie within it, relative, of the unfused step's.  Returns {fused:
+    (ms/step, peak GiB, device busy ms of the profiled step)}."""
     from protstruc_tpu_torch.models.trfold import train_step
 
     step_ms, peak, step_losses = {}, {}, {True: [], False: []}
@@ -1099,61 +1115,129 @@ def train_step_timing(torch, smi, models, feats, init):
         torch.cuda.synchronize()
         peak[fused] = torch.cuda.max_memory_allocated() / 2**30
     step_ms[False], step_ms[True], rounds = alternate(stepper(False), stepper(True))
-    profiles = []
+    profiles, busy_ms = [], {}
     for fused in (True, False):
         wall, busy, top = device_profile(torch, stepper(fused), top=8)
+        busy_ms[fused] = busy
         profiles.append(
-            f"phase 9 profile train step, fused_tri={fused}, one step under torch.profiler: device busy "
+            f"{label} profile train step {dtype}, fused_tri={fused}, one step under torch.profiler: device busy "
             f"{busy:.2f} of {wall:.2f} ms wall (idle {100 * (1 - busy / wall):.1f}%); top kernels "
             + "; ".join(f"{k[:60]} {ms:.2f} ms x{n}" for k, ms, n in top))
     for fused, losses in step_losses.items():
         losses = torch.stack(losses).float().cpu()
         check(bool(torch.isfinite(losses).all()), f"timed steps fused_tri={fused}: losses {losses}")
         step_losses[fused] = (float(losses.min()), float(losses.max()), len(losses))
-    say(f"phase 9 timing train step bf16 B=4 L={L_FULL} [{smi}]: fused_tri {step_ms[True]:.4f} ms/step "
+    if loss_rtol is not None:
+        for f, u in zip(step_losses[True][:2], step_losses[False][:2]):
+            check(abs(f - u) <= loss_rtol * abs(u),
+                  f"{label} {dtype}: fused loss {f!r} vs unfused {u!r}, past {loss_rtol} relative")
+    say(f"{label} timing train step {dtype} B=4 L={L_FULL} [{smi}]: fused_tri {step_ms[True]:.4f} ms/step "
         f"(peak {peak[True]:.2f} GiB), unfused {step_ms[False]:.4f} ms/step (peak {peak[False]:.2f} GiB) "
         f"(unfused/fused/fused/unfused {', '.join(f'{r:.4f}' for r in rounds)}); each step from the "
         f"initial parameters, losses (min, max, steps) fused {step_losses[True]}, "
         f"unfused {step_losses[False]}")
     for line in profiles:
         say(line)
+    return {f: (step_ms[f], peak[f], busy_ms[f]) for f in (True, False)}
 
 
-def tri_timings(torch, dev, smi, tri_worst):
-    """Phase 9's K4-K7 at the train path's shape (N = 4*512*512, C = 128,
-    bf16): each held against its plain version (its error folded into
-    ``tri_worst``), timed by CUDA events (plain/kernel/kernel/plain), then
-    under torch.profiler (device time a call, split by the kernels of the
-    call: K5 and K7 are a rows pass, the weight-gradient pass and two
-    reductions).  Returns {name: (kernel ms, plain ms, bound ms, bound_by)}."""
+def tri_route(tri_mul, name, x):
+    """The route ``name`` takes on ``x`` in this checkout ("streamed" in a
+    tree before the route query)."""
+    return tri_mul.route(name, x) if hasattr(tri_mul, "route") else "streamed"
+
+
+def f32_wide_tree(torch, dev, tri_mul):
+    """Whether this checkout's K5 and K7 take the wide route in float32 above
+    C = 64 (a parent tree, timed against this one, takes their streamed
+    passes there)."""
+    x = torch.empty((0, 128), dtype=torch.float32, device=dev)
+    return all(tri_route(tri_mul, name, x) == "wide" for name in ("prologue_bwd", "epilogue_bwd"))
+
+
+def expected_tri_route(name, dtype, C):
+    """make_plan's route table (csrc/tri_mul.cu): resident at bf16 C <= 128 and
+    float32 C <= 64; above, bf16 wide, float32 K5 and K7 wide, float32 K4 and
+    K6 streamed."""
+    import torch
+
+    if C <= (128 if dtype == torch.bfloat16 else 64):
+        return "resident"
+    return "wide" if dtype == torch.bfloat16 or name.endswith("_bwd") else "streamed"
+
+
+def tri_timings(torch, dev, smi, tri_worst, dtype=None, C=128, L=None, phase=None):
+    """Phase 9's K4-K7 at the train path's shape (N = 4*512*512, C = 128;
+    bf16: all four resident; phase 9b's float32: K5 and K7 wide, K4 and K6
+    streamed; ``--tri-timing`` also float32 at the FoldModel's N = 4*256*256,
+    C = 64, all four resident): each held against its plain version (its
+    error folded into ``tri_worst``), timed by CUDA events
+    (plain/kernel/kernel/plain), then under torch.profiler (device time a
+    call, split by the kernels of the call: K5 and K7 are a rows pass or the
+    wide chain, then the weight-gradient pass and two reductions).  Returns
+    ({name: (kernel ms, plain ms, bound ms, bound_by)}, {name: the device
+    split [(kernel, ms a call), ...]})."""
     from protstruc_tpu_torch.ops import tri_mul
 
-    tri_ms = {}
-    cases = tri_inputs(torch, dev, torch.bfloat16, 128, B=4, L=L_FULL)
+    dtype = dtype or torch.bfloat16
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    phase = phase or ("phase 9" if dtype == torch.bfloat16 else "phase 9b")
+    tri_ms, split = {}, {}
+    cases = tri_inputs(torch, dev, dtype, C, B=4, L=L or L_FULL)
     for name in TRI_KERNELS:
         kernel, plain = tri_mul.KERNELS[name]
-        if hasattr(tri_mul, "route"):  # a tree before the wide route has no route query
-            check(tri_mul.route(name, cases[name][0]) == "resident",
-                  f"{name} bf16 C=128 takes the {tri_mul.route(name, cases[name][0])} route, not resident")
-        err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 C=128 train shape")
+        route = tri_route(tri_mul, name, cases[name][0])
+        if dtype == torch.bfloat16 and hasattr(tri_mul, "route"):
+            check(route == "resident", f"{name} bf16 C=128 takes the {route} route, not resident")
+        err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"{tag} C={C} ({phase})")
         tri_worst[name] = max(tri_worst[name], err)
         got = kernel(*cases[name])
+        tri_b = tri_bound(torch, name, cases[name], got if isinstance(got, tuple) else (got,))
         N, C = cases[name][0].shape
-        tri_bound = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
-                          TRI_PRODUCTS[name] * 2 * N * C * C, torch.bfloat16)
         del got
         torch.cuda.empty_cache()
         plain_ms_k, kernel_ms_k, rounds = alternate(lambda: plain(*cases[name]), lambda: kernel(*cases[name]))
-        tri_ms[name] = (kernel_ms_k, plain_ms_k, *tri_bound)
-        say(f"phase 9 timing {name} bf16 N={N} C={C} [{smi}]: kernel {kernel_ms_k:.4f} ms, "
+        tri_ms[name] = (kernel_ms_k, plain_ms_k, *tri_b)
+        say(f"{phase} timing {name} {tag} N={N} C={C} ({route} route) [{smi}]: kernel {kernel_ms_k:.4f} ms, "
             f"plain {plain_ms_k:.4f} ms (plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
-            f"bound {tri_bound[0]:.4f} ms ({tri_bound[1]})")
-        _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)], top=6)
-        say(f"phase 9 device time {name} [{smi}]: torch.profiler {busy / ITERS:.4f} ms a call = "
+            f"bound {tri_b[0]:.4f} ms ({tri_b[1]}{', 3xTF32' if dtype == torch.float32 else ''})")
+        _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)], top=8)
+        split[name] = [(kernel_name(k), ms / ITERS) for k, ms, _ in top]
+        say(f"{phase} device time {name} {tag} [{smi}]: torch.profiler {busy / ITERS:.4f} ms a call = "
             + " + ".join(f"{k[:40]} {ms / ITERS:.4f}" for k, ms, _ in top))
     del cases
     torch.cuda.empty_cache()
-    return tri_ms
+    return tri_ms, split
+
+
+def f32_train_step(torch, np, dev, smi, tri_mul):
+    """Phase 9b: the TrFold train step at ``[mfu-fused]``'s widths (bench.py:
+    338-345) in float32, the model's default dtype: B=4, L=512, N =
+    4*512*512 pair rows of C = 128.  One fused step from the seeded init
+    with every K4-K7 counter reset just before and read just after (K5 and
+    K7 must launch on the wide route, K4 and K6 on the streamed one, where
+    this checkout has the float32 wide route), then phase 9's timing in
+    float32: fused against unfused in turns, the losses within 1e-5
+    relative, one profiled step of each.  Returns (launches by kernel and
+    route, {fused: (ms/step, peak GiB, device busy ms)})."""
+    feats, models, init = train_models(torch, dev, dict(TRAIN_WIDTH, dtype=torch.float32), train_xyz(np))
+    reset_launches(tri_mul)
+    for counts in getattr(tri_mul, "ROUTE_LAUNCHES", {}).values():
+        counts.update(dict.fromkeys(counts, 0))
+    run_steps(feats, models[True], 1)
+    torch.cuda.synchronize()
+    routes = {k: {r: n for r, n in v.items() if n} for k, v in getattr(tri_mul, "ROUTE_LAUNCHES", {}).items()}
+    check(all(n > 0 for n in tri_mul.LAUNCHES.values()), f"phase 9b f32 step: K4-K7 launches {tri_mul.LAUNCHES}")
+    if f32_wide_tree(torch, dev, tri_mul):
+        for name in TRI_KERNELS:
+            want = expected_tri_route(name, torch.float32, TRAIN_WIDTH["pair_dim"])
+            check(list(routes[name]) == [want], f"phase 9b f32 step: {name} launches by route {routes[name]}, "
+                                                f"not {want} only")
+    say(f"phase 9b f32 [mfu-fused] step B=4 L={L_FULL} {TRAIN_WIDTH}: K4-K7 launches a step by route {routes}")
+    timing = train_step_timing(torch, smi, models, feats, init, label="phase 9b", dtype="f32", loss_rtol=1e-5)
+    del models, feats, init
+    torch.cuda.empty_cache()
+    return routes, timing
 
 
 # -- bounds: the least time an H100 SXM could take for a call ------------------
@@ -1166,6 +1250,21 @@ K1_OPS_PER_PAIR, K3_OPS_PER_PAIR = 204, 144
 # (N, C) x (C, C) products of K4-K7 (2 N C^2 operations each): forward, or
 # recompute + input gradient + weight gradient
 TRI_PRODUCTS = {"prologue_fwd": 4, "prologue_bwd": 12, "epilogue_fwd": 2, "epilogue_bwd": 6}
+# dense TF32 on the tensor cores (NVIDIA's data sheet): the least time of a
+# float32 product at float32 accuracy is three TF32 products (3xTF32)
+PEAK_OPS_PER_S["tf32"] = 494.7e12
+
+
+def tri_bound(torch, name, args, outs):
+    """(ms, by): K4-K7's bound for one call: each input and output once at
+    the HBM rate, and the (N, C) x (C, C) products on the tensor cores, bf16
+    at its peak, float32 as 3xTF32 (three TF32 products each) at the TF32
+    peak."""
+    N, C = args[0].shape
+    ops = TRI_PRODUCTS[name] * 2 * N * C * C
+    if args[0].dtype == torch.float32:
+        return bound(nbytes(*args, *outs), 3 * ops, "tf32")
+    return bound(nbytes(*args, *outs), ops, torch.bfloat16)
 
 
 def nbytes(*tensors):
@@ -3021,14 +3120,17 @@ def one_rank_group(torch, np, dev, smi, pair_maps, flash_attn):
     return launches, ring_err
 
 
-def tri_wide_timings(torch, dev, smi, tri_mul):
-    """K4-K7 at ``[mfu-peak]``'s pair rows (bf16, N = 2*256*256, C = 1024:
-    the wide route; a parent tree's K4 and K6 may take their streamed
-    passes) beside their plain versions and their bounds, each timed by
+def tri_wide_timings(torch, dev, smi, tri_mul, dtype=None):
+    """K4-K7 at ``[mfu-peak]``'s pair rows (N = 2*256*256, C = 1024; bf16:
+    the wide route, a parent tree's K4 and K6 may take their streamed
+    passes; float32: K5 and K7 wide, a parent tree's streamed, K4 and K6
+    streamed) beside their plain versions and their bounds, each timed by
     CUDA events over 2 calls after one warm-up, in the order plain, kernel,
-    kernel, plain; then calls of each under torch.profiler, its device time
-    split by the kernels of its chain (LayerNorm, gate GEMM, and for K5 and
-    K7 back-projection, LayerNorm backward, weight gradients, reductions),
+    kernel, plain (a float32 streamed pass, seconds a call, once: its
+    parity run is its warm-up); then calls of each under torch.profiler
+    (ten, a float32 streamed pass one), its device time split by the
+    kernels of its chain (LayerNorm, gate GEMM, and for K5 and K7
+    back-projection, LayerNorm backward, weight gradients, reductions),
     kept only where its kernels add up to within 5 % of the CUDA-event time
     (after phase 21d's NCCL group the profiler has been seen to lose some or
     all of its kernel records).
@@ -3036,47 +3138,58 @@ def tri_wide_timings(torch, dev, smi, tri_mul):
     (tri_kernel_vs_plain).  Returns ({name: (kernel ms, plain ms, bound ms,
     bound_by)}, {name: [(kernel, device ms), ...] or None}, {name: why the
     split is None}, {name: max abs err})."""
-    def ms2(fn):
-        fn()
+    def ms_of(fn, reps=2):
+        if reps > 1:
+            fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(2):
+        for _ in range(reps):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / 2
+        return start.elapsed_time(end) / reps
 
-    cases = tri_inputs(torch, dev, torch.bfloat16, PEAK_WIDTH["pair_dim"], B=PEAK_B, L=PEAK_L, seed=5)
+    dtype = dtype or torch.bfloat16
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    cases = tri_inputs(torch, dev, dtype, PEAK_WIDTH["pair_dim"], B=PEAK_B, L=PEAK_L, seed=5)
     res, split, why, err = {}, {}, {}, {}
     for name in TRI_KERNELS:
         kernel, plain = tri_mul.KERNELS[name]
-        err[name] = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], "bf16 [mfu-peak] rows")
+        try:
+            route = tri_route(tri_mul, name, cases[name][0])
+        except RuntimeError as e:  # a parent tree's float32 K7 at C = 1024 did not fit its streamed pass
+            check(dtype == torch.float32 and not f32_wide_tree(torch, dev, tri_mul), f"{name} {tag}: {e}")
+            say(f"phase 21e timing {name} {tag} C={PEAK_WIDTH['pair_dim']} [{smi}]: refused by this "
+                f"checkout ({e})")
+            continue
+        reps = 1 if dtype == torch.float32 and route == "streamed" else 2
+        err[name] = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"{tag} [mfu-peak] rows")
         torch.cuda.empty_cache()
         got = kernel(*cases[name])
         N, C = cases[name][0].shape
-        b = bound(nbytes(*cases[name], *(got if isinstance(got, tuple) else (got,))),
-                  TRI_PRODUCTS[name] * 2 * N * C * C, torch.bfloat16)
+        b = tri_bound(torch, name, cases[name], got if isinstance(got, tuple) else (got,))
         del got
         torch.cuda.empty_cache()
-        p1, k1, k2, p2 = (ms2(lambda f=f: f(*cases[name])) for f in (plain, kernel, kernel, plain))
+        p1, k1, k2, p2 = (ms_of(lambda f=f: f(*cases[name]), r)
+                          for f, r in ((plain, 2), (kernel, reps), (kernel, reps), (plain, 2)))
         res[name] = ((k1 + k2) / 2, (p1 + p2) / 2, *b)
-        route = tri_mul.route(name, cases[name][0]) if hasattr(tri_mul, "route") else "streamed"
-        say(f"phase 21e timing {name} bf16 N={N} C={C} ({route} route) [{smi}]: kernel "
+        say(f"phase 21e timing {name} {tag} N={N} C={C} ({route} route) [{smi}]: kernel "
             f"{res[name][0]:.2f} ms, plain {res[name][1]:.2f} ms (plain/kernel/kernel/plain {p1:.2f}, "
-            f"{k1:.2f}, {k2:.2f}, {p2:.2f}); bound {b[0]:.4f} ms ({b[1]})")
-        split[name], tries = None, []
+            f"{k1:.2f}, {k2:.2f}, {p2:.2f}; kernel {reps} call(s) a turn); bound {b[0]:.4f} ms ({b[1]}"
+            f"{', 3xTF32' if dtype == torch.float32 else ''})")
+        split[name], tries, calls = None, [], ITERS if reps > 1 else 1
         for _ in range(2):
-            _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(ITERS)],
+            _, busy, top = device_profile(torch, lambda: [kernel(*cases[name]) for _ in range(calls)],
                                           top=10)
-            tries.append(busy / ITERS)
-            if abs(busy / ITERS - res[name][0]) <= 0.05 * res[name][0]:
-                split[name] = [(kernel_name(k), ms / ITERS) for k, ms, _ in top]
+            tries.append(busy / calls)
+            if abs(busy / calls - res[name][0]) <= 0.05 * res[name][0]:
+                split[name] = [(kernel_name(k), ms / calls) for k, ms, _ in top]
                 break
         if split[name] is None:
             why[name] = (f"torch.profiler's kernels added up to {', '.join(f'{t:.4f}' for t in tries)} ms "
                          f"a call in two sessions, not within 5% of the CUDA-event {res[name][0]:.4f} ms")
-        say(f"phase 21e device time {name} C={C} ({route} route) [{smi}]: torch.profiler "
+        say(f"phase 21e device time {name} {tag} C={C} ({route} route) [{smi}]: torch.profiler "
             + (f"{tries[-1]:.4f} ms a call = " + " + ".join(f"{k} {ms:.4f}" for k, ms in split[name])
                if split[name] else f"no split kept: {why[name]}"))
         torch.cuda.empty_cache()
@@ -3090,6 +3203,11 @@ def tri_wide_timings(torch, dev, smi, tri_mul):
 #: ragged against the 64-column gate tiles, the 128-column back-projection
 #: tiles and (144) the 32-deep k steps
 WIDE_CASES = ((256, 3, 10), (256, 2, 37), (1024, 1, 9), (1024, 2, 37), (144, 3, 10), (160, 2, 37))
+#: float32 (K5 and K7 wide, K4 and K6 streamed): C = 80 and 144 ragged
+#: against the gate and back-projection tiles (a float32 stage is 16 deep:
+#: no multiple of 16 is ragged against it), 256, and 1024 on ragged rows and
+#: on [mfu-peak]'s N = 2*256*256
+WIDE_CASES_F32 = ((80, 3, 10), (80, 2, 37), (144, 3, 10), (256, 2, 37), (1024, 1, 9), (1024, 2, 256))
 
 
 def wide_route(tri_mul, name):
@@ -3101,26 +3219,35 @@ def wide_route(tri_mul, name):
     return "wide" if "wide" in counters.get(name, {}) else "streamed"
 
 
-def wide_parity(torch, dev, tri_mul):
+def wide_parity(torch, dev, tri_mul, f32=False):
     """K4-K7 through the wide route (bf16 C = 144, 160, 256 and 1024, ragged
     N) against their plain versions, every output under tri_budget; the
     route counters must show each call on the kernel's ``wide_route`` (a
     tree before the wide route, timed against this one, has no route
-    counters).  Returns the largest error of each kernel."""
+    counters).  With ``f32``, float32 K4-K7 at WIDE_CASES_F32 too, the
+    counters showing K5 and K7 on the wide route and K4 and K6 on the
+    streamed one.  Returns the largest error of each kernel, and with
+    ``f32`` also float32's."""
     worst = dict.fromkeys(TRI_KERNELS, 0.0)
+    worst32 = dict.fromkeys(TRI_KERNELS, 0.0)
     routes = getattr(tri_mul, "ROUTE_LAUNCHES", None)
-    for C, B, L in WIDE_CASES:
-        cases = tri_inputs(torch, dev, torch.bfloat16, C, B=B, L=L)
+    runs = [(torch.bfloat16, case) for case in WIDE_CASES]
+    runs += [(torch.float32, case) for case in (WIDE_CASES_F32 if f32 else ())]
+    for dtype, (C, B, L) in runs:
+        cases = tri_inputs(torch, dev, dtype, C, B=B, L=L)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for name in TRI_KERNELS:
-            want = wide_route(tri_mul, name)
+            want = wide_route(tri_mul, name) if tag == "bf16" else expected_tri_route(name, dtype, C)
             before = dict(routes[name]) if routes else {}
-            err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"bf16 C={C} {want} route")
+            err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"{tag} C={C} {want} route")
             if routes:
                 took = {k: n - before[k] for k, n in routes[name].items() if n > before[k]}
-                check(took == {want: 1}, f"{name} bf16 C={C} N={B * L * L}: routes {took}, not {want}")
-            worst[name] = max(worst[name], err)
+                check(took == {want: 1}, f"{name} {tag} C={C} N={B * L * L}: routes {took}, not {want}")
+            acc = worst if tag == "bf16" else worst32
+            acc[name] = max(acc[name], err)
         del cases
-    return worst
+        torch.cuda.empty_cache()
+    return (worst, worst32) if f32 else worst
 
 
 def mfu_peak(torch, np, dev, smi, tri_mul):
@@ -3134,13 +3261,22 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
     the third runs under torch.profiler), peak memory, the ``aten::bmm``
     calls of the profiled step, and each kernel's launches by route (the
     counters reset just before the steps): with fused_tri, each kernel on
-    its ``wide_route`` only (all four wide)."""
+    its ``wide_route`` only (all four wide).  Where the checkout's float32
+    K5 and K7 take the wide route, float32 K4-K7 at WIDE_CASES_F32 and at
+    the step's pair rows too, timed beside their plain versions."""
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.models.trfold import (TrFold, TrFoldConfig, featurize_for_model,
                                                    make_train_state, train_step)
     from torch.profiler import ProfilerActivity, profile
 
-    tri_err = wide_parity(torch, dev, tri_mul)
+    f32 = f32_wide_tree(torch, dev, tri_mul)
+    tri_err = wide_parity(torch, dev, tri_mul, f32=f32)
+    if f32:
+        tri_err, err32 = tri_err
+        say(f"phase 21e parity K4-K7 f32 (C, N) = "
+            f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES_F32)}, routes "
+            f"{ {name: expected_tri_route(name, torch.float32, 1024) for name in TRI_KERNELS} }: ok, "
+            f"max abs err {err32}")
     say(f"phase 21e parity K4-K7 bf16 (C, N) = "
         f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES)}, routes "
         f"{ {name: wide_route(tri_mul, name) for name in TRI_KERNELS} }: ok, max abs err {tri_err}")
@@ -3148,6 +3284,10 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
     say(f"phase 21e parity K4-K7 at [mfu-peak]'s pair rows (N={PEAK_B * PEAK_L ** 2}, C=1024): ok, "
         f"max abs err {peak_err}")
     tri_err = {k: max(e, peak_err[k]) for k, e in tri_err.items()}
+    wide32 = None
+    if f32:
+        res32, split32, why32, peak32 = tri_wide_timings(torch, dev, smi, tri_mul, torch.float32)
+        wide32 = (res32, split32, why32, {k: max(e, peak32[k]) for k, e in err32.items()})
 
     xyz = np.random.RandomState(0).randn(PEAK_B, PEAK_L, 15, 3).astype(np.float32) * 5.0
     feats = featurize_for_model(pt.StructureBatch.from_xyz(xyz, device=dev))
@@ -3219,7 +3359,7 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
         + "; ".join(f"fused_tri={f} {p}: {r[1]:.2f} ms/step, {r[2]:.2f} GiB, {r[3]} bmm"
                     for (f, p), r in results.items()))
     wide_launches = {name: results[(True, "none")][4].get(name, {}).get("wide", 0) for name in TRI_KERNELS}
-    return tri_err, tri_wide, (tri_split, split_why), wide_launches
+    return tri_err, tri_wide, (tri_split, split_why), wide_launches, wide32
 
 
 def moe_card_vs_cpu(torch, np, dev, smi):
@@ -3287,14 +3427,14 @@ def scale_out_phase(torch, np, dev, smi):
     ring_worst = ring_merge_parity(torch, dev, flash_attn, ring_attn)
     launches, ring_err = one_rank_group(torch, np, dev, smi, pair_maps, flash_attn)
     lse_ms = lse_timing(torch, dev, flash_attn, ring_attn, smi)
-    tri_err, tri_wide, tri_split, wide_launches = mfu_peak(torch, np, dev, smi, tri_mul)
+    tri_err, tri_wide, tri_split, wide_launches, wide32 = mfu_peak(torch, np, dev, smi, tri_mul)
     torch.cuda.empty_cache()
     moe_card_vs_cpu(torch, np, dev, smi)
     say(f"phase 21 scale-out path: ok in {time.perf_counter() - t0:.2f} s")
     return {"rect": rect, "launches": launches, "lse_err": max(lse_worst["fwd"], lse_worst["bwd"],
                                                                ring_worst, ring_err),
             "lse_ms": lse_ms, "tri_err_c1024": tri_err, "tri_c1024": tri_wide, "tri_split": tri_split,
-            "wide_launches": wide_launches}
+            "wide_launches": wide_launches, "wide32": wide32}
 
 
 # -- phase 22: model parallelism inside FoldModel --------------------------------
@@ -3859,6 +3999,64 @@ def host_phase(torch, np, dev, smi):
     return {"ingest": ingest, "fetch_k1_launches": fetch_launches, **hist, "example_s_per_step": s_per_step}
 
 
+def fold_step_timing(torch, smi, sb, fold_models_, fold_init, crop_len):
+    """Phase 13's FoldModel train step (featurization included), kernel path
+    against plain path in turns (ms/step, peak memory, each step from the
+    initial parameters), then one step of each under torch.profiler (device
+    busy, the top kernels, and every K4-K7 kernel of the kernel path's
+    step)."""
+    from protstruc_tpu_torch.train import TrainOptimizer
+    from protstruc_tpu_torch.train import train_step as fold_train_step
+
+    fold_step_ms, fold_peak, fold_step_losses = {}, {}, {True: [], False: []}
+
+    def fold_stepper(kernel):
+        model, c = fold_models_[kernel]
+        params = dict(model.named_parameters())
+        opt = TrainOptimizer(params, c)
+        opt_init = copy.deepcopy(opt.state_dict())
+        state = model.state_dict()
+        leaves = [(state[k], v) for k, v in fold_init.items()]
+
+        def step():
+            with torch.no_grad():
+                for leaf_, v in leaves:
+                    leaf_.copy_(v)
+            opt.load_state_dict(opt_init)
+            feats, xyz_true = fold_featurize(torch, sb, model, c, kernel)
+            fold_step_losses[kernel].append(fold_train_step(model, params, opt, feats, None, xyz_true))
+        return step
+
+    steppers = {kernel: fold_stepper(kernel) for kernel in (True, False)}
+    for kernel, step in steppers.items():
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        fold_peak[kernel] = torch.cuda.max_memory_allocated() / 2**30
+    fold_step_ms[False], fold_step_ms[True], rounds = alternate(steppers[False], steppers[True])
+    for kernel, step in steppers.items():
+        wall, busy, every = device_profile(torch, step, top=None)
+        say(f"phase 13 profile FoldModel train step, {'kernel' if kernel else 'plain'} path, one step "
+            f"under torch.profiler: device busy {busy:.2f} of {wall:.2f} ms wall "
+            f"(idle {100 * (1 - busy / wall):.1f}%); top kernels "
+            + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in every[:6]))
+        if kernel:  # K4-K7's kernels in that step, however far down the list
+            tri = [(kernel_name(name), ms, n) for name, ms, n in every
+                   if re.search(r"namespace\)::((prologue|epilogue)_\w+|wgrad|reduce)_kernel<", name)]
+            say("phase 13 device time K4-K7 in one kernel-path step: "
+                + "; ".join(f"{name} {ms:.2f} ms x{n}" for name, ms, n in tri))
+    for kernel, losses in fold_step_losses.items():
+        losses = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(losses).all()), f"timed FoldModel steps kernel={kernel}: losses {losses}")
+        fold_step_losses[kernel] = (float(losses.min()), float(losses.max()), len(losses))
+    say(f"phase 13 timing FoldModel train step f32 B=4 crop {crop_len} [{smi}]: kernel path "
+        f"{fold_step_ms[True]:.4f} ms/step (peak {fold_peak[True]:.2f} GiB), plain path "
+        f"{fold_step_ms[False]:.4f} ms/step (peak {fold_peak[False]:.2f} GiB) "
+        f"(plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); each step from the "
+        f"initial parameters, losses (min, max, steps) kernel {fold_step_losses[True]}, "
+        f"plain {fold_step_losses[False]}")
+
+
 def main():
     import numpy as np
     import torch
@@ -3882,8 +4080,6 @@ def main():
     from protstruc_tpu_torch.experiments import kernel_probe
     from protstruc_tpu_torch.ops import cuda_lib, flash_attn, model_features, pair_maps, tri_mul
     from protstruc_tpu_torch.ops.pair_maps import MAP_NAMES, _pair_maps_plain, pairwise_maps
-    from protstruc_tpu_torch.train import TrainOptimizer
-    from protstruc_tpu_torch.train import train_step as fold_train_step
     from protstruc_tpu_torch.utils.aot import precompile_featurizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3972,6 +4168,16 @@ def main():
         torch.cuda.empty_cache()
         tri_timings(torch, dev, smi, dict.fromkeys(TRI_KERNELS, 0.0))
         tri_wide_timings(torch, dev, smi, tri_mul)
+        f32_train_step(torch, np, dev, smi, tri_mul)
+        tri_timings(torch, dev, smi, dict.fromkeys(TRI_KERNELS, 0.0), torch.float32)
+        tri_wide_timings(torch, dev, smi, tri_mul, torch.float32)
+        tri_timings(torch, dev, smi, dict.fromkeys(TRI_KERNELS, 0.0), torch.float32, C=64, L=256,
+                    phase="FoldModel shape")
+        from protstruc_tpu_torch.train import TrainConfig
+        fold_cfg = TrainConfig(batch_size=4, crop_len=256, node_dim=128, pair_dim=64, n_blocks=4,
+                               n_recycle=1, pair_update="triangle", remat=True, fused_tri=True,
+                               use_flash_attn=True, seed=0)  # FOLD_ARGV's
+        fold_step_timing(torch, smi, *fold_models(torch, dev, fold_cfg), fold_cfg.crop_len)
         return 0
 
     # -- 2. build -------------------------------------------------------------
@@ -4157,7 +4363,13 @@ def main():
     train_step_timing(torch, smi, models, feats, init)
     del models, feats, init
     torch.cuda.empty_cache()
-    tri_ms = tri_timings(torch, dev, smi, tri_worst)
+    tri_ms, _ = tri_timings(torch, dev, smi, tri_worst)
+
+    # -- 9b. the same in float32: K5 and K7 on the wide route -------------------
+    check(f32_wide_tree(torch, dev, tri_mul), "f32 K5 and K7 at C = 128 do not take the wide route")
+    f32_routes, f32_step = f32_train_step(torch, np, dev, smi, tri_mul)
+    tri32_worst = dict.fromkeys(TRI_KERNELS, 0.0)
+    tri32_ms, tri32_split = tri_timings(torch, dev, smi, tri32_worst, torch.float32)
 
     # -- 10. K3 ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4209,54 +4421,8 @@ def main():
     del fold_grads
 
     # -- 13. timing ----------------------------------------------------------------
-    fold_step_ms, fold_peak, fold_step_losses = {}, {}, {True: [], False: []}
-
-    def fold_stepper(kernel):
-        model, c = fold_models_[kernel]
-        params = dict(model.named_parameters())
-        opt = TrainOptimizer(params, c)
-        opt_init = copy.deepcopy(opt.state_dict())
-        state = model.state_dict()
-        leaves = [(state[k], v) for k, v in fold_init.items()]
-
-        def step():
-            with torch.no_grad():
-                for leaf_, v in leaves:
-                    leaf_.copy_(v)
-            opt.load_state_dict(opt_init)
-            feats, xyz_true = fold_featurize(torch, sb, model, c, kernel)
-            fold_step_losses[kernel].append(fold_train_step(model, params, opt, feats, None, xyz_true))
-        return step
-
-    steppers = {kernel: fold_stepper(kernel) for kernel in (True, False)}
-    for kernel, step in steppers.items():
-        torch.cuda.reset_peak_memory_stats()
-        step()
-        torch.cuda.synchronize()
-        fold_peak[kernel] = torch.cuda.max_memory_allocated() / 2**30
-    fold_step_ms[False], fold_step_ms[True], rounds = alternate(steppers[False], steppers[True])
-    for kernel, step in steppers.items():
-        wall, busy, every = device_profile(torch, step, top=None)
-        say(f"phase 13 profile FoldModel train step, {'kernel' if kernel else 'plain'} path, one step "
-            f"under torch.profiler: device busy {busy:.2f} of {wall:.2f} ms wall "
-            f"(idle {100 * (1 - busy / wall):.1f}%); top kernels "
-            + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for name, ms, n in every[:6]))
-        if kernel:  # K4-K7's kernels in that step, however far down the list
-            tri = [(kernel_name(name), ms, n) for name, ms, n in every
-                   if re.search(r"namespace\)::((prologue|epilogue)_\w+|wgrad|reduce)_kernel<", name)]
-            say("phase 13 device time K4-K7 in one kernel-path step: "
-                + "; ".join(f"{name} {ms:.2f} ms x{n}" for name, ms, n in tri))
-    for kernel, losses in fold_step_losses.items():
-        losses = torch.stack(losses).float().cpu()
-        check(bool(torch.isfinite(losses).all()), f"timed FoldModel steps kernel={kernel}: losses {losses}")
-        fold_step_losses[kernel] = (float(losses.min()), float(losses.max()), len(losses))
-    say(f"phase 13 timing FoldModel train step f32 B=4 crop {fold_cfg.crop_len} [{smi}]: kernel path "
-        f"{fold_step_ms[True]:.4f} ms/step (peak {fold_peak[True]:.2f} GiB), plain path "
-        f"{fold_step_ms[False]:.4f} ms/step (peak {fold_peak[False]:.2f} GiB) "
-        f"(plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); each step from the "
-        f"initial parameters, losses (min, max, steps) kernel {fold_step_losses[True]}, "
-        f"plain {fold_step_losses[False]}")
-    del steppers, fold_models_, fold_init, sb
+    fold_step_timing(torch, smi, sb, fold_models_, fold_init, fold_cfg.crop_len)
+    del fold_models_, fold_init, sb
     torch.cuda.empty_cache()
 
     k3_plain_ms, k3_ms, rounds = alternate(lambda: model_features._model_features_plain(xyz),
@@ -4518,6 +4684,36 @@ def main():
                             device_ms_by_kernel=so["tri_split"][0][name] and dict(so["tri_split"][0][name]),
                             **({"device_ms_by_kernel_missing": so["tri_split"][1][name]}
                                if name in so["tri_split"][1] else {})))
+    # float32 at C = 128 (phase 9b: the [mfu-fused] step's rows; K5 and K7 on
+    # the wide route, K4 and K6 streamed) and C = 1024 (phase 21e), on each
+    # kernel's entry; K5 and K7 on the float32 wide route as entries of their
+    # own, launches from phase 9b's one counted step
+    res32, split32, why32, err32 = so["wide32"]
+    times = ("ms", "plain_ms", "bound_ms", "bound_by")
+    for e in kernels:
+        if e["name"].startswith("tri_mul_") and e["name"][len("tri_mul_"):] in TRI_KERNELS:
+            name = e["name"][len("tri_mul_"):]
+            e["f32_c128"] = dict(zip(times, tri32_ms[name]), route=expected_tri_route(name, torch.float32, 128),
+                                 err=tri32_worst[name], bound_count="3xTF32",
+                                 shape="N=4*512*512 C=128, [mfu-fused]'s pair rows in float32")
+            e["f32_c1024"] = dict(zip(times, res32[name]), err=err32[name], bound_count="3xTF32",
+                                  shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows in float32")
+    for name, label in (("prologue_bwd", "K5 f32 wide"), ("epilogue_bwd", "K7 f32 wide")):
+        kernels.append(dict(entry(f"tri_mul_{name}_f32_wide", "tri_mul.cu", TRI_REPLACES[name],
+                                  f32_routes[name].get("wide", 0), max(tri32_worst[name], err32[name]),
+                                  *tri32_ms[name], None),
+                            mode=f"{label}: float32 C > 64, the wide chain on the mma.sync core in 3xTF32; "
+                                 "parity at C=80, 128, 144, 256 and 1024; launches in phase 9b's one "
+                                 "counted float32 [mfu-fused] step",
+                            shape="N=4*512*512 C=128, [mfu-fused]'s pair rows in float32",
+                            bound_count="3xTF32: three TF32 products a float32 product at 494.7 TFLOP/s",
+                            device_ms_by_kernel=dict(tri32_split[name]),
+                            c1024=dict(zip(times, res32[name]), shape="N=2*256*256 C=1024",
+                                       device_ms_by_kernel=split32[name] and dict(split32[name]),
+                                       **({"device_ms_by_kernel_missing": why32[name]} if name in why32 else {})),
+                            f32_step={"fused_ms": f32_step[True][0], "unfused_ms": f32_step[False][0],
+                                      "fused_peak_gib": f32_step[True][1], "unfused_peak_gib": f32_step[False][1],
+                                      "fused_busy_ms": f32_step[True][2], "unfused_busy_ms": f32_step[False][2]}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

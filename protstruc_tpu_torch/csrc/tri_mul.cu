@@ -19,8 +19,8 @@
 // mma.sync on the tensor cores: bf16 m16n8k16 with f32 accumulators,
 // float32 as 3xTF32 m16n8k8 (x = big + small, three TF32 products, small
 // terms first; helpers in mma.cuh, shared with flash_attn.cu).  The streamed
-// rows passes, float32's alone, use FMA loops in full f32 (the library is
-// built with FMA contraction on).
+// rows passes, float32 K4's and K6's alone, use FMA loops in full f32 (the
+// library is built with FMA contraction on).
 //
 // Which route each kernel takes, a function of kind, dtype and C alone
 // (make_plan; ps_tri_route reports it):
@@ -29,16 +29,18 @@
 //             K5 prologue_bwd_resident_kernel   the same widths
 //             K6 epilogue_fwd_resident_kernel   the same widths
 //             K7 epilogue_bwd_resident_kernel   the same widths
-//   wide      K4, K6: wide_ln_kernel, wide_gate_kernel<NA, true>
-//             K5, K7: wide_ln_kernel, wide_gate_kernel<NA, false>,
+//   wide      K4, K6: wide_ln_kernel, wide_gate_kernel<T, NA, true>
+//                                               bf16 C > 128
+//             K5, K7: wide_ln_kernel, wide_gate_kernel<T, NA, false>,
 //             wide_back_kernel, wide_ln_bwd_kernel
-//             (the note above wide_ln_kernel)   bf16 C > 128
+//             (the note above wide_ln_kernel)   bf16 C > 128, float32 C > 64
+//                                               (C = 128 in the MoE blocks'
+//                                               pair rows, [mfu-fused]'s
+//                                               width in float32)
 //   streamed  K4, K6 prologue_fwd_kernel, epilogue_fwd_kernel
-//             K5, K7 prologue_bwd_kernel, epilogue_bwd_kernel
-//                                               float32 C > 64 (C = 128 in
-//                                               the MoE blocks' pair rows)
-// bf16 has no streamed route.  The backward routes end in the weight-gradient
-// pass and the reductions.
+//                                               float32 C > 64
+// bf16 has no streamed route, and no backward has one.  The backward routes
+// end in the weight-gradient pass and the reductions.
 //
 // The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
 // grid min(tiles / warps, SMs)) copies its weights into shared memory once
@@ -86,20 +88,17 @@
 // each about a quarter).  The weight-gradient pass is bound by its
 // per-step ring.
 
-// The streamed rows passes (float32, C > 64).  A block of 256 threads takes
-// TR pair rows at a time (32, fewer where C is wide) and keeps them in
-// shared memory as the LayerNorm output s (TR x C, T).  The (C, C) weights
-// are streamed through shared memory in TNK x TNK chunks (TNK = 64, 32 or
-// 16, dividing C), so no weight has to fit whole.  Each TR x TNK output
-// chunk is staged in f32 in shared memory, where the gates, masks and casts
-// are applied and the result is written out with coalesced stores.  Ragged
-// rows past N are zeros in shared memory and are never stored.  Restaging
-// the weights for every row tile bounds them (PERF.md has the times); the
-// wide route takes every bf16 kernel at C > 128 for that reason.  The
-// backward passes keep their cast dpre tiles in shared memory for the back
-// projection too, unless they do not fit (wide C): then the back projection
-// reads them from the dpre rows the block just wrote to global memory
-// (Plan::d_global).
+// The streamed rows passes (float32 K4 and K6, C > 64).  A block of 256
+// threads takes TR pair rows at a time (32, fewer where C is wide) and
+// keeps them in shared memory as the LayerNorm output s (TR x C, T).  The
+// (C, C) weights are streamed through shared memory in TNK x TNK chunks
+// (TNK = 64, 32 or 16, dividing C), so no weight has to fit whole.  Each TR
+// x TNK output chunk is staged in f32 in shared memory, where the gates,
+// masks and casts are applied and the result is written out with coalesced
+// stores.  Ragged rows past N are zeros in shared memory and are never
+// stored.  Restaging the weights for every row tile bounds them (PERF.md
+// has the times); the wide route takes every bf16 kernel at C > 128 and the
+// float32 backwards at C > 64 for that reason.
 //
 // The Pallas backwards sum weight gradients into one block that the
 // sequential TPU grid revisits.  Here blocks run in parallel, so:
@@ -110,12 +109,11 @@
 //    T) to a scratch buffer; wgrad_kernel gives each block a chunk of rows,
 //    one job (K5: wag, wap, wbg, wbp; K7: wog, wo) and one output tile,
 //    recomputes s from the pair rows, and sums s^T @ dpre on mma.sync into
-//    an f32 partial; the same reduction kernel adds the chunks in order.  Up
-//    to C = 128 the tile is all of C x C, so a row's LayerNorm is computed
-//    once per job; wider, the tile is at most 128 x 128 and each of the
-//    (C / tile)^2 tiles of a job recomputes it (4 times per row per job at
-//    C = 256, on the streamed route).  The wide route keeps s as a bf16
-//    plane and the pass reads its tile's columns of it instead.
+//    an f32 partial; the same reduction kernel adds the chunks in order.  On
+//    the resident route (C <= 128) the tile is all of C x C, so a row's
+//    LayerNorm is computed once per job.  The wide route keeps s as a plane
+//    in T and the pass reads its tile's columns of it instead (tiles of at
+//    most 128 x 128).
 // No atomics: the result is the same from run to run.  The kernels allocate
 // nothing and do not synchronise.
 
@@ -216,14 +214,13 @@ template <> struct TileAcc<float> {
 
 struct Plan {
   int N, C, TR, TNK;
-  int lds, ldw, ldf, ldc;  // row strides: s/d tiles, weight chunks, f32 stages, f32 dbuf
+  int lds, ldw, ldf;       // row strides: s tiles, weight chunks, f32 stages
   int ntiles, grid;        // rows kernels: row tiles, persistent blocks
   size_t smem;
   int njobs, tiles, chunks, chunk_rows, wg_tile, wg_rows;  // weight-gradient kernel
   size_t wg_smem;
   int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
   size_t res_smem;
-  int d_global;            // streamed backward rows pass: the dpre tiles read back from global
   long long work_floats;   // f32 scratch: grid*6*C vector partials + chunks*njobs*C*C (wide: HostPlan)
 };
 
@@ -231,9 +228,9 @@ struct Plan {
 // the wide route, the workspace's layout in floats: the row tiles' column
 // sums (rtiles, 6, C), the weight-gradient chunks (chunks, njobs, C, C), the
 // LayerNorm statistics (n_ln, 2, N: mean, 1/sigma), dsrc (N, C) and the
-// bf16 LayerNorm planes (n_ln, N, C).  Kept out of Plan, which the kernels
-// take by value: a larger Plan changed the resident passes' code and made
-// them slower (PERF.md section 6).
+// LayerNorm planes in the stream dtype (n_ln, N, C).  Kept out of Plan,
+// which the kernels take by value: a larger Plan changed the resident
+// passes' code and made them slower (PERF.md section 6).
 struct HostPlan {
   int route;   // kRouteResident, kRouteStreamed or kRouteWide
   int nsm;     // the device's SMs
@@ -258,44 +255,27 @@ __host__ __device__ inline int n_dpre(int kind) {
 }
 __host__ __device__ inline bool is_bwd(int kind) { return kind == kProBwd || kind == kEpiBwd; }
 
-// Shared memory of the rows kernels: the LayerNorm'd tiles s[], the dpre
-// tiles d[] (backward), two weight chunks, two f32 output stages which the
-// backward's full-width f32 dsrc buffer overlays (never live together), the
-// backward's per-block column sums vacc (6 x C), row statistics and the mask.
+// Shared memory of the streamed rows kernels (K4, K6): the LayerNorm'd
+// tiles s[], two weight chunks, two f32 output stages and the mask.
 template <typename T>
 struct RowsSmem {
   T* s[2];
-  T* d[4];
   T* w0;
   T* w1;
   float* st0;
   float* st1;
-  float* dbuf;
-  float* vacc;
-  float* mu[2];
-  float* inv[2];
   float* mrow;
 
   __host__ __device__ static size_t carve(uintptr_t base, const Plan& p, int kind, RowsSmem* out) {
     Carver cv{base, 0};
     RowsSmem r{};
-    const size_t tile = sizeof(T) * p.TR * p.lds;
-    for (int i = 0; i < n_ln(kind); ++i) r.s[i] = (T*)cv.take(tile);
-    if (!p.d_global)
-      for (int i = 0; i < n_dpre(kind); ++i) r.d[i] = (T*)cv.take(tile);
+    for (int i = 0; i < n_ln(kind); ++i) r.s[i] = (T*)cv.take(sizeof(T) * p.TR * p.lds);
     r.w0 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
     r.w1 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
     const size_t st = ((sizeof(float) * p.TR * p.ldf + 127) / 128) * 128;
-    const size_t db = is_bwd(kind) ? sizeof(float) * p.TR * p.ldc : 0;
-    const uintptr_t u = cv.take(2 * st > db ? 2 * st : db);
+    const uintptr_t u = cv.take(2 * st);
     r.st0 = (float*)u;
     r.st1 = (float*)(u + st);
-    r.dbuf = (float*)u;
-    if (is_bwd(kind)) r.vacc = (float*)cv.take(sizeof(float) * 6 * p.C);
-    for (int i = 0; i < n_ln(kind); ++i) {
-      r.mu[i] = (float*)cv.take(sizeof(float) * p.TR);
-      r.inv[i] = (float*)cv.take(sizeof(float) * p.TR);
-    }
     r.mrow = (float*)cv.take(sizeof(float) * p.TR);
     if (out) *out = r;
     return cv.off;
@@ -308,22 +288,16 @@ struct RowsSmem {
 
 // LayerNorm rows [r0, r0 + TR) of src (., C) into dst (TR x lds, T): f32
 // statistics, fast variance, y = ((x - mu) * inv) * scale + bias cast to T.
-// Rows at or past rend are zeros.  Keeps each row's mean and 1/sigma when
-// mu_out is given.
+// Rows at or past rend are zeros.
 template <typename T>
 __device__ void ln_rows(const T* __restrict__ src, int64_t r0, int64_t rend, int TR, int C,
-                        const T* __restrict__ sc, const T* __restrict__ bi, T* dst, int lds,
-                        float* mu_out, float* inv_out) {
+                        const T* __restrict__ sc, const T* __restrict__ bi, T* dst, int lds) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < TR; r += kWarps) {
     const int64_t row = r0 + r;
     T* d = dst + (size_t)r * lds;
     if (row >= rend) {
       for (int c = lane; c < C; c += 32) d[c] = fromf<T>(0.0f);
-      if (lane == 0 && mu_out) {
-        mu_out[r] = 0.0f;
-        inv_out[r] = 0.0f;
-      }
       continue;
     }
     const T* x = src + row * C;
@@ -340,35 +314,16 @@ __device__ void ln_rows(const T* __restrict__ src, int64_t r0, int64_t rend, int
       const float xh = (tof(x[c]) - mu) * inv;
       d[c] = fromf<T>(xh * tof(sc[c]) + tof(bi[c]));
     }
-    if (lane == 0 && mu_out) {
-      mu_out[r] = mu;
-      inv_out[r] = inv;
-    }
   }
 }
 
 // A TNK x TNK chunk of a (C, C) row-major weight into dst[k][n] (stride ld):
-// rows k0.., columns n0.. of W, or of W^T when transpose.
+// rows k0.., columns n0.. of W.
 template <typename T>
-__device__ void load_w(const T* __restrict__ W, int C, int k0, int n0, int TNK, bool transpose,
-                       T* dst, int ld) {
+__device__ void load_w(const T* __restrict__ W, int C, int k0, int n0, int TNK, T* dst, int ld) {
   for (int e = threadIdx.x; e < TNK * TNK; e += kThreads) {
-    if (!transpose) {
-      const int k = e / TNK, n = e % TNK;
-      dst[k * ld + n] = W[(size_t)(k0 + k) * C + n0 + n];
-    } else {
-      const int n = e / TNK, k = e % TNK;
-      dst[k * ld + n] = W[(size_t)(n0 + n) * C + k0 + k];
-    }
-  }
-}
-
-// acc[n] += sum over rows < nrows of S[r][n], n < TN, in row order.
-__device__ void col_sums(const float* S, int lds, int nrows, int TN, float* acc) {
-  for (int n = threadIdx.x; n < TN; n += kThreads) {
-    float s = 0.0f;
-    for (int r = 0; r < nrows; ++r) s += S[r * lds + n];
-    acc[n] += s;
+    const int k = e / TNK, n = e % TNK;
+    dst[k * ld + n] = W[(size_t)(k0 + k) * C + n0 + n];
   }
 }
 
@@ -382,8 +337,8 @@ __device__ void two_products(const Plan& p, const RowsSmem<T>& sm, const T* s0, 
   g.init(p.TR, p.TNK);
   q.init(p.TR, p.TNK);
   for (int k0 = 0; k0 < p.C; k0 += p.TNK) {
-    load_w(Wg, p.C, k0, n0, p.TNK, false, sm.w0, p.ldw);
-    load_w(Wq, p.C, k0, n0, p.TNK, false, sm.w1, p.ldw);
+    load_w(Wg, p.C, k0, n0, p.TNK, sm.w0, p.ldw);
+    load_w(Wq, p.C, k0, n0, p.TNK, sm.w1, p.ldw);
     __syncthreads();
     g.mma(s0 + k0, p.lds, sm.w0, p.ldw, p.TNK);
     q.mma(s1 + k0, p.lds, sm.w1, p.ldw, p.TNK);
@@ -391,71 +346,6 @@ __device__ void two_products(const Plan& p, const RowsSmem<T>& sm, const T* s0, 
   }
   g.store(sm.st0, p.ldf);
   q.store(sm.st1, p.ldf);
-  __syncthreads();
-}
-
-// dsrc (TR x C, f32, into dbuf) = sum_k d[k] @ W_k^T over nmat cast-dpre
-// tiles of row stride ldd (in shared memory, or the rows just written to the
-// global dpre), the weights streamed transposed.  Ends synchronised.
-template <typename T>
-__device__ void back_project(const Plan& p, const RowsSmem<T>& sm, T* const* d, int ldd,
-                             const T* const* W, int nmat) {
-  for (int n0 = 0; n0 < p.C; n0 += p.TNK) {
-    TileAcc<T> acc;
-    acc.init(p.TR, p.TNK);
-    for (int k = 0; k < nmat; ++k) {
-      for (int k0 = 0; k0 < p.C; k0 += p.TNK) {
-        load_w(W[k], p.C, k0, n0, p.TNK, true, sm.w0, p.ldw);
-        __syncthreads();
-        acc.mma(d[k] + k0, ldd, sm.w0, p.ldw, p.TNK);
-        __syncthreads();
-      }
-    }
-    acc.store(sm.dbuf + n0, p.ldc);
-  }
-  __syncthreads();
-}
-
-// LayerNorm backward of rows [r0, r0 + TR) given dsrc in dbuf:
-// dx = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)), dxh = dsrc * scale,
-// written as T; then the block's column sums of dsrc * xhat and dsrc into
-// vs and vb.  Ends synchronised.
-template <typename T>
-__device__ void ln_backward(const Plan& p, const RowsSmem<T>& sm, const T* __restrict__ src,
-                            int64_t r0, const T* __restrict__ sc, const float* mu,
-                            const float* inv, T* __restrict__ dx, float* vs, float* vb) {
-  const int C = p.C;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < p.TR; r += kWarps) {
-    const int64_t row = r0 + r;
-    if (row >= p.N) continue;
-    const float* ds = sm.dbuf + (size_t)r * p.ldc;
-    const T* x = src + row * C;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = ds[c] * tof(sc[c]);
-      const float xh = (tof(x[c]) - mu[r]) * inv[r];
-      s1 += dxh;
-      s2 += dxh * xh;
-    }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = ds[c] * tof(sc[c]);
-      const float xh = (tof(x[c]) - mu[r]) * inv[r];
-      dx[row * C + c] = fromf<T>(inv[r] * (dxh - m1 - xh * m2));
-    }
-  }
-  const int nrows = (int)min((int64_t)p.TR, (int64_t)p.N - r0);
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float a = 0.0f, b = 0.0f;
-    for (int r = 0; r < nrows; ++r) {
-      const float ds = sm.dbuf[(size_t)r * p.ldc + c];
-      a += ds * ((tof(src[(r0 + r) * C + c]) - mu[r]) * inv[r]);
-      b += ds;
-    }
-    vs[c] += a;
-    vb[c] += b;
-  }
   __syncthreads();
 }
 
@@ -479,18 +369,6 @@ struct RowArgs {
   float* vec_part;  // backward: (grid, 6, C) per-block column sums
 };
 
-template <typename T>
-__device__ void store_vec_partial(const Plan& p, const RowsSmem<T>& sm, float* part) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < 6 * p.C; i += kThreads)
-    part[(size_t)blockIdx.x * 6 * p.C + i] = sm.vacc[i];
-}
-
-template <typename T>
-__device__ void zero_vacc(const Plan& p, const RowsSmem<T>& sm) {
-  for (int i = threadIdx.x; i < 6 * p.C; i += kThreads) sm.vacc[i] = 0.0f;
-}
-
 // K4: a = sigmoid(s @ Wag + bag) * (s @ Wap + bap) * m, b likewise.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) prologue_fwd_kernel(RowArgs<T> a, Plan p) {
@@ -499,7 +377,7 @@ __global__ void __launch_bounds__(kThreads) prologue_fwd_kernel(RowArgs<T> a, Pl
   RowsSmem<T>::carve((uintptr_t)smem_raw, p, kProFwd, &sm);
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
     const int64_t r0 = (int64_t)tile * p.TR;
-    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds, nullptr, nullptr);
+    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds);
     for (int r = threadIdx.x; r < p.TR; r += kThreads)
       sm.mrow[r] = r0 + r < p.N ? tof(a.aux[r0 + r]) : 0.0f;
     __syncthreads();
@@ -521,67 +399,6 @@ __global__ void __launch_bounds__(kThreads) prologue_fwd_kernel(RowArgs<T> a, Pl
       }
     }
   }
-}
-
-// K5 rows pass: dx through the LayerNorm, the cast dpre for the weight
-// gradients, and the per-block column sums of the bias and LayerNorm grads.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) prologue_bwd_kernel(RowArgs<T> a, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RowsSmem<T> sm;
-  RowsSmem<T>::carve((uintptr_t)smem_raw, p, kProBwd, &sm);
-  const int C = p.C;
-  zero_vacc(p, sm);
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const int64_t r0 = (int64_t)tile * p.TR;
-    const int nrows = (int)min((int64_t)p.TR, (int64_t)p.N - r0);
-    ln_rows<T>(a.x, r0, p.N, p.TR, C, a.vec[0], a.vec[1], sm.s[0], p.lds, sm.mu[0], sm.inv[0]);
-    for (int r = threadIdx.x; r < p.TR; r += kThreads)
-      sm.mrow[r] = r0 + r < p.N ? tof(a.aux[r0 + r]) : 0.0f;
-    __syncthreads();
-    for (int n0 = 0; n0 < C; n0 += p.TNK) {
-      for (int h = 0; h < 2; ++h) {  // (dag, dap), then (dbg, dbp)
-        two_products<T>(p, sm, sm.s[0], sm.s[0], a.mat[2 * h], a.mat[2 * h + 1], n0);
-        const T* bg = a.vec[2 + 2 * h];
-        const T* bp = a.vec[3 + 2 * h];
-        T* dg_g = a.dpre + (size_t)(2 * h) * p.N * C;
-        T* dp_g = a.dpre + (size_t)(2 * h + 1) * p.N * C;
-        for (int e = threadIdx.x; e < p.TR * p.TNK; e += kThreads) {
-          const int r = e / p.TNK, n = e % p.TNK;
-          const int64_t row = r0 + r;
-          float dgate = 0.0f, dproj = 0.0f;
-          if (row < p.N) {
-            const float ct = tof(a.ct[h][row * C + n0 + n]) * sm.mrow[r];
-            const float sg = sigmoidf(sm.st0[r * p.ldf + n] + tof(bg[n0 + n]));
-            const float pj = sm.st1[r * p.ldf + n] + tof(bp[n0 + n]);
-            dproj = ct * sg;
-            dgate = ct * pj * sg * (1.0f - sg);
-          }
-          sm.st0[r * p.ldf + n] = dgate;
-          sm.st1[r * p.ldf + n] = dproj;
-          const T dg = fromf<T>(dgate), dp = fromf<T>(dproj);
-          if (!p.d_global) {
-            sm.d[2 * h][r * p.lds + n0 + n] = dg;
-            sm.d[2 * h + 1][r * p.lds + n0 + n] = dp;
-          }
-          if (row < p.N) {
-            dg_g[row * C + n0 + n] = dg;
-            dp_g[row * C + n0 + n] = dp;
-          }
-        }
-        __syncthreads();
-        col_sums(sm.st0, p.ldf, nrows, p.TNK, sm.vacc + (2 + 2 * h) * C + n0);
-        col_sums(sm.st1, p.ldf, nrows, p.TNK, sm.vacc + (3 + 2 * h) * C + n0);
-        __syncthreads();
-      }
-    }
-    T* dt[4];
-    for (int k = 0; k < 4; ++k)
-      dt[k] = p.d_global ? a.dpre + ((size_t)k * p.N + r0) * C : sm.d[k];
-    back_project<T>(p, sm, dt, p.d_global ? C : p.lds, a.mat, 4);
-    ln_backward<T>(p, sm, a.x, r0, a.vec[0], sm.mu[0], sm.inv[0], a.out[0], sm.vacc, sm.vacc + C);
-  }
-  store_vec_partial(p, sm, a.vec_part);
 }
 
 // ---------------------------------------------------------------------------
@@ -1834,8 +1651,8 @@ __global__ void __launch_bounds__(kThreads) epilogue_fwd_kernel(RowArgs<T> a, Pl
   RowsSmem<T>::carve((uintptr_t)smem_raw, p, kEpiFwd, &sm);
   for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
     const int64_t r0 = (int64_t)tile * p.TR;
-    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds, nullptr, nullptr);
-    ln_rows<T>(a.aux, r0, p.N, p.TR, p.C, a.vec[3], a.vec[4], sm.s[1], p.lds, nullptr, nullptr);
+    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds);
+    ln_rows<T>(a.aux, r0, p.N, p.TR, p.C, a.vec[3], a.vec[4], sm.s[1], p.lds);
     __syncthreads();
     for (int n0 = 0; n0 < p.C; n0 += p.TNK) {
       two_products<T>(p, sm, sm.s[0], sm.s[1], a.mat[0], a.mat[1], n0);
@@ -1853,72 +1670,40 @@ __global__ void __launch_bounds__(kThreads) epilogue_fwd_kernel(RowArgs<T> a, Pl
   }
 }
 
-// K7 rows pass: dx and dprod through both LayerNorms, the cast dpre and du
-// for the weight gradients, and the per-block column sums.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) epilogue_bwd_kernel(RowArgs<T> a, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RowsSmem<T> sm;
-  RowsSmem<T>::carve((uintptr_t)smem_raw, p, kEpiBwd, &sm);
-  const int C = p.C;
-  zero_vacc(p, sm);
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const int64_t r0 = (int64_t)tile * p.TR;
-    const int nrows = (int)min((int64_t)p.TR, (int64_t)p.N - r0);
-    ln_rows<T>(a.x, r0, p.N, p.TR, C, a.vec[0], a.vec[1], sm.s[0], p.lds, sm.mu[0], sm.inv[0]);
-    ln_rows<T>(a.aux, r0, p.N, p.TR, C, a.vec[3], a.vec[4], sm.s[1], p.lds, sm.mu[1], sm.inv[1]);
-    __syncthreads();
-    T* dpre_g = a.dpre;
-    T* du_g = a.dpre + (size_t)p.N * C;
-    for (int n0 = 0; n0 < C; n0 += p.TNK) {
-      two_products<T>(p, sm, sm.s[0], sm.s[1], a.mat[0], a.mat[1], n0);
-      for (int e = threadIdx.x; e < p.TR * p.TNK; e += kThreads) {
-        const int r = e / p.TNK, n = e % p.TNK;
-        const int64_t row = r0 + r;
-        float dpre = 0.0f, du = 0.0f;
-        if (row < p.N) {
-          const float g = sigmoidf(sm.st0[r * p.ldf + n] + tof(a.vec[2][n0 + n]));
-          const float u = sm.st1[r * p.ldf + n] + tof(a.vec[5][n0 + n]);
-          const float dout = tof(a.ct[0][row * C + n0 + n]);
-          du = dout * g;
-          dpre = dout * u * g * (1.0f - g);
-        }
-        sm.st0[r * p.ldf + n] = dpre;
-        sm.st1[r * p.ldf + n] = du;
-        const T dpc = fromf<T>(dpre), duc = fromf<T>(du);
-        if (!p.d_global) {
-          sm.d[0][r * p.lds + n0 + n] = dpc;
-          sm.d[1][r * p.lds + n0 + n] = duc;
-        }
-        if (row < p.N) {
-          dpre_g[row * C + n0 + n] = dpc;
-          du_g[row * C + n0 + n] = duc;
-        }
-      }
-      __syncthreads();
-      col_sums(sm.st0, p.ldf, nrows, p.TNK, sm.vacc + 2 * C + n0);
-      col_sums(sm.st1, p.ldf, nrows, p.TNK, sm.vacc + 5 * C + n0);
-      __syncthreads();
-    }
-    T* dt[2] = {sm.d[0], sm.d[1]};
-    if (p.d_global) dt[0] = dpre_g + r0 * C, dt[1] = du_g + r0 * C;
-    const int ldd = p.d_global ? C : p.lds;
-    back_project<T>(p, sm, dt, ldd, a.mat, 1);
-    ln_backward<T>(p, sm, a.x, r0, a.vec[0], sm.mu[0], sm.inv[0], a.out[0], sm.vacc, sm.vacc + C);
-    back_project<T>(p, sm, dt + 1, ldd, a.mat + 1, 1);
-    ln_backward<T>(p, sm, a.aux, r0, a.vec[3], sm.mu[1], sm.inv[1], a.out[1], sm.vacc + 3 * C,
-                   sm.vacc + 4 * C);
-  }
-  store_vec_partial(p, sm, a.vec_part);
+// The wide route's float32 products (here and in the GEMM core below):
+// operands split by split_tf32_alu, each k8 step's 3xTF32 products summed
+// apart (wide_3xtf32).
+// x = big + small: big is x rounded to tf32 (to nearest, ties away, as
+// cvt.rna) by integer arithmetic on the float's bits, small = x - big exact
+// in f32 and handed over as it is: the tensor cores read a tf32 operand's
+// top 19 bits, so small is truncated there, within 2^-21 |x| of x - big.
+// Three ALU operations at their full rate, where split_tf32 takes two cvt.
+__device__ __forceinline__ void split_tf32_alu(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// c += a b at float32 accuracy: the three TF32 products of one k8 step
+// summed apart, then added in f32.
+__device__ __forceinline__ void wide_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
+                                            const uint32_t (&a_small)[4], const uint32_t (&b)[4]) {
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_3xtf32(d, a_big, a_small, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
 // Weight gradients, split over row chunks: block (chunk, job, tile) sums
 // s^T @ d over its chunk's rows for one TM x TM tile of dW_job (TM = C up to
 // 128), with s = LN(src) cast to T recomputed as the rows kernels computed
-// it, once per row, 64 rows a step (fewer where C is wide); the step's rows
-// of src and d come through a two-stage cp.async ring.  Products on mma.sync: bf16 m16n8k16 (ldmatrix.trans for both
-// operands), float32 3xTF32 m16n8k8 with each step's product summed apart
-// and added in f32 (the tensor cores truncate as they accumulate).  Warp
+// it, once per row (the resident route, where the tile is all of C x C), or
+// read from the wide route's s plane, 64 rows a step (fewer where the ring
+// does not fit; the wide float32 pass 32, so that two blocks share an SM);
+// the step's rows of src (or of s) and d come through a two-stage cp.async
+// ring.  Products on mma.sync: bf16 m16n8k16 (ldmatrix.trans for both
+// operands), float32 3xTF32 m16n8k8 with each step's product (the wide
+// route: each k8 step's) summed apart and added in f32 (the tensor cores
+// truncate as they accumulate).  Warp
 // (wm, wn) of the 4 x 2 grid owns m16 tiles wm + 4i and n16 tiles wn + 2j of
 // the output tile.
 template <typename T>
@@ -1957,6 +1742,7 @@ struct WgradSmem {
 };
 
 // acc (this warp's tiles) += s[:, m0:]^T @ d over R rows
+template <bool kApart>
 __device__ __forceinline__ void wgrad_products(float (&acc)[kWgMi][2 * kWgNj][4], const bf16* s,
                                                int lds, const bf16* d, int ldd, int m0, int mt,
                                                int R) {
@@ -1990,11 +1776,47 @@ __device__ __forceinline__ void wgrad_products(float (&acc)[kWgMi][2 * kWgNj][4]
   }
 }
 
+// The same in float32, 3xTF32.  The resident route's pass sums each R-row
+// step's products apart; the wide route's (kApart) each k8 step's, through
+// wide_3xtf32, which leaves no second set of accumulators: its registers
+// fit two blocks an SM.
+template <bool kApart>
 __device__ __forceinline__ void wgrad_products(float (&acc)[kWgMi][2 * kWgNj][4], const float* s,
                                                int lds, const float* d, int ldd, int m0, int mt,
                                                int R) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
+  if constexpr (kApart) {
+#pragma unroll 2
+    for (int k0 = 0; k0 < R; k0 += 8) {
+      uint32_t ab[kWgMi][4], as[kWgMi][4];
+#pragma unroll
+      for (int i = 0; i < kWgMi; ++i) {
+        const int mi = wm + 4 * i;
+        if (mi < mt) {  // A = s^T: rows m, columns k
+          const float* q = s + (k0 + t) * lds + m0 + 16 * mi + g;
+          split_tf32_alu(q[0], ab[i][0], as[i][0]);
+          split_tf32_alu(q[8], ab[i][1], as[i][1]);
+          split_tf32_alu(q[4 * lds], ab[i][2], as[i][2]);
+          split_tf32_alu(q[4 * lds + 8], ab[i][3], as[i][3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * kWgNj; ++j) {
+        const int nj = wn + 2 * (j >> 1);
+        if (nj < mt) {
+          const float* q = d + (k0 + t) * ldd + 16 * nj + 8 * (j & 1) + g;
+          uint32_t bf[4];
+          split_tf32_alu(q[0], bf[0], bf[2]);
+          split_tf32_alu(q[4 * ldd], bf[1], bf[3]);
+#pragma unroll
+          for (int i = 0; i < kWgMi; ++i)
+            if (wm + 4 * i < mt) wide_3xtf32(acc[i][j], ab[i], as[i], bf);
+        }
+      }
+    }
+    return;
+  }
   float step[kWgMi][2 * kWgNj][4] = {};
 #pragma unroll 2
   for (int k0 = 0; k0 < R; k0 += 8) {
@@ -2073,7 +1895,7 @@ __device__ void ln_smem_rows(const T* x, int R, int C, const T* __restrict__ sc,
 }
 
 template <typename T, bool kFromS>
-__global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p) {
+__device__ __forceinline__ void wgrad_body(const WgradArgs<T>& a, const Plan& p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   WgradSmem<T> sm;
   WgradSmem<T>::carve((uintptr_t)smem_raw, p, kFromS, &sm);
@@ -2114,11 +1936,11 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p)
     __syncthreads();  // stage st landed; the readers of s and of the other stage are done
     if (r0 + R < rend) load(r0 + R, st ^ 1);
     if constexpr (kFromS) {
-      wgrad_products(acc, sm.x + st * R * lds, lds, sm.d + st * R * ldd, ldd, 0, mt, R);
+      wgrad_products<true>(acc, sm.x + st * R * lds, lds, sm.d + st * R * ldd, ldd, 0, mt, R);
     } else {
       ln_smem_rows<T>(sm.x + st * R * lds, R, C, a.sc[job], a.bi[job], sm.s, lds);
       __syncthreads();
-      wgrad_products(acc, sm.s, lds, sm.d + st * R * ldd, ldd, m0, mt, R);
+      wgrad_products<false>(acc, sm.s, lds, sm.d + st * R * ldd, ldd, m0, mt, R);
     }
   }
   // C fragments: rows m0 + 16 mi + g (+8), columns n0 + 16 nj + 8 (j & 1) + 2t (+1)
@@ -2138,6 +1960,18 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p)
     }
 }
 
+template <typename T, bool kFromS>
+__global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p) {
+  wgrad_body<T, kFromS>(a, p);
+}
+
+// The wide route's float32 pass at two blocks an SM: 128 registers (with
+// launch bounds of one block, 206), its ring halved by make_plan to fit.
+template <>
+__global__ void __launch_bounds__(kThreads, 2) wgrad_kernel<float, true>(WgradArgs<float> a, Plan p) {
+  wgrad_body<float, true>(a, p);
+}
+
 // out[i] = sum over g < G (in order) of part[g * M + i], cast to T.
 template <typename T>
 __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, T* __restrict__ out) {
@@ -2150,24 +1984,25 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 }
 
 // ---------------------------------------------------------------------------
-// the wide route of K4-K7 (bf16, C > 128)
+// the wide route of K4-K7 (bf16 C > 128; K5 and K7 also float32 C > 64)
 // ---------------------------------------------------------------------------
 //
 // Replaces, at the widths whose weights do not fit in shared memory, the
 // TPU kernels K4 _prologue_fwd_kernel (protstruc_tpu/ops/tri_mul.py:107), K5
 // _prologue_bwd_kernel (l.121), K6 _epilogue_fwd_kernel (l.267) and K7
 // _epilogue_bwd_kernel (l.279).  At C = 1024 a block cannot own whole rows
-// through the products (64 rows of f32 dsrc are 256 KB), and the streamed
-// pass, which does, restages every weight for every row tile (K5: about 16
-// MB of weights through L2 a 16-row tile, 131 GB a call at N = 2*256*256;
-// K4: 8 MB a 64-row tile, 17 GB a call).  So each kernel is a chain of
-// kernels on the caller's stream, its scratch in the wrapper's f32
-// workspace (no kernel allocates).  The forwards (K4, K6) run steps 1 and 2:
+// through the products (64 rows of f32 dsrc are 256 KB), and a rows pass
+// that does restages every weight for every row tile (K5: about 16 MB of
+// weights through L2 a 16-row tile, 131 GB a call at N = 2*256*256; K4: 8
+// MB a 64-row tile, 17 GB a call).  So each kernel is a chain of kernels on
+// the caller's stream, its scratch in the wrapper's f32 workspace (no
+// kernel allocates).  The forwards (K4, K6; bf16) run steps 1 and 2:
 //   1. s = LN(x) (K6 also t = LN2(p)) into the bf16 planes;
-//   2. wide_gate_kernel<NA, true>: both products of each 128-row x 64-column
-//      output tile at once (K4: s @ Wag and s @ Wap into a, then Wbg and Wbp
-//      into b; K6: s @ Wog and t @ Wo into out), and the gates in the
-//      epilogue: sigmoid(G + bg) * (P + bp) (* m in K4) in f32, cast once.
+//   2. wide_gate_kernel<bf16, NA, true>: both products of each 128-row x
+//      64-column output tile at once (K4: s @ Wag and s @ Wap into a, then
+//      Wbg and Wbp into b; K6: s @ Wog and t @ Wo into out), and the gates
+//      in the epilogue: sigmoid(G + bg) * (P + bp) (* m in K4) in f32, cast
+//      once.
 // They bind on the tensor cores: K4's four (N, C) x (C, C) products are 1.1
 // TFLOP, 1.1117 ms at 989 TFLOP/s bf16, K6's two 0.55 TFLOP, 0.5559 ms (N =
 // 2*256*256, C = 1024); the rows and outputs are 0.8 GB (0.24 ms at 3.35
@@ -2175,49 +2010,58 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 // tile as in the streamed pass (8.6 GB through L2 for K4 at that shape
 // instead of 17), through the core's cp.async ring, which overlaps the
 // copies with the products (the streamed pass stages them synchronously).
-// The backwards (K5, K7) run:
-//   1. wide_ln_kernel: s = LN(x) (K7 also t = LN2(p)) cast to bf16 into an
-//      (N, C) plane, each row's mean and 1/sigma kept (f32, fast variance);
-//   2. wide_gate_kernel<NA, false>: the pre-activations of each 128-row x
+// The backwards (K5, K7; bf16 and float32) run:
+//   1. wide_ln_kernel: s = LN(x) (K7 also t = LN2(p)) in T into an (N, C)
+//      plane, each row's mean and 1/sigma kept (f32, fast variance);
+//   2. wide_gate_kernel<T, NA, false>: the pre-activations of each 128-row x
 //      64-column output tile as in the forward, then the gate backward in
-//      the epilogue: dpre (and du) cast to bf16 into the dpre planes, and
-//      the tile's f32 column sums of the two gradients;
+//      the epilogue: dpre (and du) in T into the dpre planes, and the tile's
+//      f32 column sums of the two gradients;
 //   3. wide_back_kernel: dsrc (N, C, f32) = sum_k dpre_k @ W_k^T, one product
 //      of depth 4C (K5), or C for each of K7's two (run one after the other
 //      into the same plane);
 //   4. wide_ln_bwd_kernel: dx from dsrc, and the 128-row tile's column sums
 //      of dsrc * xhat and dsrc;
-//   5. wgrad_kernel<bf16, true>: dW = s^T @ dpre with s read from step 1's
+//   5. wgrad_kernel<T, true>: dW = s^T @ dpre with s read from step 1's
 //      plane, not recomputed;
 //   6. reduce_kernel: the 128-row tiles' column sums in tile order, the
 //      weight-gradient chunks in chunk order (no atomics: the same bits on
 //      every run).
 // Steps 2, 3 and 5 are products of 8 N C^2 operations each (K5), bound by
 // the tensor cores (3.34 ms for K5's twelve (N, C) x (C, C) products at N =
-// 2*256*256, C = 1024 on an H100 at 989 TFLOP/s bf16).  Steps 2 and 3 share
-// one GEMM core (wide_mainloop): 128-row block tiles of 8 warps (2 x 4, each
-// 64 rows x 32 columns), a ring of 3-4 stages of 32-deep A and B tiles
-// copied by 16-byte cp.async (rows past N and columns past C zero-filled,
-// never read), padded shared memory that ldmatrix reads without bank
-// conflicts, mma.sync m16n8k16 bf16 with f32 accumulators, two blocks an SM
-// on a persistent grid, and the next tile's first stages issued before the
-// current tile's epilogue.  The weights are staged once per 128-row tile
-// (not per 16), so a product moves about 17 GB through L2 at that shape
-// instead of K5's 131 GB.  The core takes B row-major (k, n) for the gate
-// products (ldmatrix.trans) or as rows of W, (n, k), for the
-// back-projections (ldmatrix); the epilogue is the caller's.
+// 2*256*256, C = 1024 on an H100 at 989 TFLOP/s bf16; float32 as 3xTF32 is
+// three TF32 products each, 20.0 ms at 495 TFLOP/s).  Steps 2 and 3 share
+// one GEMM core (wide_mainloop): 128-row block tiles of 8 warps (2 x 4,
+// each 64 rows x 32 columns), a ring of 3-4 stages of A and B tiles 64
+// bytes deep (bf16 32, float32 16 values) copied by 16-byte cp.async (rows
+// past N and columns past C zero-filled, never read), padded shared memory
+// read without bank conflicts, two blocks an SM on a persistent grid, and
+// the next tile's first stages issued before the current tile's epilogue.
+// A stage takes the same bytes in both types, so the rings and their shared
+// memory are the same.  bf16 runs mma.sync m16n8k16 with f32 accumulators;
+// float32 runs m16n8k8 in 3xTF32 (x = big + small, three TF32 products,
+// small terms first), each k8 step's three products summed apart and added
+// in f32 (the tensor cores truncate as they accumulate: over K5's 4096-deep
+// back-projection at C = 1024 that would drift past the f32 budget).  The
+// weights are staged once per 128-row tile (not per 16), so a product moves
+// about 17 GB through L2 at that shape instead of K5's 131 GB.  The core
+// takes B row-major (k, n) for the gate products (bf16: ldmatrix.trans;
+// float32 by hand, 32-bit loads on a stride of 72 floats) or as rows of W,
+// (n, k), for the back-projections (ldmatrix; on 32-bit words it gives the
+// tf32 fragments); the epilogue is the caller's.  float32 (ptxas, PERF.md):
+// the gate and back-projection kernels 128 registers, 12 B spilled; the
+// weight-gradient pass 127, none.
 // Rounding points are the plain versions': the LayerNorm statistics in f32
-// (fast variance), s and t cast to bf16, f32 accumulation with the bias
-// added in f32, the gates and the mask applied in f32 and the output cast
-// once; dpre and du cast to bf16 before the back-projection and the weight
+// (fast variance), s and t cast to T, f32 accumulation with the bias added
+// in f32, the gates and the mask applied in f32 and the output cast once;
+// dpre and du cast to T before the back-projection and the weight
 // gradients, dsrc in f32, column sums in f32, every gradient cast once at
-// the end.  Only the order of the sums differs.
+// the end.  Only the order of the sums differs (and, in float32, the
+// products' 3xTF32 split).
 
 constexpr int kWideBM = 128;               // rows of a GEMM tile and of a column-sum tile
-constexpr int kWideBK = 32;                // depth of a ring stage
-constexpr int kWideLdk = kWideBK + 8;      // row stride of k-contiguous stage tiles (80 bytes)
 constexpr int kWideGateN = 64;             // columns of each of a gate tile's two products
-constexpr int kWideLdn = kWideGateN + 8;   // row stride of the gate's (k, n) weight tiles (144 bytes)
+constexpr int kWideLdn = kWideGateN + 8;   // row stride of the gate's (k, n) weight tiles, in elements
 constexpr int kWideBackN = 128;            // columns of a back-projection tile
 constexpr int kWideThreads = 256;
 constexpr int kWideLnRows = 8;             // rows a block of wide_ln_kernel at a time (one a warp)
@@ -2225,15 +2069,19 @@ constexpr int kWideLnRows = 8;             // rows a block of wide_ln_kernel at 
 __host__ __device__ constexpr int wide_gate_stages(int na) { return na == 1 ? 4 : 3; }
 constexpr int kWideBackStages = 4;
 
-// One ring stage of the core: NA row tiles A (BM x BK, k contiguous; the
-// gate's second product may read its own) and its B tiles: the gate's two
-// (BK x 64 each, n contiguous) or the back-projection's one (128 rows of W
-// x BK, k contiguous).
-template <bool kNK, int NA>
+// One ring stage of the core in T: NA row tiles A (BM x BK, k contiguous;
+// the gate's second product may read its own) and its B tiles: the gate's
+// two (BK x 64 each, n contiguous) or the back-projection's one (128 rows
+// of W x BK, k contiguous).  BK is 64 bytes of a row (bf16 32, float32 16),
+// the k-contiguous stride 80 bytes, so both types take the same bytes.
+template <typename T, bool kNK, int NA>
 struct WideStage {
-  static constexpr int NH = kNK ? 1 : 2;  // products an output tile holds
-  static constexpr int A_ELEMS = kWideBM * kWideLdk;
-  static constexpr int B_ELEMS = kNK ? kWideBackN * kWideLdk : kWideBK * kWideLdn;
+  static constexpr int E = 16 / (int)sizeof(T);  // elements a 16-byte piece
+  static constexpr int BK = 4 * E;               // depth of a stage
+  static constexpr int LDK = BK + E;             // row stride of k-contiguous tiles
+  static constexpr int NH = kNK ? 1 : 2;         // products an output tile holds
+  static constexpr int A_ELEMS = kWideBM * LDK;
+  static constexpr int B_ELEMS = kNK ? kWideBackN * LDK : BK * kWideLdn;
   static constexpr int ELEMS = NA * A_ELEMS + NH * B_ELEMS;
 };
 
@@ -2257,21 +2105,21 @@ struct WideAcc {
   }
 };
 
-// The products of one landed stage (two k16 steps) into the warp's
+// The products of one landed bf16 stage (two k16 steps) into the warp's
 // accumulators.
 template <bool kNK, int NA>
 __device__ __forceinline__ void wide_stage_mma(const bf16* stage, WideAcc<kNK>& acc) {
-  using S = WideStage<kNK, NA>;
+  using S = WideStage<bf16, kNK, NA>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp >> 2, wn = warp & 3;
   const bf16* B0 = stage + NA * S::A_ELEMS;
 #pragma unroll
-  for (int kk = 0; kk < kWideBK / 16; ++kk) {
+  for (int kk = 0; kk < S::BK / 16; ++kk) {
     uint32_t b[2][4];
     if constexpr (kNK) {
       // rows n of W (this warp's 32 columns, 16 at a time), k contiguous
 #pragma unroll
       for (int q = 0; q < 2; ++q)
-        ldsm_x4(b[q], B0 + (32 * wn + 16 * q + (lane >> 4) * 8 + (lane & 7)) * kWideLdk + 16 * kk +
+        ldsm_x4(b[q], B0 + (32 * wn + 16 * q + (lane >> 4) * 8 + (lane & 7)) * S::LDK + 16 * kk +
                           ((lane >> 3) & 1) * 8);
     } else {
       // rows k of each product's weight tile, n contiguous: this warp's 16 columns
@@ -2283,7 +2131,7 @@ __device__ __forceinline__ void wide_stage_mma(const bf16* stage, WideAcc<kNK>& 
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int aoff = (64 * wm + 16 * i + (lane & 15)) * kWideLdk + 16 * kk + (lane >> 4) * 8;
+      const int aoff = (64 * wm + 16 * i + (lane & 15)) * S::LDK + 16 * kk + (lane >> 4) * 8;
       uint32_t a[4];
       ldsm_x4(a, stage + aoff);
       if constexpr (kNK) {
@@ -2303,16 +2151,84 @@ __device__ __forceinline__ void wide_stage_mma(const bf16* stage, WideAcc<kNK>& 
   }
 }
 
+// The tf32 A fragment (big, small) of a 16 x 8 float32 tile by one ldmatrix
+// of 32-bit words: matrix q holds rows 8 (q & 1).., columns 4 (q >> 1).., and
+// lane (g, t) receives row g, column t of each, the m16n8k8 A layout (a0
+// (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)).  p is this lane's
+// row address: row (lane & 15), column 4 (lane >> 4).
+__device__ __forceinline__ void wide_tf32_a(const float* p, uint32_t (&big)[4], uint32_t (&small)[4]) {
+  uint32_t r[4];
+  ldsm_x4(r, p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_alu(__uint_as_float(r[e]), big[e], small[e]);
+}
+
+// The same for a landed float32 stage: two k8 steps, 3xTF32.  B fragments
+// (big b0, b1, small b0, b1) of n8 tile j: the back-projection's by
+// ldmatrix of W's rows (b0 = W[n0 + g][k0 + t], b1 = W[n0 + g][k0 + t + 4]),
+// the gate's by hand (b0 = W[k0 + t][n0 + g], b1 = W[k0 + t + 4][n0 + g];
+// t kWideLdn + g covers the 32 banks).
+template <bool kNK, int NA>
+__device__ __forceinline__ void wide_stage_mma(const float* stage, WideAcc<kNK>& acc) {
+  using S = WideStage<float, kNK, NA>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const float* B0 = stage + NA * S::A_ELEMS;
+  // one k8 step at a time: the B fragments of one step live, at 128
+  // registers (unrolled, the back-projection spilled 216 B)
+#pragma unroll 1
+  for (int kk = 0; kk < S::BK / 8; ++kk) {
+    uint32_t b[4][4];  // n8 tiles: back-projection j; gate 2 h + j
+    if constexpr (kNK) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t r[4];
+        ldsm_x4(r, B0 + (32 * wn + 16 * q + (lane >> 4) * 8 + (lane & 7)) * S::LDK + 8 * kk +
+                       ((lane >> 3) & 1) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32_alu(__uint_as_float(r[e]), b[2 * q + (e >> 1)][e & 1],
+                         b[2 * q + (e >> 1)][2 + (e & 1)]);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float* w = B0 + h * S::B_ELEMS + (8 * kk + t) * kWideLdn + 16 * wn + 8 * j + g;
+          split_tf32_alu(w[0], b[2 * h + j][0], b[2 * h + j][2]);
+          split_tf32_alu(w[4 * kWideLdn], b[2 * h + j][1], b[2 * h + j][3]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int aoff = (64 * wm + 16 * i + (lane & 15)) * S::LDK + 8 * kk + (lane >> 4) * 4;
+      uint32_t ab[4], as[4];
+      wide_tf32_a(stage + aoff, ab, as);
+      if constexpr (kNK) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wide_3xtf32(acc.c[0][i][j], ab, as, b[j]);
+      } else {
+        wide_3xtf32(acc.c[0][i][0], ab, as, b[0]);
+        wide_3xtf32(acc.c[0][i][1], ab, as, b[1]);
+        if constexpr (NA == 2) wide_tf32_a(stage + S::A_ELEMS + aoff, ab, as);
+        wide_3xtf32(acc.c[1][i][0], ab, as, b[2]);
+        wide_3xtf32(acc.c[1][i][1], ab, as, b[3]);
+      }
+    }
+  }
+}
+
 // The GEMM core: a persistent walk over ntiles output tiles, each nk
 // k-steps deep, through a ring of STAGES stages (one cp.async group a
 // step).  load(stage, tile, ks) issues the copies of k-step ks of `tile`
 // into `stage` (no commit); epilogue(tile, acc) consumes a tile's
 // accumulators.  The next tile's first STAGES - 1 stages are in flight
 // while the epilogue runs.
-template <bool kNK, int NA, int STAGES, typename Load, typename Epilogue>
-__device__ __forceinline__ void wide_mainloop(bf16* ring, int64_t ntiles, int nk, Load&& load,
+template <bool kNK, int NA, int STAGES, typename T, typename Load, typename Epilogue>
+__device__ __forceinline__ void wide_mainloop(T* ring, int64_t ntiles, int nk, Load&& load,
                                               Epilogue&& epilogue) {
-  using S = WideStage<kNK, NA>;
+  using S = WideStage<T, kNK, NA>;
   auto prologue = [&](int64_t tile) {
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
@@ -2340,36 +2256,39 @@ __device__ __forceinline__ void wide_mainloop(bf16* ring, int64_t ntiles, int nk
   cp_async_wait_all();
 }
 
-// 16-byte piece e of a tile of 8 * pieces columns: row r0 + e / pieces of a
-// row-major source of stride ld, from column c0, into dst (stride ldd);
+// 16-byte piece e of a tile of `pieces` pieces a row: row r0 + e / pieces of
+// a row-major source of stride ld, from column c0, into dst (stride ldd);
 // pieces of rows at or past rend or of columns at or past cend (a multiple
-// of 8) are zero-filled (and not read).
-__device__ __forceinline__ void wide_copy(bf16* dst, int ldd, const bf16* __restrict__ src,
-                                          int64_t ld, int64_t r0, int64_t rend, int c0, int cend,
-                                          int pieces, int e) {
-  const int r = e / pieces, c = (e % pieces) * 8;
+// of the piece) are zero-filled (and not read).
+template <typename T>
+__device__ __forceinline__ void wide_copy(T* dst, int ldd, const T* __restrict__ src, int64_t ld,
+                                          int64_t r0, int64_t rend, int c0, int cend, int pieces,
+                                          int e) {
+  const int r = e / pieces, c = (e % pieces) * (16 / (int)sizeof(T));
   const bool valid = r0 + r < rend && c0 + c < cend;
   cp_async16_zfill(dst + r * ldd + c, valid ? src + (r0 + r) * ld + c0 + c : src, valid);
 }
 
-// Step 1: the LayerNorm of job blockIdx.y's rows into a bf16 plane, and each
-// row's mean and 1/sigma: one warp a row, the row read in bf16 pairs.
+// Step 1: the LayerNorm of job blockIdx.y's rows into a plane in T, and each
+// row's mean and 1/sigma: one warp a row, the row read in pairs.
+template <typename T>
 struct WideLnArgs {
-  const bf16* src[2];
-  const bf16* sc[2];
-  const bf16* bi[2];
-  bf16* s[2];
+  const T* src[2];
+  const T* sc[2];
+  const T* bi[2];
+  T* s[2];
   float* mu[2];
   float* inv[2];
 };
 
-__global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs a, int N, int C) {
+template <typename T>
+__global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs<T> a, int N, int C) {
   const int job = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bf16* __restrict__ sc = a.sc[job];
-  const bf16* __restrict__ bi = a.bi[job];
+  const T* __restrict__ sc = a.sc[job];
+  const T* __restrict__ bi = a.bi[job];
   for (int64_t row = (int64_t)blockIdx.x * kWideLnRows + warp; row < N;
        row += (int64_t)gridDim.x * kWideLnRows) {
-    const bf16* x = a.src[job] + row * C;
+    const T* x = a.src[job] + row * C;
     float sum = 0.0f, sq = 0.0f;
     for (int c = 2 * lane; c < C; c += 64) {
       float v0, v1;
@@ -2379,7 +2298,7 @@ __global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs a,
     }
     const float mu = warp_sum(sum) / C;
     const float inv = rsqrtf(warp_sum(sq) / C - mu * mu + kEps);
-    bf16* s = a.s[job] + row * C;
+    T* s = a.s[job] + row * C;
     for (int c = 2 * lane; c < C; c += 64) {
       float v0, v1, s0, s1, b0, b1;
       load_pair(x + c, v0, v1);
@@ -2402,51 +2321,52 @@ __global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs a,
 // mask; K6's out, m = 1).  Backward, with the point's cotangent ct (times
 // the mask in K5): d[h][0] = ct pj sg (1 - sg) (dag, dbg; K7's dpre), d[h][1]
 // = ct sg (dap, dbp; K7's du), and the tile's column sums of both.
+template <typename T>
 struct WideGateArgs {
-  const bf16* a[2];        // the row operands of the two products (s, s or s, t)
-  const bf16* w[2][2];     // [job][product] weights (C, C), stored (in, out)
-  const bf16* bias[2][2];  // [job][product]
-  const bf16* ct[2];       // backward: [job] cotangent rows (N, C)
-  const bf16* mask;        // K4, K5: (N,); K6, K7: none
-  bf16* d[2][2];           // [job][product] the cast gradients, (N, C) planes; forward: [job][0] the output
-  int vidx[2][2];          // backward: [job][product] slot of their column sums among the six vectors
-  float* vpart;            // backward: (row tiles, 6, C) column sums
+  const T* a[2];        // the row operands of the two products (s, s or s, t)
+  const T* w[2][2];     // [job][product] weights (C, C), stored (in, out)
+  const T* bias[2][2];  // [job][product]
+  const T* ct[2];       // backward: [job] cotangent rows (N, C)
+  const T* mask;        // K4, K5: (N,); K6, K7: none
+  T* d[2][2];           // [job][product] the cast gradients, (N, C) planes; forward: [job][0] the output
+  int vidx[2][2];       // backward: [job][product] slot of their column sums among the six vectors
+  float* vpart;         // backward: (row tiles, 6, C) column sums
   int njobs;
 };
 
 // the ring, and the backward's column sums of the warps
-template <int NA, bool kFwd>
+template <typename T, int NA, bool kFwd>
 __host__ __device__ constexpr size_t wide_gate_smem() {
-  return sizeof(bf16) * wide_gate_stages(NA) * WideStage<false, NA>::ELEMS +
+  return sizeof(T) * wide_gate_stages(NA) * WideStage<T, false, NA>::ELEMS +
          (kFwd ? 0 : sizeof(float) * 4 * kWideGateN);
 }
 
-template <int NA, bool kFwd>
-__global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs a, int N, int C) {
-  using S = WideStage<false, NA>;
+template <typename T, int NA, bool kFwd>
+__global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs<T> a, int N, int C) {
+  using S = WideStage<T, false, NA>;
   constexpr int STAGES = wide_gate_stages(NA);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  const int nct = (C + kWideGateN - 1) / kWideGateN, nk = (C + kWideBK - 1) / kWideBK;
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int nct = (C + kWideGateN - 1) / kWideGateN, nk = (C + S::BK - 1) / S::BK;
   const int64_t rtiles = ((int64_t)N + kWideBM - 1) / kWideBM;
   const int64_t ntiles = rtiles * a.njobs * nct;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   // tiles: the column tile fastest, then the job, then the row tile
-  auto load = [&](bf16* stage, int64_t tile, int ks) {
+  auto load = [&](T* stage, int64_t tile, int ks) {
     const int nt = (int)(tile % nct), job = (int)((tile / nct) % a.njobs);
     const int64_t r0 = tile / ((int64_t)nct * a.njobs) * kWideBM;
-    const int k0 = ks * kWideBK;
+    const int k0 = ks * S::BK;
 #pragma unroll
     for (int q = 0; q < NA; ++q)
 #pragma unroll
-      for (int e = tid; e < kWideBM * kWideBK / 8; e += kWideThreads)
-        wide_copy(stage + q * S::A_ELEMS, kWideLdk, a.a[q], C, r0, N, k0, C, kWideBK / 8, e);
+      for (int e = tid; e < kWideBM * S::BK / S::E; e += kWideThreads)
+        wide_copy(stage + q * S::A_ELEMS, S::LDK, a.a[q], C, r0, N, k0, C, S::BK / S::E, e);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      for (int e = tid; e < kWideBK * kWideGateN / 8; e += kWideThreads)
+      for (int e = tid; e < S::BK * kWideGateN / S::E; e += kWideThreads)
         wide_copy(stage + NA * S::A_ELEMS + h * S::B_ELEMS, kWideLdn, a.w[job][h], C, k0, C,
-                  nt * kWideGateN, C, kWideGateN / 8, e);
+                  nt * kWideGateN, C, kWideGateN / S::E, e);
   };
   auto epilogue = [&](int64_t tile, const WideAcc<false>& acc) {
     const int nt = (int)(tile % nct), job = (int)((tile / nct) % a.njobs);
@@ -2461,7 +2381,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
         load_pair(a.bias[job][0] + n0 + 8 * j + 2 * t, bg[j][0], bg[j][1]);
         load_pair(a.bias[job][1] + n0 + 8 * j + 2 * t, bp[j][0], bp[j][1]);
       }
-      bf16* out = a.d[job][0];
+      T* out = a.d[job][0];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -2481,9 +2401,9 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
         }
     } else {  // the gate backward
       const bool live = n0 < C;
-      const bf16* bg = a.bias[job][0] + n0;
-      const bf16* bp = a.bias[job][1] + n0;
-      const bf16* ct = a.ct[job];
+      const T* bg = a.bias[job][0] + n0;
+      const T* bp = a.bias[job][1] + n0;
+      const T* ct = a.ct[job];
       float sums[2][2][2] = {};  // [product][j][e]: this lane's rows, summed
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -2516,7 +2436,7 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
         }
       // the tile's column sums: the warp's 64 rows by shuffles, then the two
       // row halves (wm) in order, through the warps' sums [wm][product][64]
-      float* csum = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * STAGES * S::ELEMS);
+      float* csum = reinterpret_cast<float*>(smem_raw + sizeof(T) * STAGES * S::ELEMS);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -2539,32 +2459,37 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
 
 // Step 3: dsrc (N, C, f32) = sum over k < nmat of a_k @ w_k^T, depth nmat C;
 // k-step ks reads plane ks / (C / BK) of a and the same columns of w's rows.
+template <typename T>
 struct WideBackArgs {
-  const bf16* a[4];  // cast cotangent planes (N, C)
-  const bf16* w[4];  // weights (C, C), stored (in, out): row n of w is column n of w^T
+  const T* a[4];  // cast cotangent planes (N, C)
+  const T* w[4];  // weights (C, C), stored (in, out): row n of w is column n of w^T
   int nmat;
-  float* dsrc;       // (N, C)
+  float* dsrc;    // (N, C)
 };
 
-constexpr size_t kWideBackSmem = sizeof(bf16) * kWideBackStages * WideStage<true, 1>::ELEMS;
+template <typename T>
+__host__ __device__ constexpr size_t wide_back_smem() {
+  return sizeof(T) * kWideBackStages * WideStage<T, true, 1>::ELEMS;
+}
 
-__global__ void __launch_bounds__(kWideThreads, 2) wide_back_kernel(WideBackArgs a, int N, int C) {
-  using S = WideStage<true, 1>;
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 2) wide_back_kernel(WideBackArgs<T> a, int N, int C) {
+  using S = WideStage<T, true, 1>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-  const int nct = (C + kWideBackN - 1) / kWideBackN, kper = (C + kWideBK - 1) / kWideBK;
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int nct = (C + kWideBackN - 1) / kWideBackN, kper = (C + S::BK - 1) / S::BK;
   const int nk = a.nmat * kper;
   const int64_t ntiles = ((int64_t)N + kWideBM - 1) / kWideBM * nct;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, t = lane & 3;
-  auto load = [&](bf16* stage, int64_t tile, int ks) {
-    const int nt = (int)(tile % nct), k = ks / kper, k0 = (ks % kper) * kWideBK;
+  auto load = [&](T* stage, int64_t tile, int ks) {
+    const int nt = (int)(tile % nct), k = ks / kper, k0 = (ks % kper) * S::BK;
     const int64_t r0 = tile / nct * kWideBM;
-    for (int e = tid; e < kWideBM * kWideBK / 8; e += kWideThreads)
-      wide_copy(stage, kWideLdk, a.a[k], C, r0, N, k0, C, kWideBK / 8, e);
-    for (int e = tid; e < kWideBackN * kWideBK / 8; e += kWideThreads)
-      wide_copy(stage + S::A_ELEMS, kWideLdk, a.w[k], C, (int64_t)nt * kWideBackN, C, k0, C,
-                kWideBK / 8, e);
+    for (int e = tid; e < kWideBM * S::BK / S::E; e += kWideThreads)
+      wide_copy(stage, S::LDK, a.a[k], C, r0, N, k0, C, S::BK / S::E, e);
+    for (int e = tid; e < kWideBackN * S::BK / S::E; e += kWideThreads)
+      wide_copy(stage + S::A_ELEMS, S::LDK, a.w[k], C, (int64_t)nt * kWideBackN, C, k0, C,
+                S::BK / S::E, e);
   };
   auto epilogue = [&](int64_t tile, const WideAcc<true>& acc) {
     const int n0 = (int)(tile % nct) * kWideBackN + 32 * wn;
@@ -2591,18 +2516,20 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_back_kernel(WideBackArgs
 // for the two row means; then each thread owns column pairs and walks the
 // tile's rows in order for dx and the tile's column sums of dsrc * xhat and
 // dsrc (slots va, vb of the vector partials).
+template <typename T>
 struct WideLnBwdArgs {
   const float* dsrc;
-  const bf16* x;
+  const T* x;
   const float* mu;
   const float* inv;
-  const bf16* sc;
-  bf16* dx;
+  const T* sc;
+  T* dx;
   float* vpart;
   int va, vb;
 };
 
-__global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs a, int N, int C) {
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs<T> a, int N, int C) {
   __shared__ float rmu[kWideBM], rinv[kWideBM], rm1[kWideBM], rm2[kWideBM];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t tile = blockIdx.x, r0 = tile * kWideBM;
@@ -2694,29 +2621,20 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   p.lds = C + kPadT;
   p.ldw = p.TNK + kPadT;
   p.ldf = p.TNK + kPadF;
-  p.ldc = C + kPadF;
   p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
   p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
   // bf16: resident where its weights fit (C <= 128), else wide, never
-  // streamed; float32: resident at C <= 64, else streamed
-  const bool wide = sizeof(T) == 2 && !p.resident;
+  // streamed; float32: resident at C <= 64, else wide (K5, K7) or streamed
+  // (K4, K6)
+  const bool wide = !p.resident && (sizeof(T) == 2 || is_bwd(kind));
   h.route = p.resident ? kRouteResident : (wide ? kRouteWide : kRouteStreamed);
-  int TR = 0;
-  // A backward rows pass whose dpre tiles do not fit beside the rest (float32
-  // C = 1024: four 16 x C tiles are 257 KiB) reads them back from the global
-  // dpre it writes anyway, through L2: each block reads only rows it wrote,
-  // after a barrier.  The last tile's rows past N read whatever follows them
-  // (the next dpre plane, or the wrappers' padding of 64 rows after the last,
-  // ops/tri_mul.py _DPRE_TAIL); those rows of dsrc are never used.
-  for (p.d_global = 0; h.route == kRouteStreamed && p.d_global <= (is_bwd(kind) ? 1 : 0); ++p.d_global) {
-    for (TR = 32; TR >= 16; TR /= 2) {
-      p.TR = TR;
+  if (h.route == kRouteStreamed) {
+    for (p.TR = 32; p.TR >= 16; p.TR /= 2) {
       p.smem = rows_smem<T>(p, kind);
       if (p.smem <= kSmemLimit) break;
     }
-    if (TR >= 16) break;
+    if (p.TR < 16) return kErrUnsupportedC;
   }
-  if (h.route == kRouteStreamed && TR < 16) return kErrUnsupportedC;
   cudaError_t err = cudaDeviceGetAttribute(&h.nsm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int nsm = h.nsm;
@@ -2729,14 +2647,19 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   }
   if (is_bwd(kind)) {
     p.njobs = n_dpre(kind);
-    int units = 8;  // the output tile, in 16s: the largest divisor of C / 16 up to 8
+    // the output tile, in 16s: the largest divisor of C / 16 up to 8.  The
+    // resident route (C <= 128) recomputes s and takes all of C x C as one
+    // tile; the wide route reads its tiles' columns of the s plane
+    int units = 8;
     while ((C / 16) % units) --units;
     p.wg_tile = 16 * units;
     const int per = C / p.wg_tile;
     p.tiles = per * per;
+    // the wide float32 pass runs two blocks an SM (wgrad_kernel<float, true>)
+    const size_t wg_limit = wide && sizeof(T) == 4 ? kSmemLimit / 2 - 1024 : kSmemLimit;
     for (p.wg_rows = kWgRows; p.wg_rows >= 16; p.wg_rows /= 2) {
       p.wg_smem = WgradSmem<T>::carve(0, p, wide, nullptr);
-      if (p.wg_smem <= kSmemLimit) break;
+      if (p.wg_smem <= wg_limit) break;
     }
     if (p.wg_rows < 16) return kErrUnsupportedC;
     const int max_chunks = (N + p.wg_rows - 1) / p.wg_rows;
@@ -2748,12 +2671,10 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
       p.chunk_rows = (rows + p.wg_rows - 1) / p.wg_rows * p.wg_rows;
       p.chunks = (N + p.chunk_rows - 1) / p.chunk_rows;
     }
-    if (h.route != kRouteWide) {
-      const int vgrid = p.resident ? p.res_grid : p.grid;  // blocks that write vector partials
-      p.work_floats = (long long)vgrid * 6 * C + (long long)p.chunks * p.njobs * C * C;
-    }
+    if (p.resident)  // the resident rows pass's blocks write vector partials
+      p.work_floats = (long long)p.res_grid * 6 * C + (long long)p.chunks * p.njobs * C * C;
   }
-  if (h.route == kRouteWide) {  // the forward takes the statistics and the planes alone
+  if (wide) {  // the forward takes the statistics and the planes alone
     h.rtiles = (N + kWideBM - 1) / kWideBM;
     long long off = 0;
     auto take = [&](long long floats) {  // 128-byte aligned regions
@@ -2767,7 +2688,7 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
     }
     h.off_stats = take(2LL * n_ln(kind) * N);
     if (is_bwd(kind)) h.off_dsrc = take((long long)N * C);
-    h.off_s = take((long long)n_ln(kind) * N * C / 2);
+    h.off_s = take((long long)n_ln(kind) * N * C * (long long)sizeof(T) / 4);
     p.work_floats = off;
   }
   *out = p;
@@ -2775,31 +2696,33 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   return 0;
 }
 
-template <int NA, bool kFwd>
-int launch_wide_gate(const WideGateArgs& ga, int grid, int N, int C, cudaStream_t st) {
-  constexpr size_t smem = wide_gate_smem<NA, kFwd>();
-  const cudaError_t err = set_smem(wide_gate_kernel<NA, kFwd>, smem);
+template <typename T, int NA, bool kFwd>
+int launch_wide_gate(const WideGateArgs<T>& ga, int grid, int N, int C, cudaStream_t st) {
+  constexpr size_t smem = wide_gate_smem<T, NA, kFwd>();
+  const cudaError_t err = set_smem(wide_gate_kernel<T, NA, kFwd>, smem);
   if (err != cudaSuccess) return (int)err;
-  wide_gate_kernel<NA, kFwd><<<grid, kWideThreads, smem, st>>>(ga, N, C);
+  wide_gate_kernel<T, NA, kFwd><<<grid, kWideThreads, smem, st>>>(ga, N, C);
   return (int)cudaGetLastError();
 }
 
 // The wide route's chain (the note above wide_ln_kernel) on stream st, its
 // scratch carved from the workspace as make_plan laid it out: steps 1 and 2
-// for the forward (K4, K6), 1-6 for the backward (K5, K7; dvec and dmat are
-// the backward's).
-int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a, bf16* dvec,
-             bf16* dmat, float* work, cudaStream_t st) {
+// for the forward (K4, K6; bf16), 1-6 for the backward (K5, K7; dvec and
+// dmat are the backward's).
+template <typename T>
+int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T* dvec, T* dmat,
+             float* work, cudaStream_t st) {
   const int N = p.N, C = p.C, nln = n_ln(kind);
   const bool pro = kind <= kProBwd, bwd = is_bwd(kind);
+  if (sizeof(T) == 4 && !bwd) return kErrBadArgs;  // make_plan gives float32 K4, K6 no wide route
   float* vpart = work + h.off_vpart;
   float* wpart = work + h.off_wpart;
   float* stats = work + h.off_stats;
   float* dsrc = work + h.off_dsrc;
-  bf16* s = reinterpret_cast<bf16*>(work + h.off_s);
+  T* s = reinterpret_cast<T*>(work + h.off_s);
   cudaError_t err;
   // 1. s = LN(x) (and K6's and K7's t = LN2(p)), their statistics
-  WideLnArgs ln{};
+  WideLnArgs<T> ln{};
   for (int j = 0; j < nln; ++j) {
     ln.src[j] = j ? a.aux : a.x;
     ln.sc[j] = a.vec[3 * j];
@@ -2810,11 +2733,11 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
   }
   const long long ln_need = ((long long)N + kWideLnRows - 1) / kWideLnRows;
   const int ln_grid = (int)(ln_need < 64LL * h.nsm ? ln_need : 64LL * h.nsm);
-  wide_ln_kernel<<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C);
+  wide_ln_kernel<T><<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 2. the gate products, then the gates (forward: a and b, or out) or the
   // gate backward (dpre planes, column sums)
-  WideGateArgs ga{};
+  WideGateArgs<T> ga{};
   ga.a[0] = s;
   ga.a[1] = s + (size_t)(nln - 1) * N * C;
   ga.mask = pro ? a.aux : nullptr;
@@ -2831,27 +2754,34 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
   }
   const long long gate_tiles = (long long)h.rtiles * ga.njobs * ((C + kWideGateN - 1) / kWideGateN);
   const int gate_grid = (int)(gate_tiles < 2LL * h.nsm ? gate_tiles : 2LL * h.nsm);
-  const int rc = pro ? (bwd ? launch_wide_gate<1, false>(ga, gate_grid, N, C, st)
-                            : launch_wide_gate<1, true>(ga, gate_grid, N, C, st))
-                     : (bwd ? launch_wide_gate<2, false>(ga, gate_grid, N, C, st)
-                            : launch_wide_gate<2, true>(ga, gate_grid, N, C, st));
+  int rc;
+  if constexpr (std::is_same<T, bf16>::value) {
+    rc = pro ? (bwd ? launch_wide_gate<T, 1, false>(ga, gate_grid, N, C, st)
+                    : launch_wide_gate<T, 1, true>(ga, gate_grid, N, C, st))
+             : (bwd ? launch_wide_gate<T, 2, false>(ga, gate_grid, N, C, st)
+                    : launch_wide_gate<T, 2, true>(ga, gate_grid, N, C, st));
+  } else {
+    rc = pro ? launch_wide_gate<T, 1, false>(ga, gate_grid, N, C, st)
+             : launch_wide_gate<T, 2, false>(ga, gate_grid, N, C, st);
+  }
   if (rc != 0 || !bwd) return rc;
   // 3, 4. dsrc = sum_k dpre_k @ W_k^T, then the LayerNorm backward (K7: LN1's,
   // then LN2's through the same dsrc plane)
   const long long back_tiles = (long long)h.rtiles * ((C + kWideBackN - 1) / kWideBackN);
   const int back_grid = (int)(back_tiles < 2LL * h.nsm ? back_tiles : 2LL * h.nsm);
-  if ((err = set_smem(wide_back_kernel, kWideBackSmem)) != cudaSuccess) return (int)err;
+  constexpr size_t back_smem = wide_back_smem<T>();
+  if ((err = set_smem(wide_back_kernel<T>, back_smem)) != cudaSuccess) return (int)err;
   for (int j = 0; j < nln; ++j) {
-    WideBackArgs ba{};
+    WideBackArgs<T> ba{};
     ba.nmat = pro ? 4 : 1;
     for (int k = 0; k < ba.nmat; ++k) {
       ba.a[k] = a.dpre + (size_t)(j + k) * N * C;
       ba.w[k] = a.mat[j + k];
     }
     ba.dsrc = dsrc;
-    wide_back_kernel<<<back_grid, kWideThreads, kWideBackSmem, st>>>(ba, N, C);
+    wide_back_kernel<T><<<back_grid, kWideThreads, back_smem, st>>>(ba, N, C);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    WideLnBwdArgs lb{};
+    WideLnBwdArgs<T> lb{};
     lb.dsrc = dsrc;
     lb.x = j ? a.aux : a.x;
     lb.mu = ln.mu[j];
@@ -2861,24 +2791,24 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<bf16>& a,
     lb.vpart = vpart;
     lb.va = 3 * j;
     lb.vb = 3 * j + 1;
-    wide_ln_bwd_kernel<<<h.rtiles, kWideThreads, 0, st>>>(lb, N, C);
+    wide_ln_bwd_kernel<T><<<h.rtiles, kWideThreads, 0, st>>>(lb, N, C);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 5. weight gradients from the LayerNorm planes
-  WgradArgs<bf16> g{};
+  WgradArgs<T> g{};
   for (int j = 0; j < p.njobs; ++j) {
     g.src[j] = (!pro && j == 1) ? s + (size_t)N * C : s;
     g.d[j] = a.dpre + (size_t)j * N * C;
   }
   g.part = wpart;
-  if ((err = set_smem(wgrad_kernel<bf16, true>, p.wg_smem)) != cudaSuccess) return (int)err;
-  wgrad_kernel<bf16, true><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
+  if ((err = set_smem(wgrad_kernel<T, true>, p.wg_smem)) != cudaSuccess) return (int)err;
+  wgrad_kernel<T, true><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 6. the row tiles' column sums, the chunks' weight gradients, in order
   const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
-  reduce_kernel<bf16><<<(int)((mv + 255) / 256), 256, 0, st>>>(vpart, h.rtiles, mv, dvec);
+  reduce_kernel<T><<<(int)((mv + 255) / 256), 256, 0, st>>>(vpart, h.rtiles, mv, dvec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<bf16><<<(int)((mm + 255) / 256), 256, 0, st>>>(wpart, p.chunks, mm, dmat);
+  reduce_kernel<T><<<(int)((mm + 255) / 256), 256, 0, st>>>(wpart, p.chunks, mm, dmat);
   return (int)cudaGetLastError();
 }
 
@@ -2918,7 +2848,7 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
       if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
       epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
     } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
-      return run_wide(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
+      return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
     } else {
       if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
       epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
@@ -2934,7 +2864,7 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
       if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
       prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
     } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
-      return run_wide(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
+      return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
     } else {
       if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
       prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
@@ -2958,27 +2888,14 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     const void* need[] = {a.x, a.aux, a.ct[0], a.mat[0], a.mat[1], a.out[0], a.out[1], a.dpre};
     if (!aligned16(need)) return kErrBadArgs;
   }
-  if (h.route == kRouteWide) {
-    if constexpr (std::is_same<T, bf16>::value) return run_wide(p, h, kind, a, dvec, dmat, work, st);
-    return kErrBadArgs;  // make_plan gives float32 no wide route
-  }
-  const int vgrid = p.resident ? p.res_grid : p.grid;  // blocks that wrote vector partials
-  if (p.resident && pro) {
+  if (h.route == kRouteWide) return run_wide<T>(p, h, kind, a, dvec, dmat, work, st);
+  // make_plan gives no backward a streamed route: resident here
+  if (pro) {
     if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
     prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-  } else if (p.resident) {
+  } else {
     if ((err = set_smem(epilogue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
     epilogue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-  } else if constexpr (std::is_same<T, float>::value) {  // the streamed backward passes are float32's
-    if (pro) {
-      if ((err = set_smem(prologue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-      prologue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    } else {
-      if ((err = set_smem(epilogue_bwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-      epilogue_bwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    }
-  } else {
-    return kErrBadArgs;  // make_plan gives bf16 backward no streamed route
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -2990,13 +2907,13 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     g.bi[j] = second ? a.vec[4] : a.vec[1];
     g.d[j] = a.dpre + (size_t)j * N * C;
   }
-  g.part = work + (size_t)vgrid * 6 * C;
+  g.part = work + (size_t)p.res_grid * 6 * C;
   if ((err = set_smem(wgrad_kernel<T, false>, p.wg_smem)) != cudaSuccess) return (int)err;
   wgrad_kernel<T, false><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
-  reduce_kernel<T><<<(int)((mv + 255) / 256), 256, 0, st>>>(work, vgrid, mv, dvec);
+  reduce_kernel<T><<<(int)((mv + 255) / 256), 256, 0, st>>>(work, p.res_grid, mv, dvec);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   reduce_kernel<T><<<(int)((mm + 255) / 256), 256, 0, st>>>(g.part, p.chunks, mm, dmat);
   return (int)cudaGetLastError();

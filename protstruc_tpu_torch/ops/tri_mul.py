@@ -54,7 +54,8 @@ _KIND = {"prologue_fwd": 0, "prologue_bwd": 1, "epilogue_fwd": 2, "epilogue_bwd"
 
 #: The rows passes of ``ps_tri_route``, by its code: weights resident in
 #: shared memory (bf16 C <= 128, float32 C <= 64), streamed through it
-#: (float32 C > 64), or the wide route's chain of GEMM kernels (bf16 C > 128).
+#: (float32 K4 and K6 at C > 64), or the wide route's chain of GEMM kernels
+#: (bf16 C > 128; float32 K5 and K7 at C > 64).
 ROUTES = ("resident", "streamed", "wide")
 
 #: The launches of ``LAUNCHES`` split by the route each took.
@@ -209,23 +210,30 @@ def _check(name, x, tensors, shapes):
             raise ValueError(f"{name}: argument {i} is not contiguous")
 
 
-def _rc_check(rc, what, x):
+def _rc_check(rc, what, C, dtype):
     if rc == _ERR_UNSUPPORTED_C:
-        raise ValueError(f"the tri_mul kernels do not support C={x.shape[1]} in {x.dtype} "
+        raise ValueError(f"the tri_mul kernels do not support C={C} in {dtype} "
                          "(C must be a multiple of 16 whose tiles fit in shared memory)")
     if rc != 0:
         raise RuntimeError(f"{what} failed with code {rc}")
 
 
-def _workspace(lib, name, x) -> torch.Tensor:
-    """The f32 scratch that kernel ``name`` needs for ``x``, on its device (a
-    forward needs some on the wide route alone)."""
-    N, C = x.shape
+def _workspace(name, x):
+    """The f32 scratch that kernel ``name`` needs for ``x``, on its device, or
+    None where it needs none (a forward off the wide route)."""
+    floats = _workspace_floats(name, x.dtype, *x.shape, x.device.index)
+    return torch.empty((floats,), dtype=torch.float32, device=x.device) if floats else None
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(name, dtype, N, C, device_index):
+    """``ps_tri_workspace``: a function of the kernel, the dtype, N, C and the
+    device (its SM count), so it is asked once for each."""
     out = ctypes.c_longlong(0)
-    rc = lib.ps_tri_workspace(x.device.index, _KIND[name], _DTYPES[x.dtype], N, C,
-                              ctypes.byref(out))
-    _rc_check(rc, "ps_tri_workspace", x)
-    return torch.empty((out.value,), dtype=torch.float32, device=x.device)
+    rc = load_library().ps_tri_workspace(device_index, _KIND[name], _DTYPES[dtype], N, C,
+                                         ctypes.byref(out))
+    _rc_check(rc, "ps_tri_workspace", C, dtype)
+    return out.value
 
 
 def route(name, x) -> str:
@@ -252,7 +260,7 @@ def _launch(name, fn, x, *args):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     rc = fn(x.device.index, _DTYPES[x.dtype], N, C, *ptrs, stream)
-    _rc_check(rc, f"tri_mul {name} kernel launch", x)
+    _rc_check(rc, f"tri_mul {name} kernel launch", C, x.dtype)
     if N:
         LAUNCHES[name] += 1
         ROUTE_LAUNCHES[name][route(name, x)] += 1
@@ -271,7 +279,7 @@ def _prologue_fwd_cuda(x, m, *w):
     _check("prologue_fwd", x, [x, m, *w], [(N, C), (N,)] + _weight_shapes(C, _PRO_W))
     x, w = _aligned16(x), [_aligned16(t) for t in w]
     lib = load_library()
-    ws = _workspace(lib, "prologue_fwd", x)
+    ws = _workspace("prologue_fwd", x)
     a, b = torch.empty_like(x), torch.empty_like(x)
     _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, x, m, *w, a, b, ws)
     return a, b
@@ -284,20 +292,6 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-#: rows of padding after the last dpre plane: a streamed backward rows pass
-#: that reads its dpre tiles back from global memory (float32 C = 1024)
-#: reads a whole last tile, up to 64 rows, past row N (csrc/tri_mul.cu
-#: make_plan); the wide route reads no row past N
-_DPRE_TAIL = 64
-
-
-def _dpre_buffer(planes, N, C, x):
-    """The backward's ``(planes, N, C)`` dpre, with ``_DPRE_TAIL`` rows of
-    padding after it."""
-    flat = torch.empty(((planes * N + _DPRE_TAIL) * C,), dtype=x.dtype, device=x.device)
-    return flat[:planes * N * C].view(planes, N, C)
-
-
 def _prologue_bwd_cuda(x, m, *rest):
     N, C = x.shape
     w, da, db = rest[:10], rest[10], rest[11]
@@ -306,11 +300,11 @@ def _prologue_bwd_cuda(x, m, *rest):
     x, da, db = _aligned16(x), _aligned16(da), _aligned16(db)
     w = [_aligned16(t) for t in w]
     lib = load_library()
-    ws = _workspace(lib, "prologue_bwd", x)
+    ws = _workspace("prologue_bwd", x)
     dx = torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((4, C, C), dtype=x.dtype, device=x.device)
-    dpre = _dpre_buffer(4, N, C, x)
+    dpre = torch.empty((4, N, C), dtype=x.dtype, device=x.device)
     _launch("prologue_bwd", lib.ps_tri_prologue_bwd, x, x, m, *w, da, db,
             dx, dvec, dmat, dpre, ws)
     return (dx, dvec[0], dvec[1], dmat[0], dvec[2], dmat[1], dvec[3],
@@ -322,7 +316,7 @@ def _epilogue_fwd_cuda(x, p, *w):
     _check("epilogue_fwd", x, [x, p, *w], [(N, C), (N, C)] + _weight_shapes(C, _EPI_W))
     x, p, w = _aligned16(x), _aligned16(p), [_aligned16(t) for t in w]
     lib = load_library()
-    ws = _workspace(lib, "epilogue_fwd", x)
+    ws = _workspace("epilogue_fwd", x)
     out = torch.empty_like(x)
     _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, x, p, *w, out, ws)
     return out
@@ -336,11 +330,11 @@ def _epilogue_bwd_cuda(x, p, *rest):
     x, p, do = _aligned16(x), _aligned16(p), _aligned16(do)
     w = [_aligned16(t) for t in w]
     lib = load_library()
-    ws = _workspace(lib, "epilogue_bwd", x)
+    ws = _workspace("epilogue_bwd", x)
     dx, dp = torch.empty_like(x), torch.empty_like(x)
     dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
     dmat = torch.zeros((2, C, C), dtype=x.dtype, device=x.device)
-    dpre = _dpre_buffer(2, N, C, x)
+    dpre = torch.empty((2, N, C), dtype=x.dtype, device=x.device)
     _launch("epilogue_bwd", lib.ps_tri_epilogue_bwd, x, x, p, *w, do,
             dx, dp, dvec, dmat, dpre, ws)
     return (dx, dp, dvec[0], dvec[1], dmat[0], dvec[2], dvec[3], dvec[4],
