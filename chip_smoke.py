@@ -31,9 +31,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    featurization at B=256, L=512 on the kernel path vs the plain path, as
    structures/s;
 7. triangle kernels: K4-K7 vs their plain versions on the card, f32 and
-   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (in f32 K5's
-   and K7's wide route and K4's and K6's streamed rows passes, in bf16 at
-   256 the wide route, the weight gradients in 128 x 128 tiles) on a ragged
+   bf16, C = 16, 64 (the FoldModel's pair width), 128 and 256 (in f32 the
+   wide route of all four, in bf16 at 256 the wide route, the weight
+   gradients in 128 x 128 tiles) on a ragged
    N = 2*37*37 with masked rows, and C = 128 on N =
    160*160 (more row tiles than blocks, so each block loops), every output
    and weight gradient; then the whole op (forward and backward, outgoing
@@ -57,9 +57,9 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
    version's under the budgets below, then under torch.profiler, its device
    time split by the kernels of the call (K5 and K7: rows pass, weight-gradient
    pass, reductions); then 9b, the same train step and K4-K7 in float32 (the
-   model's default dtype; K5 and K7 on the wide route, K4 and K6 streamed),
-   the step's K4-K7 launches counted by route, its losses within 1e-5
-   relative of unfused;
+   model's default dtype; all four on the wide route), the step's K4-K7
+   launches counted by route (K4 and K6 16 each, K5 and K7 8, all wide),
+   its losses within 1e-5 relative of unfused;
 10. K3 vs its plain version at B=2 and L = 1, 2, 31, 33, 37, 127, 129, 300,
     512, the degenerate probes and B=256, L=512 (``randn * 10``, numpy seed
     0), f32 and bf16 planes;
@@ -218,9 +218,10 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     profiled step's ``aten::bmm`` count (tri_dots 2 fewer a block) and
     K4-K7's launches by route, the counters reset just before the steps
     (fused: all four wide only); before the steps, float32 K4-K7 at C = 80,
-    144, 256 and 1024 on ragged N and on the step's pair rows (K5 and K7
-    wide, K4 and K6 streamed, read from the counters), and timed at the
-    step's rows, split by kernel; (f) TrFold with
+    144, 256 and 1024 on ragged N and on the step's pair rows (all four
+    wide, read from the counters), and timed at the step's rows beside
+    their plain versions and bounds, split by kernel (K4 and K6: the
+    LayerNorm planes, then the gate GEMM); (f) TrFold with
     4-expert MoE blocks at the ``[mfu-fused]`` width, f32, B=1, L=128, card
     against CPU from one init: loss, aux, every gradient leaf;
 22. model parallelism inside FoldModel: (a) ``fused_triangle_multiplication``
@@ -289,8 +290,9 @@ sharded model as ``model_parallel_launches``, K4-K7's launches by phase
 22's row-block calls alone as ``row_block_launches``, K2 phase 15, each probe site its phase 17 run, with its fastest
 variant and the write-only time; K1's rectangular mode and K8/K9's lse entry
 point as entries of their own, launches from phase 21 (d); K5's and K7's
-float32 wide route as entries of their own, launches from phase 9b's one
-counted step; every K4-K7 entry's float32 times at C = 128 and 1024),
+float32 wide route as entries of their own, K4's and K6's too, launches
+from phase 9b's one counted step; every K4-K7 entry's float32 times at C =
+128 and 1024),
 largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
@@ -352,10 +354,10 @@ runs phase 1, phase 9's train-step timing (fused_tri against unfused) and its
 K4-K7 timings alone (the four at C = 128 must take the resident route), then
 phase 21e's K4-K7 timings at ``[mfu-peak]``'s C = 1024 with each call
 split by kernel; then the same in float32: phase 9b's step and K4-K7 at C
-= 128, K4-K7 at C = 1024 (a streamed pass timed once a turn), K4-K7 at
-the FoldModel's N = 4*256*256, C = 64 (all four resident) and phase 13's
-FoldModel step, with the K4-K7 library's ptxas lines, and prints no
-result line.  Copied into the root of another checkout and run there, each
+= 128 and 1024 (all four wide; a parent tree's streamed pass timed once a
+turn), K4-K7 at the FoldModel's N = 4*256*256, C = 64 (all four resident)
+and phase 13's FoldModel step, with the K4-K7 library's ptxas lines, and
+prints no result line.  Copied into the root of another checkout and run there, each
 timing mode times that checkout's kernels (skipping what it lacks), so two
 commits can be set side by side on one card (parent, change, change,
 parent).
@@ -1155,22 +1157,20 @@ def f32_wide_tree(torch, dev, tri_mul):
     return all(tri_route(tri_mul, name, x) == "wide" for name in ("prologue_bwd", "epilogue_bwd"))
 
 
-def expected_tri_route(name, dtype, C):
+def expected_tri_route(dtype, C):
     """make_plan's route table (csrc/tri_mul.cu): resident at bf16 C <= 128 and
-    float32 C <= 64; above, bf16 wide, float32 K5 and K7 wide, float32 K4 and
-    K6 streamed."""
+    float32 C <= 64; wide above the resident widths, both dtypes, all four
+    kernels."""
     import torch
 
-    if C <= (128 if dtype == torch.bfloat16 else 64):
-        return "resident"
-    return "wide" if dtype == torch.bfloat16 or name.endswith("_bwd") else "streamed"
+    return "resident" if C <= (128 if dtype == torch.bfloat16 else 64) else "wide"
 
 
 def tri_timings(torch, dev, smi, tri_worst, dtype=None, C=128, L=None, phase=None):
     """Phase 9's K4-K7 at the train path's shape (N = 4*512*512, C = 128;
-    bf16: all four resident; phase 9b's float32: K5 and K7 wide, K4 and K6
-    streamed; ``--tri-timing`` also float32 at the FoldModel's N = 4*256*256,
-    C = 64, all four resident): each held against its plain version (its
+    bf16: all four resident; phase 9b's float32: all four wide;
+    ``--tri-timing`` also float32 at the FoldModel's N = 4*256*256, C = 64,
+    all four resident): each held against its plain version (its
     error folded into ``tri_worst``), timed by CUDA events
     (plain/kernel/kernel/plain), then under torch.profiler (device time a
     call, split by the kernels of the call: K5 and K7 are a rows pass or the
@@ -1214,9 +1214,11 @@ def f32_train_step(torch, np, dev, smi, tri_mul):
     """Phase 9b: the TrFold train step at ``[mfu-fused]``'s widths (bench.py:
     338-345) in float32, the model's default dtype: B=4, L=512, N =
     4*512*512 pair rows of C = 128.  One fused step from the seeded init
-    with every K4-K7 counter reset just before and read just after (K5 and
-    K7 must launch on the wide route, K4 and K6 on the streamed one, where
-    this checkout has the float32 wide route), then phase 9's timing in
+    with every K4-K7 counter reset just before and read just after (all four
+    must launch on the wide route alone, K4 and K6 four times a block, once
+    for each triangle update and again in its remat recomputation, K5 and K7
+    twice; a parent tree, timed against this one, whose counters have a
+    "streamed" route runs its K4 and K6 there), then phase 9's timing in
     float32: fused against unfused in turns, the losses within 1e-5
     relative, one profiled step of each.  Returns (launches by kernel and
     route, {fused: (ms/step, peak GiB, device busy ms)})."""
@@ -1229,10 +1231,13 @@ def f32_train_step(torch, np, dev, smi, tri_mul):
     routes = {k: {r: n for r, n in v.items() if n} for k, v in getattr(tri_mul, "ROUTE_LAUNCHES", {}).items()}
     check(all(n > 0 for n in tri_mul.LAUNCHES.values()), f"phase 9b f32 step: K4-K7 launches {tri_mul.LAUNCHES}")
     if f32_wide_tree(torch, dev, tri_mul):
+        streamed_fwd = "streamed" in getattr(tri_mul, "ROUTES", ())  # a parent tree's K4 and K6
         for name in TRI_KERNELS:
-            want = expected_tri_route(name, torch.float32, TRAIN_WIDTH["pair_dim"])
-            check(list(routes[name]) == [want], f"phase 9b f32 step: {name} launches by route {routes[name]}, "
-                                                f"not {want} only")
+            want = expected_tri_route(torch.float32, TRAIN_WIDTH["pair_dim"])
+            want = "streamed" if streamed_fwd and name.endswith("_fwd") else want
+            n = (4 if name.endswith("_fwd") else 2) * TRAIN_WIDTH["n_blocks"]
+            check(routes[name] == {want: n}, f"phase 9b f32 step: {name} launches by route {routes[name]}, "
+                                             f"not {n} on {want} only")
     say(f"phase 9b f32 [mfu-fused] step B=4 L={L_FULL} {TRAIN_WIDTH}: K4-K7 launches a step by route {routes}")
     timing = train_step_timing(torch, smi, models, feats, init, label="phase 9b", dtype="f32", loss_rtol=1e-5)
     del models, feats, init
@@ -3121,16 +3126,16 @@ def one_rank_group(torch, np, dev, smi, pair_maps, flash_attn):
 
 
 def tri_wide_timings(torch, dev, smi, tri_mul, dtype=None):
-    """K4-K7 at ``[mfu-peak]``'s pair rows (N = 2*256*256, C = 1024; bf16:
-    the wide route, a parent tree's K4 and K6 may take their streamed
-    passes; float32: K5 and K7 wide, a parent tree's streamed, K4 and K6
-    streamed) beside their plain versions and their bounds, each timed by
-    CUDA events over 2 calls after one warm-up, in the order plain, kernel,
-    kernel, plain (a float32 streamed pass, seconds a call, once: its
-    parity run is its warm-up); then calls of each under torch.profiler
-    (ten, a float32 streamed pass one), its device time split by the
-    kernels of its chain (LayerNorm, gate GEMM, and for K5 and K7
-    back-projection, LayerNorm backward, weight gradients, reductions),
+    """K4-K7 at ``[mfu-peak]``'s pair rows (N = 2*256*256, C = 1024; both
+    dtypes: all four on the wide route, where a parent tree, timed against
+    this one, may take its streamed passes) beside their plain versions and
+    their bounds, each timed by CUDA events over 2 calls after one warm-up,
+    in the order plain, kernel, kernel, plain (a parent's float32 streamed
+    pass, up to seconds a call, once: its parity run is its warm-up); then
+    calls of each under torch.profiler (ten, a float32 streamed pass one),
+    its device time split by the kernels of its chain (LayerNorm, gate GEMM,
+    and for K5 and K7 back-projection, LayerNorm backward, weight gradients,
+    reductions),
     kept only where its kernels add up to within 5 % of the CUDA-event time
     (after phase 21d's NCCL group the profiler has been seen to lose some or
     all of its kernel records).
@@ -3203,7 +3208,7 @@ def tri_wide_timings(torch, dev, smi, tri_mul, dtype=None):
 #: ragged against the 64-column gate tiles, the 128-column back-projection
 #: tiles and (144) the 32-deep k steps
 WIDE_CASES = ((256, 3, 10), (256, 2, 37), (1024, 1, 9), (1024, 2, 37), (144, 3, 10), (160, 2, 37))
-#: float32 (K5 and K7 wide, K4 and K6 streamed): C = 80 and 144 ragged
+#: float32 (all four wide): C = 80 and 144 ragged
 #: against the gate and back-projection tiles (a float32 stage is 16 deep:
 #: no multiple of 16 is ragged against it), 256, and 1024 on ragged rows and
 #: on [mfu-peak]'s N = 2*256*256
@@ -3225,8 +3230,8 @@ def wide_parity(torch, dev, tri_mul, f32=False):
     route counters must show each call on the kernel's ``wide_route`` (a
     tree before the wide route, timed against this one, has no route
     counters).  With ``f32``, float32 K4-K7 at WIDE_CASES_F32 too, the
-    counters showing K5 and K7 on the wide route and K4 and K6 on the
-    streamed one.  Returns the largest error of each kernel, and with
+    counters showing all four on the wide route.  Returns the largest error
+    of each kernel, and with
     ``f32`` also float32's."""
     worst = dict.fromkeys(TRI_KERNELS, 0.0)
     worst32 = dict.fromkeys(TRI_KERNELS, 0.0)
@@ -3237,7 +3242,7 @@ def wide_parity(torch, dev, tri_mul, f32=False):
         cases = tri_inputs(torch, dev, dtype, C, B=B, L=L)
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         for name in TRI_KERNELS:
-            want = wide_route(tri_mul, name) if tag == "bf16" else expected_tri_route(name, dtype, C)
+            want = wide_route(tri_mul, name) if tag == "bf16" else expected_tri_route(dtype, C)
             before = dict(routes[name]) if routes else {}
             err = tri_kernel_vs_plain(torch, tri_mul, name, cases[name], f"{tag} C={C} {want} route")
             if routes:
@@ -3275,7 +3280,7 @@ def mfu_peak(torch, np, dev, smi, tri_mul):
         tri_err, err32 = tri_err
         say(f"phase 21e parity K4-K7 f32 (C, N) = "
             f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES_F32)}, routes "
-            f"{ {name: expected_tri_route(name, torch.float32, 1024) for name in TRI_KERNELS} }: ok, "
+            f"{ {name: expected_tri_route(torch.float32, 1024) for name in TRI_KERNELS} }: ok, "
             f"max abs err {err32}")
     say(f"phase 21e parity K4-K7 bf16 (C, N) = "
         f"{', '.join(f'({C}, {B * L * L})' for C, B, L in WIDE_CASES)}, routes "
@@ -4365,7 +4370,7 @@ def main():
     torch.cuda.empty_cache()
     tri_ms, _ = tri_timings(torch, dev, smi, tri_worst)
 
-    # -- 9b. the same in float32: K5 and K7 on the wide route -------------------
+    # -- 9b. the same in float32: K4-K7 on the wide route ----------------------
     check(f32_wide_tree(torch, dev, tri_mul), "f32 K5 and K7 at C = 128 do not take the wide route")
     f32_routes, f32_step = f32_train_step(torch, np, dev, smi, tri_mul)
     tri32_worst = dict.fromkeys(TRI_KERNELS, 0.0)
@@ -4684,21 +4689,22 @@ def main():
                             device_ms_by_kernel=so["tri_split"][0][name] and dict(so["tri_split"][0][name]),
                             **({"device_ms_by_kernel_missing": so["tri_split"][1][name]}
                                if name in so["tri_split"][1] else {})))
-    # float32 at C = 128 (phase 9b: the [mfu-fused] step's rows; K5 and K7 on
-    # the wide route, K4 and K6 streamed) and C = 1024 (phase 21e), on each
-    # kernel's entry; K5 and K7 on the float32 wide route as entries of their
-    # own, launches from phase 9b's one counted step
+    # float32 at C = 128 (phase 9b: the [mfu-fused] step's rows; all four on
+    # the wide route) and C = 1024 (phase 21e), on each kernel's entry; K4-K7
+    # on the float32 wide route as entries of their own, launches from phase
+    # 9b's one counted step
     res32, split32, why32, err32 = so["wide32"]
     times = ("ms", "plain_ms", "bound_ms", "bound_by")
     for e in kernels:
         if e["name"].startswith("tri_mul_") and e["name"][len("tri_mul_"):] in TRI_KERNELS:
             name = e["name"][len("tri_mul_"):]
-            e["f32_c128"] = dict(zip(times, tri32_ms[name]), route=expected_tri_route(name, torch.float32, 128),
+            e["f32_c128"] = dict(zip(times, tri32_ms[name]), route=expected_tri_route(torch.float32, 128),
                                  err=tri32_worst[name], bound_count="3xTF32",
                                  shape="N=4*512*512 C=128, [mfu-fused]'s pair rows in float32")
             e["f32_c1024"] = dict(zip(times, res32[name]), err=err32[name], bound_count="3xTF32",
                                   shape="N=2*256*256 C=1024, [mfu-peak]'s pair rows in float32")
-    for name, label in (("prologue_bwd", "K5 f32 wide"), ("epilogue_bwd", "K7 f32 wide")):
+    for name, label in (("prologue_fwd", "K4 f32 wide"), ("prologue_bwd", "K5 f32 wide"),
+                        ("epilogue_fwd", "K6 f32 wide"), ("epilogue_bwd", "K7 f32 wide")):
         kernels.append(dict(entry(f"tri_mul_{name}_f32_wide", "tri_mul.cu", TRI_REPLACES[name],
                                   f32_routes[name].get("wide", 0), max(tri32_worst[name], err32[name]),
                                   *tri32_ms[name], None),

@@ -18,9 +18,7 @@
 // the wide route (K4-K7) and the weight-gradient pass (K5 and K7) use
 // mma.sync on the tensor cores: bf16 m16n8k16 with f32 accumulators,
 // float32 as 3xTF32 m16n8k8 (x = big + small, three TF32 products, small
-// terms first; helpers in mma.cuh, shared with flash_attn.cu).  The streamed
-// rows passes, float32 K4's and K6's alone, use FMA loops in full f32 (the
-// library is built with FMA contraction on).
+// terms first; helpers in mma.cuh, shared with flash_attn.cu).
 //
 // Which route each kernel takes, a function of kind, dtype and C alone
 // (make_plan; ps_tri_route reports it):
@@ -30,17 +28,13 @@
 //             K6 epilogue_fwd_resident_kernel   the same widths
 //             K7 epilogue_bwd_resident_kernel   the same widths
 //   wide      K4, K6: wide_ln_kernel, wide_gate_kernel<T, NA, true>
-//                                               bf16 C > 128
 //             K5, K7: wide_ln_kernel, wide_gate_kernel<T, NA, false>,
 //             wide_back_kernel, wide_ln_bwd_kernel
 //             (the note above wide_ln_kernel)   bf16 C > 128, float32 C > 64
 //                                               (C = 128 in the MoE blocks'
 //                                               pair rows, [mfu-fused]'s
 //                                               width in float32)
-//   streamed  K4, K6 prologue_fwd_kernel, epilogue_fwd_kernel
-//                                               float32 C > 64
-// bf16 has no streamed route, and no backward has one.  The backward routes
-// end in the weight-gradient pass and the reductions.
+// The backward routes end in the weight-gradient pass and the reductions.
 //
 // The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
 // grid min(tiles / warps, SMs)) copies its weights into shared memory once
@@ -88,18 +82,6 @@
 // each about a quarter).  The weight-gradient pass is bound by its
 // per-step ring.
 
-// The streamed rows passes (float32 K4 and K6, C > 64).  A block of 256
-// threads takes TR pair rows at a time (32, fewer where C is wide) and
-// keeps them in shared memory as the LayerNorm output s (TR x C, T).  The
-// (C, C) weights are streamed through shared memory in TNK x TNK chunks
-// (TNK = 64, 32 or 16, dividing C), so no weight has to fit whole.  Each TR
-// x TNK output chunk is staged in f32 in shared memory, where the gates,
-// masks and casts are applied and the result is written out with coalesced
-// stores.  Ragged rows past N are zeros in shared memory and are never
-// stored.  Restaging the weights for every row tile bounds them (PERF.md
-// has the times); the wide route takes every bf16 kernel at C > 128 and the
-// float32 backwards at C > 64 for that reason.
-//
 // The Pallas backwards sum weight gradients into one block that the
 // sequential TPU grid revisits.  Here blocks run in parallel, so:
 //  * bias and LayerNorm gradients: each persistent block (grid fixed by the
@@ -121,8 +103,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "device_scope.cuh"
 #include "mma.cuh"
 
@@ -134,14 +114,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kEps = 1e-6f;
 constexpr int kPadT = 8;     // row padding of T tiles, in elements
-constexpr int kPadF = 4;     // row padding of f32 tiles, in floats
 constexpr int kWgRows = 64;  // rows per step of the weight-gradient kernel, at most
 constexpr size_t kSmemLimit = 227 * 1024;
 constexpr int kErrUnsupportedC = -1;
 constexpr int kErrBadArgs = -2;
 
 // the rows passes a kernel takes (make_plan; ps_tri_route)
-enum Route { kRouteResident = 0, kRouteStreamed = 1, kRouteWide = 2 };
+enum Route { kRouteResident = 0, kRouteWide = 1 };
 
 enum Kind { kProFwd = 0, kProBwd = 1, kEpiFwd = 2, kEpiBwd = 3 };
 
@@ -160,63 +139,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// block tile accumulators of the streamed rows passes (float32): acc (TR x
-// TN, TR and TN multiples of 16, <= 64) += A (TR x K) @ B (K x TN), A(m, k)
-// = A[m*lda + k], B(k, n) = B[k*ldb + n].  All operands in shared memory.
-// ---------------------------------------------------------------------------
-
-template <typename T> struct TileAcc;
-
-// FMA loops.  Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and
-// columns tx + 16 j of the tile.
-template <> struct TileAcc<float> {
-  float acc[4][4];
-  int mi, nj;
-
-  __device__ void init(int tr, int tn) {
-    mi = tr / 16;
-    nj = tn / 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-
-  __device__ void mma(const float* A, int lda, const float* B, int ldb, int K) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = i < mi ? A[(ty + 16 * i) * lda + k] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = j < nj ? B[k * ldb + tx + 16 * j] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* S, int lds) const {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (i < mi && j < nj) S[(ty + 16 * i) * lds + tx + 16 * j] = acc[i][j];
-  }
-};
-
-// ---------------------------------------------------------------------------
 // launch plan and shared-memory layout (computed alike on host and device)
 // ---------------------------------------------------------------------------
 
 struct Plan {
-  int N, C, TR, TNK;
-  int lds, ldw, ldf;       // row strides: s tiles, weight chunks, f32 stages
-  int ntiles, grid;        // rows kernels: row tiles, persistent blocks
-  size_t smem;
+  int N, C;
+  int lds;                 // row stride of the resident weight-gradient pass's rows and s
   int njobs, tiles, chunks, chunk_rows, wg_tile, wg_rows;  // weight-gradient kernel
   size_t wg_smem;
   int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
@@ -232,7 +160,7 @@ struct Plan {
 // which the kernels take by value: a larger Plan changed the resident
 // passes' code and made them slower (PERF.md section 6).
 struct HostPlan {
-  int route;   // kRouteResident, kRouteStreamed or kRouteWide
+  int route;   // kRouteResident or kRouteWide
   int nsm;     // the device's SMs
   int rtiles;  // wide route: 128-row tiles
   long long off_vpart, off_wpart, off_stats, off_dsrc, off_s;
@@ -255,100 +183,6 @@ __host__ __device__ inline int n_dpre(int kind) {
 }
 __host__ __device__ inline bool is_bwd(int kind) { return kind == kProBwd || kind == kEpiBwd; }
 
-// Shared memory of the streamed rows kernels (K4, K6): the LayerNorm'd
-// tiles s[], two weight chunks, two f32 output stages and the mask.
-template <typename T>
-struct RowsSmem {
-  T* s[2];
-  T* w0;
-  T* w1;
-  float* st0;
-  float* st1;
-  float* mrow;
-
-  __host__ __device__ static size_t carve(uintptr_t base, const Plan& p, int kind, RowsSmem* out) {
-    Carver cv{base, 0};
-    RowsSmem r{};
-    for (int i = 0; i < n_ln(kind); ++i) r.s[i] = (T*)cv.take(sizeof(T) * p.TR * p.lds);
-    r.w0 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
-    r.w1 = (T*)cv.take(sizeof(T) * p.TNK * p.ldw);
-    const size_t st = ((sizeof(float) * p.TR * p.ldf + 127) / 128) * 128;
-    const uintptr_t u = cv.take(2 * st);
-    r.st0 = (float*)u;
-    r.st1 = (float*)(u + st);
-    r.mrow = (float*)cv.take(sizeof(float) * p.TR);
-    if (out) *out = r;
-    return cv.off;
-  }
-};
-
-// ---------------------------------------------------------------------------
-// row helpers
-// ---------------------------------------------------------------------------
-
-// LayerNorm rows [r0, r0 + TR) of src (., C) into dst (TR x lds, T): f32
-// statistics, fast variance, y = ((x - mu) * inv) * scale + bias cast to T.
-// Rows at or past rend are zeros.
-template <typename T>
-__device__ void ln_rows(const T* __restrict__ src, int64_t r0, int64_t rend, int TR, int C,
-                        const T* __restrict__ sc, const T* __restrict__ bi, T* dst, int lds) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < TR; r += kWarps) {
-    const int64_t row = r0 + r;
-    T* d = dst + (size_t)r * lds;
-    if (row >= rend) {
-      for (int c = lane; c < C; c += 32) d[c] = fromf<T>(0.0f);
-      continue;
-    }
-    const T* x = src + row * C;
-    float sum = 0.0f, sq = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = tof(x[c]);
-      sum += v;
-      sq += v * v;
-    }
-    const float mu = warp_sum(sum) / C;
-    const float var = warp_sum(sq) / C - mu * mu;
-    const float inv = rsqrtf(var + kEps);
-    for (int c = lane; c < C; c += 32) {
-      const float xh = (tof(x[c]) - mu) * inv;
-      d[c] = fromf<T>(xh * tof(sc[c]) + tof(bi[c]));
-    }
-  }
-}
-
-// A TNK x TNK chunk of a (C, C) row-major weight into dst[k][n] (stride ld):
-// rows k0.., columns n0.. of W.
-template <typename T>
-__device__ void load_w(const T* __restrict__ W, int C, int k0, int n0, int TNK, T* dst, int ld) {
-  for (int e = threadIdx.x; e < TNK * TNK; e += kThreads) {
-    const int k = e / TNK, n = e % TNK;
-    dst[k * ld + n] = W[(size_t)(k0 + k) * C + n0 + n];
-  }
-}
-
-// Both products of one TR x TNK output chunk, streaming the two weights'
-// k-chunks through shared memory: g = s0 @ Wg[:, n0:], q = s1 @ Wq[:, n0:],
-// staged to st0/st1 in f32.  Ends synchronised.
-template <typename T>
-__device__ void two_products(const Plan& p, const RowsSmem<T>& sm, const T* s0, const T* s1,
-                             const T* Wg, const T* Wq, int n0) {
-  TileAcc<T> g, q;
-  g.init(p.TR, p.TNK);
-  q.init(p.TR, p.TNK);
-  for (int k0 = 0; k0 < p.C; k0 += p.TNK) {
-    load_w(Wg, p.C, k0, n0, p.TNK, sm.w0, p.ldw);
-    load_w(Wq, p.C, k0, n0, p.TNK, sm.w1, p.ldw);
-    __syncthreads();
-    g.mma(s0 + k0, p.lds, sm.w0, p.ldw, p.TNK);
-    q.mma(s1 + k0, p.lds, sm.w1, p.ldw, p.TNK);
-    __syncthreads();
-  }
-  g.store(sm.st0, p.ldf);
-  q.store(sm.st1, p.ldf);
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
 // kernels
 // ---------------------------------------------------------------------------
@@ -368,38 +202,6 @@ struct RowArgs {
   T* dpre;          // backward: (n_dpre, N, C) cast dpre for the weight gradients
   float* vec_part;  // backward: (grid, 6, C) per-block column sums
 };
-
-// K4: a = sigmoid(s @ Wag + bag) * (s @ Wap + bap) * m, b likewise.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) prologue_fwd_kernel(RowArgs<T> a, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RowsSmem<T> sm;
-  RowsSmem<T>::carve((uintptr_t)smem_raw, p, kProFwd, &sm);
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const int64_t r0 = (int64_t)tile * p.TR;
-    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds);
-    for (int r = threadIdx.x; r < p.TR; r += kThreads)
-      sm.mrow[r] = r0 + r < p.N ? tof(a.aux[r0 + r]) : 0.0f;
-    __syncthreads();
-    for (int n0 = 0; n0 < p.C; n0 += p.TNK) {
-      for (int h = 0; h < 2; ++h) {  // a, then b
-        two_products<T>(p, sm, sm.s[0], sm.s[0], a.mat[2 * h], a.mat[2 * h + 1], n0);
-        const T* bg = a.vec[2 + 2 * h];
-        const T* bp = a.vec[3 + 2 * h];
-        for (int e = threadIdx.x; e < p.TR * p.TNK; e += kThreads) {
-          const int r = e / p.TNK, n = e % p.TNK;
-          const int64_t row = r0 + r;
-          if (row < p.N) {
-            const float gate = sigmoidf(sm.st0[r * p.ldf + n] + tof(bg[n0 + n]));
-            const float proj = sm.st1[r * p.ldf + n] + tof(bp[n0 + n]);
-            a.out[h][row * p.C + n0 + n] = fromf<T>(gate * proj * sm.mrow[r]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // resident-weight rows passes of K4-K7 (bf16 C <= 128, float32 C <= 64)
@@ -1642,34 +1444,6 @@ epilogue_fwd_resident_kernel(RowArgs<T> a, Plan p) {
   }
 }
 
-// K6 streamed (the widths whose weights do not fit):
-// out = sigmoid(LN1(x) @ Wog + bog) * (LN2(prod) @ Wo + bo).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) epilogue_fwd_kernel(RowArgs<T> a, Plan p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  RowsSmem<T> sm;
-  RowsSmem<T>::carve((uintptr_t)smem_raw, p, kEpiFwd, &sm);
-  for (int tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
-    const int64_t r0 = (int64_t)tile * p.TR;
-    ln_rows<T>(a.x, r0, p.N, p.TR, p.C, a.vec[0], a.vec[1], sm.s[0], p.lds);
-    ln_rows<T>(a.aux, r0, p.N, p.TR, p.C, a.vec[3], a.vec[4], sm.s[1], p.lds);
-    __syncthreads();
-    for (int n0 = 0; n0 < p.C; n0 += p.TNK) {
-      two_products<T>(p, sm, sm.s[0], sm.s[1], a.mat[0], a.mat[1], n0);
-      for (int e = threadIdx.x; e < p.TR * p.TNK; e += kThreads) {
-        const int r = e / p.TNK, n = e % p.TNK;
-        const int64_t row = r0 + r;
-        if (row < p.N) {
-          const float g = sigmoidf(sm.st0[r * p.ldf + n] + tof(a.vec[2][n0 + n]));
-          const float u = sm.st1[r * p.ldf + n] + tof(a.vec[5][n0 + n]);
-          a.out[0][row * p.C + n0 + n] = fromf<T>(g * u);
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 // The wide route's float32 products (here and in the GEMM core below):
 // operands split by split_tf32_alu, each k8 step's 3xTF32 products summed
 // apart (wide_3xtf32).
@@ -1984,7 +1758,7 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 }
 
 // ---------------------------------------------------------------------------
-// the wide route of K4-K7 (bf16 C > 128; K5 and K7 also float32 C > 64)
+// the wide route of K4-K7 (bf16 C > 128, float32 C > 64)
 // ---------------------------------------------------------------------------
 //
 // Replaces, at the widths whose weights do not fit in shared memory, the
@@ -1996,21 +1770,20 @@ __global__ void reduce_kernel(const float* __restrict__ part, int G, int64_t M, 
 // weights through L2 a 16-row tile, 131 GB a call at N = 2*256*256; K4: 8
 // MB a 64-row tile, 17 GB a call).  So each kernel is a chain of kernels on
 // the caller's stream, its scratch in the wrapper's f32 workspace (no
-// kernel allocates).  The forwards (K4, K6; bf16) run steps 1 and 2:
-//   1. s = LN(x) (K6 also t = LN2(p)) into the bf16 planes;
-//   2. wide_gate_kernel<bf16, NA, true>: both products of each 128-row x
+// kernel allocates).  The forwards (K4, K6) run steps 1 and 2:
+//   1. s = LN(x) (K6 also t = LN2(p)) into the planes in T;
+//   2. wide_gate_kernel<T, NA, true>: both products of each 128-row x
 //      64-column output tile at once (K4: s @ Wag and s @ Wap into a, then
 //      Wbg and Wbp into b; K6: s @ Wog and t @ Wo into out), and the gates
 //      in the epilogue: sigmoid(G + bg) * (P + bp) (* m in K4) in f32, cast
 //      once.
 // They bind on the tensor cores: K4's four (N, C) x (C, C) products are 1.1
-// TFLOP, 1.1117 ms at 989 TFLOP/s bf16, K6's two 0.55 TFLOP, 0.5559 ms (N =
-// 2*256*256, C = 1024); the rows and outputs are 0.8 GB (0.24 ms at 3.35
-// TB/s).  The weights are staged once per 128-row tile, not once per 64-row
-// tile as in the streamed pass (8.6 GB through L2 for K4 at that shape
-// instead of 17), through the core's cp.async ring, which overlaps the
-// copies with the products (the streamed pass stages them synchronously).
-// The backwards (K5, K7; bf16 and float32) run:
+// TFLOP, 1.1117 ms at 989 TFLOP/s bf16 (6.67 ms as 3xTF32 at 495 TFLOP/s),
+// K6's two 0.55 TFLOP, 0.5559 ms (N = 2*256*256, C = 1024); the bf16 rows
+// and outputs are 0.8 GB (0.24 ms at 3.35 TB/s).  The weights are staged
+// once per 128-row tile (8.6 GB through L2 for K4 at that shape), through
+// the core's cp.async ring, which overlaps the copies with the products.
+// The backwards (K5, K7) run:
 //   1. wide_ln_kernel: s = LN(x) (K7 also t = LN2(p)) in T into an (N, C)
 //      plane, each row's mean and 1/sigma kept (f32, fast variance);
 //   2. wide_gate_kernel<T, NA, false>: the pre-activations of each 128-row x
@@ -2600,11 +2373,6 @@ bool aligned16(const void* const (&ptrs)[K]) {
   return true;
 }
 
-template <typename T>
-size_t rows_smem(const Plan& p, int kind) {
-  return RowsSmem<T>::carve(0, p, kind, nullptr);
-}
-
 // Tiles, grids and scratch for one call.  Deterministic for a given device,
 // kind, dtype, N and C, so the launch recomputes what the workspace query
 // returned.  The route is a function of kind, dtype and C alone (the table
@@ -2617,29 +2385,16 @@ int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
   HostPlan h{};
   p.N = N;
   p.C = C;
-  p.TNK = C % 64 == 0 ? 64 : (C % 32 == 0 ? 32 : 16);
   p.lds = C + kPadT;
-  p.ldw = p.TNK + kPadT;
-  p.ldf = p.TNK + kPadF;
   p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
   p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
-  // bf16: resident where its weights fit (C <= 128), else wide, never
-  // streamed; float32: resident at C <= 64, else wide (K5, K7) or streamed
-  // (K4, K6)
-  const bool wide = !p.resident && (sizeof(T) == 2 || is_bwd(kind));
-  h.route = p.resident ? kRouteResident : (wide ? kRouteWide : kRouteStreamed);
-  if (h.route == kRouteStreamed) {
-    for (p.TR = 32; p.TR >= 16; p.TR /= 2) {
-      p.smem = rows_smem<T>(p, kind);
-      if (p.smem <= kSmemLimit) break;
-    }
-    if (p.TR < 16) return kErrUnsupportedC;
-  }
+  // resident where the weights fit (bf16 C <= 128, float32 C <= 64), else
+  // wide: every kernel, both dtypes
+  const bool wide = !p.resident;
+  h.route = wide ? kRouteWide : kRouteResident;
   cudaError_t err = cudaDeviceGetAttribute(&h.nsm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int nsm = h.nsm;
-  p.ntiles = h.route == kRouteStreamed ? (N + p.TR - 1) / p.TR : 0;
-  p.grid = p.ntiles < 2 * nsm ? p.ntiles : 2 * nsm;
   p.work_floats = 0;
   if (p.resident) {  // one block an SM: its registers leave room for no second
     const long long need = ((long long)N + 16 * res_warps(kind) - 1) / (16 * res_warps(kind));
@@ -2707,14 +2462,13 @@ int launch_wide_gate(const WideGateArgs<T>& ga, int grid, int N, int C, cudaStre
 
 // The wide route's chain (the note above wide_ln_kernel) on stream st, its
 // scratch carved from the workspace as make_plan laid it out: steps 1 and 2
-// for the forward (K4, K6; bf16), 1-6 for the backward (K5, K7; dvec and
-// dmat are the backward's).
+// for the forward (K4, K6), 1-6 for the backward (K5, K7; dvec and dmat are
+// the backward's).
 template <typename T>
 int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T* dvec, T* dmat,
              float* work, cudaStream_t st) {
   const int N = p.N, C = p.C, nln = n_ln(kind);
   const bool pro = kind <= kProBwd, bwd = is_bwd(kind);
-  if (sizeof(T) == 4 && !bwd) return kErrBadArgs;  // make_plan gives float32 K4, K6 no wide route
   float* vpart = work + h.off_vpart;
   float* wpart = work + h.off_wpart;
   float* stats = work + h.off_stats;
@@ -2754,16 +2508,10 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T*
   }
   const long long gate_tiles = (long long)h.rtiles * ga.njobs * ((C + kWideGateN - 1) / kWideGateN);
   const int gate_grid = (int)(gate_tiles < 2LL * h.nsm ? gate_tiles : 2LL * h.nsm);
-  int rc;
-  if constexpr (std::is_same<T, bf16>::value) {
-    rc = pro ? (bwd ? launch_wide_gate<T, 1, false>(ga, gate_grid, N, C, st)
-                    : launch_wide_gate<T, 1, true>(ga, gate_grid, N, C, st))
-             : (bwd ? launch_wide_gate<T, 2, false>(ga, gate_grid, N, C, st)
-                    : launch_wide_gate<T, 2, true>(ga, gate_grid, N, C, st));
-  } else {
-    rc = pro ? launch_wide_gate<T, 1, false>(ga, gate_grid, N, C, st)
-             : launch_wide_gate<T, 2, false>(ga, gate_grid, N, C, st);
-  }
+  const int rc = pro ? (bwd ? launch_wide_gate<T, 1, false>(ga, gate_grid, N, C, st)
+                            : launch_wide_gate<T, 1, true>(ga, gate_grid, N, C, st))
+                     : (bwd ? launch_wide_gate<T, 2, false>(ga, gate_grid, N, C, st)
+                            : launch_wide_gate<T, 2, true>(ga, gate_grid, N, C, st));
   if (rc != 0 || !bwd) return rc;
   // 3, 4. dsrc = sum_k dpre_k @ W_k^T, then the LayerNorm backward (K7: LN1's,
   // then LN2's through the same dsrc plane)
@@ -2844,15 +2592,9 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     a.out[0] = (T*)rest[0];
     const void* need[] = {a.x, a.aux, a.mat[0], a.mat[1], a.out[0]};
     if (!aligned16(need)) return kErrBadArgs;
-    if (p.resident) {
-      if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-      epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
-    } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
-      return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
-    } else {
-      if ((err = set_smem(epilogue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-      epilogue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    }
+    if (!p.resident) return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
+    if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+    epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
     return (int)cudaGetLastError();
   }
   if (kind == kProFwd) {
@@ -2860,15 +2602,9 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     a.out[1] = (T*)rest[1];
     const void* need[] = {a.x, a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.out[1]};
     if (!aligned16(need)) return kErrBadArgs;
-    if (p.resident) {
-      if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-      prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
-    } else if constexpr (std::is_same<T, bf16>::value) {  // make_plan gives bf16 no streamed route
-      return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
-    } else {
-      if ((err = set_smem(prologue_fwd_kernel<T>, p.smem)) != cudaSuccess) return (int)err;
-      prologue_fwd_kernel<T><<<p.grid, kThreads, p.smem, st>>>(a, p);
-    }
+    if (!p.resident) return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
+    if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
+    prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
     return (int)cudaGetLastError();
   }
   // backward: cotangents, grads of the rows, dvec (6, C), dmat (njobs, C, C),
@@ -2889,7 +2625,6 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
     if (!aligned16(need)) return kErrBadArgs;
   }
   if (h.route == kRouteWide) return run_wide<T>(p, h, kind, a, dvec, dmat, work, st);
-  // make_plan gives no backward a streamed route: resident here
   if (pro) {
     if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
     prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
@@ -2932,8 +2667,8 @@ int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, v
 
 // Scratch that `kind` (0 K4, 1 K5, 2 K6, 3 K7) needs, in floats, for dtype
 // (0 f32, 1 bf16) at N rows of width C: every backward's, and the wide
-// route's forward (its LayerNorm planes and statistics; 0 on the other
-// routes).  Returns 0, or -1 when C is not supported.
+// route's forward (its LayerNorm planes and statistics; 0 on the resident
+// route).  Returns 0, or -1 when C is not supported.
 extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
                                 long long* work_floats) {
   Plan p;
@@ -2944,7 +2679,7 @@ extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
 }
 
 // The rows pass that `kind` (0 K4, 1 K5, 2 K6, 3 K7) takes for dtype (0 f32,
-// 1 bf16) at width C, into *route: 0 resident, 1 streamed, 2 wide (the
+// 1 bf16) at width C, into *route: 0 resident, 1 wide (the
 // table at the top; N does not change it).  Returns 0, -1 when C is not
 // supported, or a CUDA error code.
 extern "C" int ps_tri_route(int device, int kind, int dtype, int N, int C, int* route) {

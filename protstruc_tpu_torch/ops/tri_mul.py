@@ -53,10 +53,9 @@ LAUNCHES: Dict[str, int] = {"prologue_fwd": 0, "prologue_bwd": 0,
 _KIND = {"prologue_fwd": 0, "prologue_bwd": 1, "epilogue_fwd": 2, "epilogue_bwd": 3}
 
 #: The rows passes of ``ps_tri_route``, by its code: weights resident in
-#: shared memory (bf16 C <= 128, float32 C <= 64), streamed through it
-#: (float32 K4 and K6 at C > 64), or the wide route's chain of GEMM kernels
-#: (bf16 C > 128; float32 K5 and K7 at C > 64).
-ROUTES = ("resident", "streamed", "wide")
+#: shared memory (bf16 C <= 128, float32 C <= 64), or the wide route's
+#: chain of GEMM kernels above those widths (every kernel, both dtypes).
+ROUTES = ("resident", "wide")
 
 #: The launches of ``LAUNCHES`` split by the route each took.
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {name: dict.fromkeys(ROUTES, 0) for name in _KIND}
@@ -238,7 +237,7 @@ def _workspace_floats(name, dtype, N, C, device_index):
 
 def route(name, x) -> str:
     """The rows pass kernel ``name`` takes for CUDA rows ``x (N, C)``:
-    "resident", "streamed" or "wide" (``ps_tri_route``: a function of the
+    "resident" or "wide" (``ps_tri_route``: a function of the
     kernel, the dtype and C, so it is asked once for each)."""
     return _route(name, x.dtype, x.shape[1], x.device.index)
 

@@ -38,7 +38,7 @@ the column tiles and the k steps; the forwards also at 160, ragged against
 the column tiles alone) on N = 300 rows (ragged against the 128-row
 tiles): every output within 5e-2 of max|ref| (tests/test_tri_mul.py:49-60).
 
-K5 and K7 also take the wide route in float32 at C > 64.  The chain is the
+All four also take the wide route in float32 at C > 64.  The chain is the
 same with nothing cast (the planes ``s``, ``t``, ``dpre`` and ``du`` stay
 f32), and the products run as 3xTF32 on 8-deep k steps (``big =
 tf32(x)`` rounded to nearest by bit arithmetic on the f32 words, as the
@@ -46,9 +46,9 @@ kernels round it, ``small = x - big`` truncated to tf32, as the tensor
 cores read it, ``a_small b_big + a_big b_small + a_big b_big``), each k
 step's product summed apart and added in f32, the weight gradients' k
 steps (8 rows) too.  A float32 stage is 16 deep,
-so no width (a multiple of 16) is ragged against it.  The float32 cases,
-at C = 256 and C = 80 (ragged against the 64-column gate tiles and the
-128-column back-projection tiles), hold every output within 2e-5 *
+so no width (a multiple of 16) is ragged against it.  The float32 cases
+(K4-K7), at C = 256 and C = 80 (ragged against the 64-column gate tiles and
+the 128-column back-projection tiles), hold every output within 2e-5 *
 max(1, max|ref|) (tests/test_tri_mul.py:49); the same chain with the small
 terms dropped (1xTF32) breaks that limit at C = 256.
 """
@@ -137,11 +137,11 @@ def _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, mode):
             yield t, rows, cols, sg, pj
 
 
-def _gate_fwd(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, mask):
+def _gate_fwd(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, mask, mode=BF16):
     """The forward's gate GEMM: sigmoid(G + bg) (P + bp) m in f32, cast once."""
-    out = torch.zeros((a_gate.shape[0], w_gate.shape[1]), dtype=torch.bfloat16)
-    for _, rows, cols, sg, pj in _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, BF16):
-        out[rows, cols] = (sg * pj * mask[rows, None]).to(torch.bfloat16)
+    out = torch.zeros((a_gate.shape[0], w_gate.shape[1]), dtype=mode.dtype)
+    for _, rows, cols, sg, pj in _gate_tiles(a_gate, a_proj, w_gate, w_proj, b_gate, b_proj, mode):
+        out[rows, cols] = (sg * pj * mask[rows, None]).to(mode.dtype)
     return out
 
 
@@ -210,18 +210,18 @@ def _wgrad(s, d, mode=BF16):
     return out.to(mode.dtype)
 
 
-def _emulated_k4(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp):
+def _emulated_k4(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp, mode=BF16):
     f = lambda v: v.float()  # noqa: E731
-    s, _, _ = _ln(x.float(), f(lns), f(lnb))
-    return tuple(_gate_fwd(s, s, wg, wp, f(bg), f(bp), m.float())
+    s, _, _ = _ln(x.float(), f(lns), f(lnb), mode)
+    return tuple(_gate_fwd(s, s, wg, wp, f(bg), f(bp), m.float(), mode)
                  for wg, bg, wp, bp in ((wag, bag, wap, bap), (wbg, bbg, wbp, bbp)))
 
 
-def _emulated_k6(x, p, ln1s, ln1b, wog, bog, ln2s, ln2b, wo, bo):
+def _emulated_k6(x, p, ln1s, ln1b, wog, bog, ln2s, ln2b, wo, bo, mode=BF16):
     f = lambda v: v.float()  # noqa: E731
-    s, _, _ = _ln(x.float(), f(ln1s), f(ln1b))
-    t, _, _ = _ln(p.float(), f(ln2s), f(ln2b))
-    return _gate_fwd(s, t, wog, wo, f(bog), f(bo), torch.ones(x.shape[0]))
+    s, _, _ = _ln(x.float(), f(ln1s), f(ln1b), mode)
+    t, _, _ = _ln(p.float(), f(ln2s), f(ln2b), mode)
+    return _gate_fwd(s, t, wog, wo, f(bog), f(bo), torch.ones(x.shape[0]), mode)
 
 
 def _emulated_k5(x, m, lns, lnb, wag, bag, wap, bap, wbg, bbg, wbp, bbp, da, db, mode=BF16):
@@ -269,6 +269,13 @@ def _check(ref, got, name):
     assert ref.shape == got.shape, name
     err, scale = float(np.abs(ref - got).max()), float(np.abs(ref).max())
     assert err <= 5e-2 * max(scale, 1e-3), (name, err, scale)
+
+
+def _check_f32(ref, got, name):
+    ref, got = np.asarray(ref, np.float32), np.asarray(got, np.float32)
+    assert ref.shape == got.shape, name
+    err, limit = float(np.abs(ref - got).max()), 2e-5 * max(1.0, float(np.abs(ref).max()))
+    assert err <= limit, (name, err, limit)
 
 
 def _bf16(arrays):
@@ -321,38 +328,38 @@ def test_wide_route_matches_plain_and_pallas(kernel, C):
                f"{name} vs pallas")
 
 
-@pytest.mark.parametrize("kernel, C", [("k4", 256), ("k6", 256), ("k4", 144), ("k6", 144),
-                                       ("k4", 160), ("k6", 160)],
-                         ids=["k4", "k6", "k4-C144", "k6-C144", "k4-C160", "k6-C160"])
-def test_wide_forward_matches_plain_and_pallas(kernel, C):
+@pytest.mark.parametrize("kernel, C, mode", [("k4", 256, BF16), ("k6", 256, BF16), ("k4", 144, BF16),
+                                             ("k6", 144, BF16), ("k4", 160, BF16), ("k6", 160, BF16),
+                                             ("k4", 256, F32), ("k6", 256, F32), ("k4", 80, F32),
+                                             ("k6", 80, F32)],
+                         ids=["k4", "k6", "k4-C144", "k6-C144", "k4-C160", "k6-C160",
+                              "k4-f32", "k6-f32", "k4-f32-C80", "k6-f32-C80"])
+def test_wide_forward_matches_plain_and_pallas(kernel, C, mode):
+    """K4's and K6's wide chains (bf16, or float32 with f32 planes and the
+    gate GEMM in 3xTF32) against the plain versions and the Pallas ops."""
+    f32 = mode.dtype == torch.float32
+    jdtype, check = (jnp.float32, _check_f32) if f32 else (jnp.bfloat16, _check)
     if kernel == "k4":
         x, *w = _draw(16, ((N, C), 1.0, 0.3), *_ln_shapes(C), *(_lin_shapes(C) * 4))
         m = _mask()
-        args = _bf16([x, m, *w])
-        got, plain = _emulated_k4(*args), _prologue_fwd_plain(*args)
-        jx = _jax([x, *w])
-        ref = _prologue_op(128, True, jx[0], jnp.asarray(m[:, None]).astype(jnp.bfloat16), *jx[1:])
+        args = [torch.from_numpy(a).to(mode.dtype) for a in (x, m, *w)]
+        got, plain = _emulated_k4(*args, mode=mode), _prologue_fwd_plain(*args)
+        jx = _jax([x, *w], jdtype)
+        ref = _prologue_op(128, True, jx[0], jnp.asarray(m[:, None]).astype(jdtype), *jx[1:])
         names = "ab"
     else:
         weights = _ln_shapes(C) + _lin_shapes(C) + _ln_shapes(C) + _lin_shapes(C)
-        x, p, *w = _draw(17, ((N, C), 1.0, 0.3), ((N, C), 3.0, 0.0), *weights)
-        args = _bf16([x, p, *w])
-        got, plain, ref = ((_emulated_k6(*args),), (_epilogue_fwd_plain(*args),),
-                           (_epilogue_op(128, True, *_jax([x, p, *w])),))
+        arrays = _draw(17, ((N, C), 1.0, 0.3), ((N, C), 3.0, 0.0), *weights)
+        args = [torch.from_numpy(a).to(mode.dtype) for a in arrays]
+        got, plain, ref = ((_emulated_k6(*args, mode=mode),), (_epilogue_fwd_plain(*args),),
+                           (_epilogue_op(128, True, *_jax(arrays, jdtype)),))
         names = ("out",)
     for name, r, pl, g in zip(names, ref, plain, got):
-        assert g.dtype == torch.bfloat16 and g.shape == pl.shape, name
-        _check(pl.float().numpy(), g.float().numpy(), f"{name} vs plain")
-        _check(np.asarray(jnp.asarray(r, jnp.float32)), g.float().numpy(), f"{name} vs pallas")
+        assert g.dtype == mode.dtype and g.shape == pl.shape, name
+        check(pl.float().numpy(), g.float().numpy(), f"{name} vs plain")
+        check(np.asarray(jnp.asarray(r, jnp.float32)), g.float().numpy(), f"{name} vs pallas")
         if kernel == "k4":
             assert not g[torch.from_numpy(m) == 0].any(), f"{name}: masked rows not zero"
-
-
-def _check_f32(ref, got, name):
-    ref, got = np.asarray(ref, np.float32), np.asarray(got, np.float32)
-    assert ref.shape == got.shape, name
-    err, limit = float(np.abs(ref - got).max()), 2e-5 * max(1.0, float(np.abs(ref).max()))
-    assert err <= limit, (name, err, limit)
 
 
 def _f32_inputs(kernel, C):
@@ -401,9 +408,9 @@ def test_wide_route_f32_limit_needs_3xtf32():
 
 
 def test_route_counters_name_every_route():
-    """K4-K7 count launches by resident, streamed and wide: every kernel has
-    a wide route (bf16 C > 128; K5 and K7 also float32 C > 64) and a
-    resident one; float32 K4 and K6 above C = 64 take the streamed route."""
-    assert ROUTES == ("resident", "streamed", "wide")
+    """K4-K7 count launches by resident and wide: every kernel has a
+    resident route (bf16 C <= 128, float32 C <= 64) and a wide one above
+    those widths, in both dtypes; there is no third route."""
+    assert ROUTES == ("resident", "wide")
     for name, counts in ROUTE_LAUNCHES.items():
         assert tuple(counts) == ROUTES, name
