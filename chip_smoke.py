@@ -258,6 +258,26 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     loaded back onto the card, bitwise; (f) ``examples/train_trfold`` over
     tests/data on the card, 4 steps at batch 2: finite losses, the C++
     scanner run by its dataset, s/step.
+24. every width the JAX package takes: (a) K4-K7 at C = 7, 8, 24 and 40 in
+    both dtypes (staged to round_up(C, 16): the resident route), bf16
+    C = 200 and f32 C = 72 and 100 (the wide route), on N = 2738 and 300
+    rows, and C = 24 on operands off a 16-byte boundary, each against its
+    plain version, each call one launch on the route make_plan reads at
+    the padded width; the whole op at C = 24 against the plain path on the
+    CPU; (b) K8/K9 at dh 8, 12, 24, 48, 96 (staged) and 256 (its own
+    instantiation), f32 and bf16, ragged L 37 and 300 with a fully masked
+    batch row, one launch of each a call, the lse entry at dh 24 and 256,
+    dh 257 refused; (c) TrFold at node 96 over 4 heads (dh 24), pair 40,
+    fused_tri and flash, 3 steps against the einsum step from one init, f32
+    (1e-5) and bf16 (2e-2), the counters reset just before the kernel
+    path's steps; (d) ``[mfu-peak]`` (phase 21e's widths: dh 256) with
+    fused_tri and flash against einsum attention, runs of 3 steps in the
+    order flash, einsum, einsum, flash, the first runs' losses 2e-2,
+    ms/step, peak GiB, K8/K9 launches a step; (e) K8/K9 against their plain
+    versions at ``[mfu-peak]``'s node attention, then K4-K7 at bf16 C = 24
+    on ``[mfu-fused]``'s N = 4*512*512 and K8/K9 at dh 256 on that node
+    attention beside their plain versions, bounds and (K8/K9) SDPA with the
+    float mask, the kernels PyTorch picked named.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -292,7 +312,10 @@ variant and the write-only time; K1's rectangular mode and K8/K9's lse entry
 point as entries of their own, launches from phase 21 (d); K5's and K7's
 float32 wide route as entries of their own, K4's and K6's too, launches
 from phase 9b's one counted step; every K4-K7 entry's float32 times at C =
-128 and 1024),
+128 and 1024; K4-K7 at a ragged C as entries of their own, launches from
+phase 24 (c)'s f32 run, times at bf16 C = 24; K8/K9 at dh 256 as entries of
+their own, launches from phase 24 (d)'s flash steps, times at its node
+attention),
 largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
@@ -347,6 +370,11 @@ and prints no result line;
     python3 chip_smoke.py --host
 
 runs phase 1, builds K1 and runs phase 23 alone, and prints no result line;
+
+    python3 chip_smoke.py --widths
+
+runs phase 1, builds K1, K4-K7 and K8/K9 together (K4-K7's and K8/K9's
+ptxas lines) and runs phase 24 alone, and prints no result line;
 
     python3 chip_smoke.py --tri-timing
 
@@ -674,43 +702,6 @@ def off_alignment(torch, t):
     return out
 
 
-def nested_name(mangled):
-    """The last name of a mangled ``_ZN<len><name>...E...`` entry (a kernel in
-    an anonymous namespace), else ``mangled``."""
-    if not mangled.startswith("_ZN"):
-        return mangled
-    i, name = 3, mangled
-    while i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        n = int(mangled[i:j])
-        name, i = mangled[j:j + n], j + n
-    return name
-
-
-def ptxas_lines(log_path):
-    """One line per kernel from an ``nvcc -Xptxas -v`` log: its (demangled
-    enough) name, registers, stack and spills."""
-    if not log_path.is_file():
-        return []
-    out, name = [], None
-    for ln in log_path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            spill = ""
-            k = re.search(r"\d+([a-z_]+_kernel)I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", m.group(1))
-            args = [{"f": "float", "13__nv_bfloat16": "bf16", "Lb1E": "true", "Lb0E": "false"}.get(a, a[2:-1])
-                    for a in re.findall(r"f|13__nv_bfloat16|L[ib]\d+E", k.group(2))] if k else []
-            name = f"{k.group(1)}<{', '.join(args)}>" if k else nested_name(m.group(1))
-        elif "spill" in ln and name:
-            spill = ln.strip()
-        elif "registers" in ln and name:
-            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
-            name = None
-    return out
-
-
 def build_all(cuda_lib, pair_maps, tri_mul, model_features, flash_attn, kernel_probe):
     """Build K1, K2, K3, K4-K7, K8/K9 and the K1 probes at once (one nvcc
     each, started together); returns {library: (path, built or loaded,
@@ -802,7 +793,7 @@ def pair_timing(torch, dev, smi):
     mf.load_library()
     say(f"pair timing of {REPO}: K1 and K3 built or loaded in {time.perf_counter() - t0:.2f} s")
     for name, path in (("K1", cuda_lib.library_path("pair_maps", pm._SOURCES)), ("K3", mf.library_path())):
-        for ln in ptxas_lines(path.with_suffix(".log")):
+        for ln in cuda_lib.ptxas_lines(path.with_suffix(".log")):
             say(f"  ptxas {name}: {ln}")
     xyz = torch.from_numpy(np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32) * 10).to(dev)
     pairs = B_FULL * L_FULL ** 2
@@ -1046,6 +1037,15 @@ def train_models(torch, dev, cfg_kwargs, xyz_np):
     """Featurize ``xyz_np`` on the card through K1, then a fused and an unfused
     TrFold from one seeded init; returns (feats, {fused: (model, params,
     opt_state, tx)}, the initial state_dict)."""
+    return seeded_models(torch, dev, cfg_kwargs, xyz_np, {True: dict(fused_tri=True),
+                                                         False: dict(fused_tri=False)})
+
+
+def seeded_models(torch, dev, cfg_kwargs, xyz_np, variants):
+    """TrFold models from one seeded init, one for each of ``variants``
+    ({label: TrFoldConfig overrides}), on features of ``xyz_np`` (K1);
+    returns (feats, {label: (model, params, opt_state, tx)}, the initial
+    state_dict)."""
     import protstruc_tpu_torch as pt
     from protstruc_tpu_torch.models.trfold import (
         TrFold, TrFoldConfig, featurize_for_model, make_train_state)
@@ -1053,13 +1053,13 @@ def train_models(torch, dev, cfg_kwargs, xyz_np):
     sb = pt.StructureBatch.from_xyz(xyz_np, device=dev)
     feats = featurize_for_model(sb, use_kernel=True)
     models, init = {}, None
-    for fused in (True, False):
-        model = TrFold(TrFoldConfig(fused_tri=fused, **cfg_kwargs), device=dev)
+    for label, over in variants.items():
+        model = TrFold(TrFoldConfig(**cfg_kwargs, **over), device=dev)
         state = make_train_state(model, feats, torch.Generator().manual_seed(0), device=dev)
         if init is None:
             init = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(init)
-        models[fused] = (model, *state)
+        models[label] = (model, *state)
     return feats, models, init
 
 
@@ -1652,7 +1652,7 @@ def sass_loop_mix(so_path, kernel):
     sass = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True,
                           timeout=300).stdout
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        if nested_name(body.split("\n", 1)[0].strip()) != kernel:
+        if cuda_lib.nested_name(body.split("\n", 1)[0].strip()) != kernel:
             continue
         ins = [(int(m.group(1), 16), m.group(2)) for m in
                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
@@ -1674,12 +1674,12 @@ def grad_timing(torch, dev, smi):
     times, beside its bound, with the K2 library's ptxas lines, in whatever
     checkout holds this script."""
     import numpy as np
-    from protstruc_tpu_torch.ops import pair_maps as pm
+    from protstruc_tpu_torch.ops import cuda_lib, pair_maps as pm
 
     t0 = time.perf_counter()
     pm.load_bwd_library()
     say(f"grad timing of {REPO}: K2 built or loaded in {time.perf_counter() - t0:.2f} s")
-    for ln in ptxas_lines(pm.bwd_library_path().with_suffix(".log")):
+    for ln in cuda_lib.ptxas_lines(pm.bwd_library_path().with_suffix(".log")):
         say(f"  ptxas K2: {ln}")
     xyz = torch.from_numpy(np.random.RandomState(0).randn(B_FULL, L_FULL, 15, 3).astype(np.float32) * 10).to(dev)
     g_full = cotangents(torch, xyz, 1, pm.MAP_NAMES)
@@ -4062,6 +4062,326 @@ def fold_step_timing(torch, smi, sb, fold_models_, fold_init, crop_len):
         f"plain {fold_step_losses[False]}")
 
 
+# -- phase 24: every width the JAX package takes ------------------------------------
+#: K4-K7 at pair widths that are not a multiple of 16 (the wrappers stage them
+#: to round_up(C, 16), zero past C): (dtype, C, B, L), N = B L^2 rows ragged
+#: against the 16-row and 128-row tiles; C = 7, 8, 24 and 40 on the resident
+#: route in both dtypes (40: f32 at 48, still resident), bf16 C = 200 and
+#: f32 C = 72 and 100 on the wide route
+WIDTH_TRI = tuple((dt, C, 2, 37) for dt in ("float32", "bfloat16") for C in (7, 8, 24, 40)) + (
+    ("bfloat16", 200, 2, 37), ("float32", 72, 2, 37), ("float32", 100, 3, 10))
+WIDTH_TRI_OFF = 24            # the case run again on operands off a 16-byte boundary
+#: K8/K9 head dims other than 16, 32, 64 and 128: 256 its own
+#: instantiation, the others staged to the next built width (16, 32, 64, 128, 256)
+WIDTH_DH = (8, 12, 24, 48, 96, 256)
+WIDTH_FLASH = ((2, 4, 37), (2, 2, 300))   # (B, H, L): L ragged against 64; batch row 1 fully masked
+#: the small ragged TrFold step: node 96 over 4 heads (dh 24), pair 40
+WIDTH_TRFOLD = dict(node_dim=96, pair_dim=40, n_heads=4, n_blocks=2, pair_update="triangle",
+                    remat=True)
+WIDTH_TRFOLD_B, WIDTH_TRFOLD_L, WIDTH_STEPS = 2, 96, 3
+WIDTH_TIMED_C = 24            # K4-K7 timed at [mfu-fused]'s rows (N = 4*512^2) at this width
+
+
+def width_tri_parity(torch, dev, tri_mul):
+    """Phase 24 (a): K4-K7 at every WIDTH_TRI case and at C = WIDTH_TRI_OFF
+    on operands off a 16-byte boundary, each against its plain version
+    (every output under tri_budget); each call must add one launch on the
+    route make_plan reads at round_up(C, 16), and nothing else (no plain
+    call).  Then the whole op (forward and backward, outgoing and incoming)
+    at C = 24 against the plain path on the CPU.  Returns the largest error
+    of each kernel."""
+    worst = dict.fromkeys(TRI_KERNELS, 0.0)
+    runs = [(getattr(torch, dt), C, B, L, False) for dt, C, B, L in WIDTH_TRI]
+    runs += [(getattr(torch, dt), WIDTH_TRI_OFF, 2, 37, True) for dt in ("float32", "bfloat16")]
+    for dtype, C, B, L, off in runs:
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        want = expected_tri_route(dtype, tri_mul.padded_width(C))
+        cases = tri_inputs(torch, dev, dtype, C, B=B, L=L, seed=C)
+        for name in TRI_KERNELS:
+            args = cases[name]
+            if off:
+                args = [off_alignment(torch, t) for t in args]
+                check(all(t.data_ptr() % 16 for t in args), "the offset copies are aligned")
+            check(tri_mul.route(name, args[0]) == want, f"{name} {tag} C={C}: route {tri_mul.route(name, args[0])}")
+            before = ({k: dict(v) for k, v in tri_mul.ROUTE_LAUNCHES.items()}, dict(tri_mul.LAUNCHES))
+            err = tri_kernel_vs_plain(torch, tri_mul, name, args,
+                                      f"{tag} C={C} {want} route{' off alignment' if off else ''}")
+            took = {(k, r): n - before[0][k][r] for k, v in tri_mul.ROUTE_LAUNCHES.items()
+                    for r, n in v.items() if n > before[0][k][r]}
+            check(took == {(name, want): 1} and tri_mul.LAUNCHES[name] == before[1][name] + 1,
+                  f"{name} {tag} C={C} N={B * L * L}: launches {took}, not one on {want}")
+            worst[name] = max(worst[name], err)
+        del cases
+    for dtype in (torch.float32, torch.bfloat16):
+        C, B, L = 24, 2, 37
+        cases = tri_inputs(torch, dev, dtype, C, B=B, L=L, seed=3)
+        w = cases["epilogue_fwd"][2:]
+        params = {"ln_in": w[0:2], "out_gate": w[2:4], "ln_out": w[4:6], "out_proj": w[6:8],
+                  "a_gate": cases["prologue_fwd"][4:6], "a_proj": cases["prologue_fwd"][6:8],
+                  "b_gate": cases["prologue_fwd"][8:10], "b_proj": cases["prologue_fwd"][10:12]}
+        pair = cases["prologue_fwd"][0].reshape(B, L, L, C)
+        ct = cases["epilogue_bwd"][-1].reshape(pair.shape)
+        for outgoing in (True, False):
+            outs = []
+            for d in (dev, torch.device("cpu")):
+                leaves = [pair.detach().to(d).requires_grad_()] + [
+                    v.detach().to(d).requires_grad_() for pair_ in params.values() for v in pair_]
+                it = iter(leaves[1:])
+                prm = {k: (next(it), next(it)) for k in params}
+                y = tri_mul.fused_triangle_multiplication(leaves[0], cases["mask"].to(d), prm, outgoing)
+                grads = torch.autograd.grad(y, leaves, ct.to(d))
+                outs.append([y.detach().cpu()] + [g.cpu() for g in grads])
+            torch.cuda.synchronize()
+            errs = [tri_budget(torch, r, o, f"op C={C} outgoing={outgoing} {dtype} #{i}")[0]
+                    for i, (o, r) in enumerate(zip(*outs))]
+            say(f"  fused_triangle_multiplication {str(dtype)[6:]} C={C} L={L} outgoing={outgoing}: "
+                f"out {errs[0]:.2e}, grads max {max(errs[1:]):.2e} over {len(errs) - 1} leaves")
+        del cases
+    torch.cuda.empty_cache()
+    return worst
+
+
+def width_flash_parity(torch, dev, fa, ring_attn):
+    """Phase 24 (b): K8/K9 at every WIDTH_DH, f32 and bf16, on WIDTH_FLASH
+    (ragged L, batch row 1 fully masked) against their plain versions
+    (flash_vs_plain: out, lse, ds, dk, dv, dq); each pair of calls must add
+    one K8 and one K9 launch.  At dh 24 and 256 the lse entry (the ring's
+    local step) against the plain local attention too.  dh 257 must be
+    refused.  Returns ({fwd, bwd: the largest error}, the same at dh 256
+    alone)."""
+    worst, worst256 = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in WIDTH_DH:
+            for B, H, L in WIDTH_FLASH:
+                args = flash_inputs(torch, dev, dtype, "ragged", B, H, dh, L, seed=dh + L)
+                before = dict(fa.LAUNCHES)
+                errs = flash_vs_plain(torch, fa, args, f"{str(dtype)[6:]} B={B} H={H} dh={dh} "
+                                                       f"(built {fa.kernel_head_dim(dh)}) L={L}")
+                check({k: n - before[k] for k, n in fa.LAUNCHES.items()} == {"fwd": 1, "bwd": 1},
+                      f"flash dh={dh}: launches {fa.LAUNCHES} from {before}")
+                for key in worst:
+                    worst[key] = max(worst[key], errs[key])
+                    if dh == 256:
+                        worst256[key] = max(worst256[key], errs[key])
+            if dh in (24, 256):
+                q, k, v, bias, kmask, _ = flash_inputs(torch, dev, dtype, "ragged", 2, 4, dh, 37, seed=dh)
+                with torch.no_grad():
+                    got = fa.flash_pair_bias_attention_lse(q, k, v, bias, kmask)
+                    ref = ring_attn.local_attention_lse(q, k, v, bias, kmask, "plain")
+                live = kmask.any(-1)
+                err = flash_budget(torch, ref[0], got[0], f"lse entry dh={dh} out", "out")[0]
+                lse_err = flash_budget(torch, ref[1][live], got[1][live], f"lse entry dh={dh} lse", "lse")[0]
+                check(bool(torch.isinf(got[1][~live]).all()), f"lse entry dh={dh}: a row with no key")
+                worst["fwd"] = max(worst["fwd"], err, lse_err)
+                if dh == 256:
+                    worst256["fwd"] = max(worst256["fwd"], err, lse_err)
+                say(f"  flash lse entry {str(dtype)[6:]} dh={dh}: out {err:.2e}, lse {lse_err:.2e}")
+            torch.cuda.empty_cache()
+    q = torch.zeros((1, 4, 1, 257), device=dev)
+    try:
+        fa.flash_fwd(q, q, q, torch.zeros((1, 1, 4, 4), device=dev), torch.ones((1, 4), dtype=torch.bool, device=dev))
+    except ValueError as e:
+        check("256" in str(e), f"dh=257 refused without naming the limit: {e}")
+    else:
+        check(False, "dh=257 was not refused")
+    return worst, worst256
+
+
+def counted_steps(torch, feats, entry, n, tri_mul, fa):
+    """``n`` train steps with every K4-K7 and K8/K9 counter reset just before
+    and read just after: (losses, ms of each step (host clock to a
+    synchronize), (peak GiB, GiB held just before the steps), K4-K7 launches
+    by route, K8/K9 launches)."""
+    from protstruc_tpu_torch.models.trfold import train_step
+
+    model, params, opt_state, tx = entry
+    reset_launches(tri_mul, fa)
+    for counts in tri_mul.ROUTE_LAUNCHES.values():
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        params, opt_state, loss = train_step(params, opt_state, feats, model, tx)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    routes = {k: {r: c for r, c in v.items() if c} for k, v in tri_mul.ROUTE_LAUNCHES.items()}
+    return losses, ms, (torch.cuda.max_memory_allocated() / 2**30, base), routes, dict(fa.LAUNCHES)
+
+
+def width_trfold_step(torch, np, dev, smi, tri_mul, fa):
+    """Phase 24 (c): TrFold at WIDTH_TRFOLD (dh 24, pair 40) with fused_tri
+    and flash against the unfused einsum step from one init, f32 and bf16,
+    WIDTH_STEPS steps each: losses within 1e-5 (f32) and 2e-2 (bf16)
+    relative; the kernel path's counters (reset just before its steps, read
+    just after) must show K4-K7 on the resident route only and K8/K9
+    launched.  Returns (K4-K7 launches, K8/K9 launches) of the f32 run."""
+    xyz = np.random.RandomState(6).randn(WIDTH_TRFOLD_B, WIDTH_TRFOLD_L, 15, 3).astype(np.float32) * 5.0
+    launches = None
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        feats, models, _ = seeded_models(torch, dev, dict(WIDTH_TRFOLD, dtype=dtype), xyz, {
+            "kernels": dict(fused_tri=True, use_flash_attn=True),
+            "einsum": dict(fused_tri=False, use_flash_attn=False)})
+        losses, ms, _, routes, flash_n = counted_steps(torch, feats, models["kernels"], WIDTH_STEPS, tri_mul, fa)
+        tri_n = dict(tri_mul.LAUNCHES)
+        check(all(math.isfinite(x) for x in losses), f"ragged TrFold {dtype}: losses {losses}")
+        for name in TRI_KERNELS:
+            check(list(routes[name]) == ["resident"], f"ragged TrFold {dtype}: {name} routes {routes[name]}")
+        check(all(n > 0 for n in flash_n.values()), f"ragged TrFold {dtype}: K8/K9 launches {flash_n}")
+        plain, _, _, _, plain_flash = counted_steps(torch, feats, models["einsum"], WIDTH_STEPS, tri_mul, fa)
+        check(sum(tri_mul.LAUNCHES.values()) == 0 and sum(plain_flash.values()) == 0,
+              "the einsum step launched a kernel")
+        compare_losses(losses, plain, rtol, f"ragged TrFold {dtype}")
+        say(f"phase 24 (c) TrFold {WIDTH_TRFOLD} {str(dtype)[6:]} B={WIDTH_TRFOLD_B} L={WIDTH_TRFOLD_L} "
+            f"(dh {WIDTH_TRFOLD['node_dim'] // WIDTH_TRFOLD['n_heads']}) [{smi}]: fused_tri + flash losses "
+            f"{losses} vs einsum {plain}; launches in {WIDTH_STEPS} steps K4-K7 {routes}, K8/K9 {flash_n}")
+        if launches is None:
+            launches = (tri_n, flash_n)
+        del feats, models
+        torch.cuda.empty_cache()
+    return launches
+
+
+def peak_flash_step(torch, np, dev, smi, tri_mul, fa):
+    """Phase 24 (d): ``[mfu-peak]`` (PEAK_WIDTH: node 2048 over 8 heads, so
+    dh 256) with fused_tri and flash against fused_tri on einsum attention,
+    from one init, bf16, B=PEAK_B, L=PEAK_L, in four runs of PEAK_STEPS steps
+    in the order flash, einsum, einsum, flash (each model goes on from its
+    own state; the counters reset just before a run, read just after):
+    the first runs' losses within 2e-2 relative, ms/step over the steps of
+    both runs but the first (both models are held throughout, and from the
+    second run on both optimizer states), the peak and the peak above what
+    was held just before a run (the larger of the two runs), K8/K9 launches
+    a step, the same in both flash runs.  Returns {label: (ms/step, peak
+    GiB, K8/K9 launches a step, peak GiB above the memory held before the
+    steps)}."""
+    xyz = np.random.RandomState(0).randn(PEAK_B, PEAK_L, 15, 3).astype(np.float32) * 5.0
+    feats, models, _ = seeded_models(torch, dev, dict(PEAK_WIDTH, dtype=torch.bfloat16), xyz, {
+        "flash": dict(fused_tri=True, use_flash_attn=True),
+        "einsum": dict(fused_tri=True, use_flash_attn=False)})
+    runs = {"flash": [], "einsum": []}
+    for label in ("flash", "einsum", "einsum", "flash"):
+        losses, ms, (peak, base), routes, flash_n = counted_steps(torch, feats, models[label], PEAK_STEPS,
+                                                                  tri_mul, fa)
+        check(all(math.isfinite(x) for x in losses), f"[mfu-peak] {label}: losses {losses}")
+        for name in TRI_KERNELS:
+            check(list(routes[name]) == ["wide"], f"[mfu-peak] {label}: {name} routes {routes[name]}")
+        if label == "flash":
+            check(all(n > 0 for n in flash_n.values()), f"[mfu-peak] flash: K8/K9 launches {flash_n}")
+        else:
+            check(sum(flash_n.values()) == 0, f"[mfu-peak] einsum: K8/K9 launches {flash_n}")
+        runs[label].append((losses, ms, peak, base, flash_n))
+        say(f"phase 24 (d) [mfu-peak] fused_tri {label} attention bf16 B={PEAK_B} L={PEAK_L} {PEAK_WIDTH} "
+            f"run {len(runs[label])} [{smi}]: steps {', '.join(f'{m:.2f}' for m in ms)} ms, peak {peak:.2f} "
+            f"GiB, {peak - base:.2f} above the {base:.2f} held before the steps, losses {losses}, "
+            f"K8/K9 launches {flash_n}")
+        torch.cuda.empty_cache()
+    compare_losses(runs["flash"][0][0], runs["einsum"][0][0], 2e-2, "[mfu-peak] flash vs einsum")
+    check(runs["flash"][0][4] == runs["flash"][1][4], f"[mfu-peak] flash launches {runs['flash']}")
+    res = {}
+    for label, (first, second) in runs.items():
+        warm = first[1][1:] + second[1]
+        res[label] = (sum(warm) / len(warm), max(first[2], second[2]),
+                      {k: n / PEAK_STEPS for k, n in first[4].items()},
+                      max(first[2] - first[3], second[2] - second[3]))
+        say(f"phase 24 (d) [mfu-peak] fused_tri {label} attention [{smi}]: {res[label][0]:.2f} ms/step over "
+            f"{len(warm)} steps, peak {res[label][1]:.2f} GiB ({res[label][3]:.2f} above the start of a run), "
+            f"K8/K9 launches a step {res[label][2]}")
+    del feats, models
+    torch.cuda.empty_cache()
+    return res
+
+
+def width_phase(torch, np, dev, smi):
+    """Phase 24: (a) K4-K7 and (b) K8/K9 at the widths the JAX package takes
+    beyond the multiples of 16 and the four head dims of the earlier
+    phases, against their plain versions; (c) the small ragged
+    TrFold step; (d) ``[mfu-peak]`` with flash; (e) timings: K4-K7 at bf16
+    C = 24 on ``[mfu-fused]``'s rows and K8/K9 at dh 256 on ``[mfu-peak]``'s
+    node attention (its bias in the model's permuted layout), beside their
+    plain versions, bounds and (K8/K9) SDPA with the float mask, K8/K9 held
+    to their plain versions on those inputs first.  Returns the kernels-line
+    numbers (K8/K9's errors those at dh 256 alone)."""
+    from protstruc_tpu_torch.ops import flash_attn as fa
+    from protstruc_tpu_torch.ops import ring_attn, tri_mul
+
+    t0 = time.perf_counter()
+    tri_err = width_tri_parity(torch, dev, tri_mul)
+    say(f"phase 24 (a) parity K4-K7 at (dtype, C) = "
+        f"{', '.join(f'({dt[:4]}, {C})' for dt, C, _, _ in WIDTH_TRI)} and C={WIDTH_TRI_OFF} off "
+        f"alignment: ok, every call one launch on its route, max abs err {tri_err}")
+    flash_err, flash_err256 = width_flash_parity(torch, dev, fa, ring_attn)
+    say(f"phase 24 (b) parity K8/K9 at dh = {', '.join(map(str, WIDTH_DH))} (built "
+        f"{', '.join(str(fa.kernel_head_dim(d)) for d in WIDTH_DH)}), (B, H, L) = {WIDTH_FLASH}: ok, "
+        f"max abs err {flash_err}; dh=257 refused")
+    tri_launches, flash_launches = width_trfold_step(torch, np, dev, smi, tri_mul, fa)
+    peak = peak_flash_step(torch, np, dev, smi, tri_mul, fa)
+    tri_worst = dict(tri_err)
+    tri_ms, tri_split = tri_timings(torch, dev, smi, tri_worst, torch.bfloat16, C=WIDTH_TIMED_C,
+                                    phase="phase 24 (e)")
+    B, H, L = PEAK_B, PEAK_WIDTH["n_heads"], PEAK_L
+    dh = PEAK_WIDTH["node_dim"] // H
+    # K8/K9 against their plain versions on the inputs timed below: the main
+    # path's node attention (its bias in the model's permuted layout)
+    errs = flash_vs_plain(torch, fa, flash_inputs(torch, dev, torch.bfloat16, "train", B, H, dh, L),
+                          f"[mfu-peak] node attention bf16 B={B} H={H} dh={dh} L={L}")
+    flash_err256 = {k: max(v, errs[k]) for k, v in flash_err256.items()}
+    say(f"phase 24 (e) parity K8/K9 at [mfu-peak]'s node attention: ok, max abs err {errs}; "
+        f"at dh 256 over phase 24 {flash_err256}")
+    flash_ms, times = flash_timings(torch, dev, fa, "train", torch.bfloat16, B, H, dh, L)
+    for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms.items():
+        say(f"phase 24 (e) timing K{8 if part == 'fwd' else 9} ({part}) [mfu-peak] node attention bf16 B={B} "
+            f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+            f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    for name, (ev, dv, names) in times.items():
+        say(f"phase 24 (e) device time {name} dh={dh} [{smi}]: CUDA events {ev:.4f} ms, torch.profiler "
+            f"{dv:.4f} ms a call ({'; '.join(kernel_name(n)[:70] for n in names)})")
+    torch.cuda.empty_cache()
+    say(f"phase 24 every width: ok in {time.perf_counter() - t0:.2f} s")
+    return {"tri_err": tri_worst, "flash_err": flash_err256, "tri_launches": tri_launches,
+            "flash_launches": flash_launches, "peak": peak, "tri_ms": tri_ms, "tri_split": tri_split,
+            "flash_ms": flash_ms, "sdpa_kernels": {k: times[f"SDPA {k}"][2] for k in ("forward", "backward")}}
+
+
+def width_entries(entry, widths):
+    """Phase 24's entries of the kernels line from ``width_phase``'s
+    numbers: K4-K7 at a ragged width (launches in the ragged TrFold step's
+    f32 run, times at bf16 C = 24 on ``[mfu-fused]``'s rows) and K8/K9 at
+    dh 256 (launches in the ``[mfu-peak]`` flash steps, times at its node
+    attention); ``entry`` builds one entry as main's does."""
+    kernels = []
+    for name in TRI_KERNELS:
+        kernels.append(dict(entry(f"tri_mul_{name}_ragged_c", "tri_mul.cu", TRI_REPLACES[name],
+                                  widths["tri_launches"][name], widths["tri_err"][name],
+                                  *widths["tri_ms"][name], None),
+                            mode="K4-K7 at C not a multiple of 16, staged to round_up(C, 16): parity at "
+                                 "C=7, 8, 24, 40 (resident), bf16 200 and f32 72, 100 (wide), and off "
+                                 "alignment; launches in the ragged TrFold step (pair 40, f32, 3 steps)",
+                            shape=f"N=4*512*512 C={WIDTH_TIMED_C} bf16, [mfu-fused]'s pair rows",
+                            device_ms_by_kernel=dict(widths["tri_split"][name])))
+    peak_flash = widths["peak"]
+    for part, replaces in (("fwd", "protstruc_tpu/ops/flash_attn.py:79"),
+                           ("bwd", "protstruc_tpu/ops/flash_attn.py:184")):
+        k_ms, p_ms, lib_ms, b_ms, b_by = widths["flash_ms"][part]
+        kernels.append(dict(entry(f"flash_attn_{part}_dh256", "flash_attn.cu", replaces,
+                                  round(peak_flash["flash"][2][part] * PEAK_STEPS), widths["flash_err"][part],
+                                  k_ms, p_ms, b_ms, b_by, lib_ms),
+                            mode="dh 256 instantiation (each block owns half the head dim); parity at dh "
+                                 "8, 12, 24, 48, 96 (staged) and 256, f32 and bf16, max_abs_err over dh 256 "
+                                 "and [mfu-peak]'s node attention; launches in "
+                                 f"{PEAK_STEPS} [mfu-peak] flash steps",
+                            shape=f"bf16 B={PEAK_B} H={PEAK_WIDTH['n_heads']} dh=256 L={PEAK_L}, "
+                                  "[mfu-peak]'s node attention",
+                            library=f"SDPA with the float mask: {widths['sdpa_kernels']}",
+                            mfu_peak_step={k: {"ms": v[0], "peak_gib": v[1], "launches_per_step": v[2],
+                                               "step_peak_gib": v[3]} for k, v in peak_flash.items()},
+                            ragged_trfold_launches=widths["flash_launches"][part]))
+    return kernels
+
+
 def main():
     import numpy as np
     import torch
@@ -4071,7 +4391,7 @@ def main():
               file=sys.stderr)
         return 1
     modes = ("--flash-timing", "--tri-timing", "--pair-timing", "--grad-timing", "--serve", "--batch-api",
-             "--design", "--scale-out", "--model-parallel", "--host")
+             "--design", "--scale-out", "--model-parallel", "--host", "--widths")
     if sys.argv[1:] not in ([], *([m] for m in modes)):
         print(f"usage: python3 chip_smoke.py [{' | '.join(modes)}]", file=sys.stderr)
         return 2
@@ -4106,7 +4426,7 @@ def main():
         flash_attn.load_library()
         say(f"flash timing of {REPO}: {flash_attn.library_path().name} built or loaded in "
             f"{time.perf_counter() - t0:.2f} s")
-        for ln in ptxas_lines(flash_attn.library_path().with_suffix(".log")):
+        for ln in cuda_lib.ptxas_lines(flash_attn.library_path().with_suffix(".log")):
             say(f"  ptxas: {ln}")
         flash_phase13(torch, dev, flash_attn, smi)
         return 0
@@ -4140,7 +4460,7 @@ def main():
             list(ex.map(lambda load: load(), (pair_maps.load_library, tri_mul.load_library,
                                               flash_attn.load_library)))
         say(f"phase 21: K1, K4-K7 and K8/K9 built or loaded in {time.perf_counter() - t0:.2f} s")
-        for ln in ptxas_lines(cuda_lib.library_path("pair_maps", pair_maps._SOURCES).with_suffix(".log")):
+        for ln in cuda_lib.ptxas_lines(cuda_lib.library_path("pair_maps", pair_maps._SOURCES).with_suffix(".log")):
             say(f"  ptxas: {ln}")
         scale_out_phase(torch, np, dev, smi)
         return 0
@@ -4158,13 +4478,24 @@ def main():
         say(f"phase 23: K1 built or loaded in {time.perf_counter() - t0:.2f} s")
         host_phase(torch, np, dev, smi)
         return 0
+    if sys.argv[1:] == ["--widths"]:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda load: load(), (pair_maps.load_library, tri_mul.load_library,
+                                              flash_attn.load_library)))
+        say(f"phase 24: K1, K4-K7 and K8/K9 built or loaded in {time.perf_counter() - t0:.2f} s")
+        for lib in (tri_mul, flash_attn):
+            for ln in cuda_lib.ptxas_lines(lib.library_path().with_suffix(".log")):
+                say(f"  ptxas: {ln}")
+        width_phase(torch, np, dev, smi)
+        return 0
     if tri_only:
         t0 = time.perf_counter()
         pair_maps.load_library()
         tri_mul.load_library()
         say(f"tri timing of {REPO}: {tri_mul.library_path().name} built or loaded in "
             f"{time.perf_counter() - t0:.2f} s")
-        for ln in ptxas_lines(tri_mul.library_path().with_suffix(".log")):
+        for ln in cuda_lib.ptxas_lines(tri_mul.library_path().with_suffix(".log")):
             say(f"  ptxas: {ln}")
         feats, models, init = train_models(torch, dev, dict(TRAIN_WIDTH, dtype=torch.bfloat16),
                                            train_xyz(np))
@@ -4192,7 +4523,7 @@ def main():
         lib_path, how, build_s = builds[name]
         say(f"phase 2 build: {how} {lib_path.name} ({kernels}) in {build_s:.2f} s "
             f"({cuda_lib.find_nvcc()}, the {len(builds)} started together)")
-        for ln in ptxas_lines(lib_path.with_suffix(".log")):
+        for ln in cuda_lib.ptxas_lines(lib_path.with_suffix(".log")):
             say(f"  ptxas: {ln}")
 
     # -- 3. parity at small sizes ---------------------------------------------
@@ -4617,6 +4948,10 @@ def main():
     torch.cuda.empty_cache()
     host_phase(torch, np, dev, smi)
 
+    # -- 24. every width the JAX package takes ----------------------------------------------
+    torch.cuda.empty_cache()
+    widths = width_phase(torch, np, dev, smi)
+
     k1_bound = bound(slot_bytes(xyz, K1_SLOTS) + 6 * B_FULL * L_FULL ** 2 * 4,
                      K1_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
 
@@ -4720,6 +5055,7 @@ def main():
                             f32_step={"fused_ms": f32_step[True][0], "unfused_ms": f32_step[False][0],
                                       "fused_peak_gib": f32_step[True][1], "unfused_peak_gib": f32_step[False][1],
                                       "fused_busy_ms": f32_step[True][2], "unfused_busy_ms": f32_step[False][2]}))
+    kernels += width_entries(entry, widths)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

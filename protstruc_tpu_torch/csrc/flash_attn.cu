@@ -20,7 +20,25 @@
 //       and layout.  delta = sum(dO * out) and dq = ds k * scale are plain
 //       PyTorch outside the kernel, as in the JAX package.
 //
-// B*h runs along grid x (up to 2^31 - 1), the tiles along y.
+// B*h runs along grid x (up to 2^31 - 1), the tiles along y, and at dh 256
+// the two halves of the head dim along z.
+//
+// Head dims.  Built for dh 16, 32, 64, 128 and 256; the wrapper runs any dh
+// up to 256 on the next of these, its q, k, v and dO zero-padded (the Pallas
+// kernels take any dh as one block).  dh 256 (the [mfu-peak] width, node
+// 2048 over 8 heads) fits neither tiles nor registers as dh 128 does:
+// K8's f32 tiles would take 367,616 bytes of shared memory, K9's 284,160
+// (a block may have 232,448), and a warp's f32 output accumulator alone is
+// 128 registers a thread (K9's dk and dv 256).  So at dh 256 each block owns
+// half of the head dim (blockIdx.z): K8 reads the whole of Q and K for
+// q k^T but only its half of V, and writes its half of the output (the
+// z = 0 block the lse); K9 reads all of K, V, Q and dO for s^T and dp^T,
+// accumulates its half of dk and dv, and the z = 0 block writes ds.  The
+// products over the head dim (q k^T, dO v^T) and the exps are done twice:
+// a simple design that keeps dh 128's accumulators.  Q is read from shared
+// memory at each k step (bf16 too).  float32 K8 keeps one stage of its K,
+// V and bias ring (184,320 bytes), float32 K9 16-row query tiles (208,640);
+// bf16 keeps two stages and 32-row tiles (154,624 and 144,896 bytes).
 //
 // Rounding points follow the TPU kernels: products accumulate in float32;
 // p is cast to the value dtype before p v and p^T dO, ds to the query dtype
@@ -117,7 +135,9 @@
 // them); the rest do not.  K9: bf16 128/128/238/255, float32 255 at every
 // dh; bf16 dh 32 spills 132 bytes a thread (held to 128 registers for four
 // blocks an SM, it runs faster at [attn] than unbounded:
-// experiments/pair_tile_probe.py; PERF.md), the others 0-20 bytes.
+// experiments/pair_tile_probe.py; PERF.md), the others 0-20 bytes.  dh
+// 256: K8 bf16 223 (no spill), float32 255 (8 bytes spilled); K9 bf16 255
+// (20 bytes), float32 255 (none).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -223,16 +243,31 @@ __device__ __forceinline__ void copy_bias(T* dst, const T* bias, long long bi, l
   }
 }
 
+// The head-dim columns of the output (K8) and of dk and dv (K9) one block
+// owns: all of them up to dh 128; at dh 256 half, blockIdx.z choosing which,
+// so that the accumulators stay at dh 128's registers (a 16-row tile's f32
+// output over 256 columns alone is 128 registers a thread).  Both halves'
+// blocks compute the whole q k^T (and K9 the whole dO v^T): the products over
+// the head dim are computed twice, the softmax and its statistics come out
+// the same in both.
+template <int DH>
+constexpr int owned_dim() { return DH > 128 ? 128 : DH; }
+
 // K8's tiles: BQ query rows (16 a warp), a ring of two stages of K, V and
 // bias for 64 keys each, every row padded by 16 bytes (a third stage did not
-// help at [attn]; PERF.md)
+// help at [attn]; PERF.md).  V holds the block's DV columns.  float32 at dh
+// 256 takes one stage: two (302,080 bytes) pass the 232,448 a block may have.
 template <typename T, int DH>
 struct FwdTiles {
+  static constexpr int DV = owned_dim<DH>();
+  static constexpr int STAGES = (sizeof(T) == 4 && DH > 128) ? 1 : 2;
   static constexpr int BQ = kFwdWarps * 16;
-  static constexpr int RS = DH + 16 / (int)sizeof(T);   // Q, K, V tile row (elements)
+  static constexpr int RS = DH + 16 / (int)sizeof(T);   // Q, K tile row (elements)
+  static constexpr int RV = DV + 16 / (int)sizeof(T);   // V tile row
   static constexpr int BS = kBK + 16 / (int)sizeof(T);  // bias tile row
-  static constexpr int STAGE = 2 * kBK * RS + BQ * BS;  // elements of one ring stage
-  static constexpr int SMEM_BYTES = (BQ * RS + 2 * STAGE) * (int)sizeof(T);
+  static constexpr int KV = kBK * RS + kBK * RV;         // K and V elements of one ring stage
+  static constexpr int STAGE = KV + BQ * BS;            // elements of one ring stage
+  static constexpr int SMEM_BYTES = (BQ * RS + STAGES * STAGE) * (int)sizeof(T);
 };
 
 // bf16 at dh <= 32 fits 128 registers a thread, so 16 warps share an SM;
@@ -246,10 +281,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   using Tiles = FwdTiles<T, DH>;
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int NT = kFwdWarps * 32, BQ = Tiles::BQ, RS = Tiles::RS, BS = Tiles::BS;
+  constexpr int DV = Tiles::DV, RV = Tiles::RV, STAGES = Tiles::STAGES;
   constexpr int STAGE = Tiles::STAGE;
-  constexpr int NO = DH / 8;                     // n8 tiles of the output
+  constexpr int NO = DV / 8;                     // n8 tiles of the block's output
   constexpr int QK = kF32 ? DH / 8 : DH / 16;    // k steps of q k^T
-  constexpr bool kHoldQ = !kF32 || DH <= 64;     // f32 dh 128 reads Q from shared memory
+  // f32 dh 128 and 256, bf16 dh 256 read Q from shared memory
+  constexpr bool kHoldQ = kF32 ? DH <= 64 : DH <= 128;
   constexpr int QH = kHoldQ ? QK : 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -267,14 +304,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* biasb = bias + b * st.bb + h * st.bh;
   const uint8_t* kmb = kmask + (long long)b * L;
   const int n_tiles = (L + kBK - 1) / kBK;
+  // the block's first output column; its columns of V
+  const int hd0 = DV < DH ? blockIdx.z * DV : 0;
+  if constexpr (DV < DH) vb += hd0;
 
   auto stage_k = [&](int s) { return sq + BQ * RS + s * STAGE; };
   auto stage_v = [&](int s) { return sq + BQ * RS + s * STAGE + kBK * RS; };
-  auto stage_b = [&](int s) { return sq + BQ * RS + s * STAGE + 2 * kBK * RS; };
-  auto load_tile = [&](int jt) {  // key tile jt into ring stage jt & 1, one cp.async group
-    const int s = jt & 1, j0 = jt * kBK;
+  auto stage_b = [&](int s) { return sq + BQ * RS + s * STAGE + Tiles::KV; };
+  auto load_tile = [&](int jt) {  // key tile jt into its ring stage, one cp.async group
+    const int s = jt & (STAGES - 1), j0 = jt * kBK;
     copy_rows<T, DH, kBK, NT>(stage_k(s), kb, st.kl, j0, L, vec_qkv);
-    copy_rows<T, DH, kBK, NT>(stage_v(s), vb, st.vl, j0, L, vec_qkv);
+    copy_rows<T, DV, kBK, NT>(stage_v(s), vb, st.vl, j0, L, vec_qkv);
     copy_bias<T, BQ, NT>(stage_b(s), biasb, st.bi, st.bj, i0, j0, L, vec_bias);
     if (threadIdx.x < kBK) {
       const int j = j0 + threadIdx.x;
@@ -296,7 +336,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int jt = 0; jt < n_tiles; ++jt) {
     cp_async_wait_all();
     __syncthreads();  // tile jt landed for all; stage (jt + 1) & 1's readers are done
-    if (jt + 1 < n_tiles) load_tile(jt + 1);
+    if constexpr (STAGES == 2) {
+      if (jt + 1 < n_tiles) load_tile(jt + 1);
+    }
     if constexpr (kHoldQ) {
       if (jt == 0) {
 #pragma unroll
@@ -311,7 +353,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         }
       }
     }
-    const int s = jt & 1;
+    const int s = jt & (STAGES - 1);
     const T* sk = stage_k(s);
     const T* sv = stage_v(s);
     const T* sb = stage_b(s);
@@ -338,7 +380,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           split_tf32(kr[4], bf[1], bf[3]);
           mma_3xtf32(sc[nt], ab, as, bf);
         }
-      } else {
+      } else if constexpr (kHoldQ) {
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t kf[4];  // b0, b1 of n8 tiles 2np and 2np + 1
@@ -346,6 +388,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                           ((lane >> 3) & 1) * 8);
           mma_bf16(sc[2 * np], qa[kk], kf[0], kf[1]);
           mma_bf16(sc[2 * np + 1], qa[kk], kf[2], kf[3]);
+        }
+      } else {  // bf16 dh 256: Q's A fragment of this k step from shared memory
+        uint32_t qr[4];
+        ldsm_x4(qr, sq + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * RS + kk * 16 +
+                        (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t kf[4];
+          ldsm_x4(kf, sk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * RS + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * np], qr, kf[0], kf[1]);
+          mma_bf16(sc[2 * np + 1], qr, kf[2], kf[3]);
         }
       }
     }
@@ -413,9 +467,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           split_tf32(sc[nt][2], pb[1], ps[1]);
           split_tf32(sc[nt][1], pb[2], ps[2]);
           split_tf32(sc[nt][3], pb[3], ps[3]);
-          const float* vr = reinterpret_cast<const float*>(sv) + (nt * 8 + 2 * t) * RS + d * 8 + g;
+          const float* vr = reinterpret_cast<const float*>(sv) + (nt * 8 + 2 * t) * RV + d * 8 + g;
           split_tf32(vr[0], bf[0], bf[2]);
-          split_tf32(vr[RS], bf[1], bf[3]);
+          split_tf32(vr[RV], bf[1], bf[3]);
           mma_3xtf32(ot, pb, ps, bf);
         }
 #pragma unroll
@@ -430,13 +484,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                                 pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                                 pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t vf[4];  // b0, b1 of head-dim n8 tiles 2dp and 2dp + 1
-          ldsm_x4_trans(vf, sv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * RS + dp * 16 +
+          ldsm_x4_trans(vf, sv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * RV + dp * 16 +
                                 (lane >> 4) * 8);
           mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
           mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
         }
+      }
+    }
+    if constexpr (STAGES == 1) {
+      if (jt + 1 < n_tiles) {
+        __syncthreads();  // every warp is done with the one stage
+        load_tile(jt + 1);
       }
     }
   }
@@ -449,11 +509,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (i < L) {
       const bool has_keys = l[hr] > 0.0f;
       T* orow = out + (((long long)b * L + i) * H + h) * DH + 2 * t;
+      if constexpr (DV < DH) orow += hd0;
 #pragma unroll
       for (int d = 0; d < NO; ++d)
         store_pair(orow + d * 8, has_keys ? o[d][2 * hr] / l[hr] : 0.0f,
                    has_keys ? o[d][2 * hr + 1] / l[hr] : 0.0f);
-      if (t == 0) lse[(long long)bh * L + i] = has_keys ? (m[hr] + log2f(l[hr])) * kLn2 : kLseMasked;
+      if constexpr (DV == DH) {
+        if (t == 0) lse[(long long)bh * L + i] = has_keys ? (m[hr] + log2f(l[hr])) * kLn2 : kLseMasked;
+      } else {  // dh 256: the first half's block writes the lse
+        if (t == 0 && hd0 == 0)
+          lse[(long long)bh * L + i] = has_keys ? (m[hr] + log2f(l[hr])) * kLn2 : kLseMasked;
+      }
     }
   }
 }
@@ -465,9 +531,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // K9's shared memory: the block's 64 keys of K and V (resident), then a ring
 // of two stages, each one query tile: Q, dO, the (BQ x 64) bias tile (which
 // carries ds on its way out), lse and delta.  Rows are padded by 16 bytes.
+// float32 at dh 256 takes 16-row query tiles: 32 (284,160 bytes) pass the
+// 232,448 a block may have.
 template <typename T, int DH>
 struct BwdTiles {
-  static constexpr int BQ = DH >= 128 ? 32 : 64;                 // query rows a tile
+  static constexpr int DV = owned_dim<DH>();                     // dk and dv columns a block owns
+  static constexpr int BQ = DH >= 128 ? (sizeof(T) == 4 && DH > 128 ? 16 : 32) : 64;  // query rows a tile
   static constexpr int RS = DH + 16 / (int)sizeof(T);             // K, V, Q, dO tile row
   static constexpr int BS = kBK + 16 / (int)sizeof(T);            // bias (ds) tile row
   static constexpr int KV_BYTES = 2 * kBK * RS * (int)sizeof(T);
@@ -518,8 +587,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   using Tiles = BwdTiles<T, DH>;
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int NT = kBwdWarps * 32, BQ = Tiles::BQ, RS = Tiles::RS, BS = Tiles::BS;
+  constexpr int DV = Tiles::DV;
   constexpr int NQ = BQ / 8;                      // n8 tiles of s^T: the query tile
-  constexpr int ND = DH / 8;                      // n8 tiles of dk, dv: the head dim
+  constexpr int ND = DV / 8;                      // n8 tiles of the block's dk, dv columns
   constexpr int KS = kF32 ? DH / 8 : DH / 16;     // k steps over the head dim
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -545,6 +615,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float* lseb = lse + (long long)bh * L;
   const float* deltab = delta + (long long)bh * L;
   const int n_tiles = (L + BQ - 1) / BQ;
+  const int hd0 = DV < DH ? blockIdx.z * DV : 0;  // the block's first dk, dv column
 
   auto load_tile = [&](int it) {  // query tile it into ring stage it & 1, one cp.async group
     const int s = it & 1, i0 = it * BQ;
@@ -615,7 +686,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   // acc += P rows, P the C fragments of p^T or ds^T (16 keys x BQ queries),
   // rounded to T (bf16: packed into A fragments), rows the BQ rows of `rt`
-  // (dO or Q).  float32 sums the tile's product apart and adds it in float32.
+  // (dO or Q), their columns hd0.. hd0 + DV.  float32 sums the tile's product
+  // apart and adds it in float32.
   auto mma_p_rows = [&](float(&acc)[ND][4], const float(&p)[NQ][4], const T* rt) {
     if constexpr (kF32) {
 #pragma unroll
@@ -629,7 +701,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           split_tf32(p[nt][2], pb[1], ps[1]);
           split_tf32(p[nt][1], pb[2], ps[2]);
           split_tf32(p[nt][3], pb[3], ps[3]);
-          const float* r = reinterpret_cast<const float*>(rt) + (nt * 8 + 2 * t) * RS + d * 8 + g;
+          const float* r = reinterpret_cast<const float*>(rt) + (nt * 8 + 2 * t) * RS + hd0 + d * 8 + g;
           split_tf32(r[0], bf[0], bf[2]);
           split_tf32(r[RS], bf[1], bf[3]);
           mma_3xtf32(ot, pb, ps, bf);
@@ -645,9 +717,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                                 pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                                 pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           uint32_t f[4];  // b0, b1 of head-dim n8 tiles 2dp and 2dp + 1
-          ldsm_x4_trans(f, rt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * RS + dp * 16 +
+          ldsm_x4_trans(f, rt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * RS + hd0 + dp * 16 +
                                (lane >> 4) * 8);
           mma_bf16(acc[2 * dp], pa, f[0], f[1]);
           mma_bf16(acc[2 * dp + 1], pa, f[2], f[3]);
@@ -711,26 +783,29 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     mma_p_rows(dka, dsa, sq);  // dk += ds^T Q, ds in q's dtype
 
-    // ds out: over the bias entries this thread alone read, then the tile by rows
+    // ds out (by the blocks of the first dk, dv columns): over the bias
+    // entries this thread alone read, then the tile by rows
+    if (hd0 == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-      const int c = nt * 8 + 2 * t;
+      for (int nt = 0; nt < NQ; ++nt) {
+        const int c = nt * 8 + 2 * t;
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        T* br = sb + c * BS + key0 + 8 * hr;
-        br[0] = from_f<T>(dsa[nt][2 * hr]);
-        br[BS] = from_f<T>(dsa[nt][2 * hr + 1]);
+        for (int hr = 0; hr < 2; ++hr) {
+          T* br = sb + c * BS + key0 + 8 * hr;
+          br[0] = from_f<T>(dsa[nt][2 * hr]);
+          br[BS] = from_f<T>(dsa[nt][2 * hr + 1]);
+        }
       }
+      __syncthreads();
+      store_ds<T, BQ, NT>(dsb, sb, st.bi, st.bj, i0, j0, L, vec_ds);
     }
-    __syncthreads();
-    store_ds<T, BQ, NT>(dsb, sb, st.bi, st.bj, i0, j0, L, vec_ds);
   }
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int j = j0 + key0 + 8 * hr;
     if (j < L) {
-      const long long o = (((long long)b * L + j) * H + h) * DH + 2 * t;
+      const long long o = (((long long)b * L + j) * H + h) * DH + hd0 + 2 * t;
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
         store_pair(dk + o + d * 8, dka[d][2 * hr] * scale, dka[d][2 * hr + 1] * scale);
@@ -769,7 +844,7 @@ int fwd(int B, int H, int L, float scale, const void* q, const void* k, const vo
   auto kern = flash_fwd_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (L + Tiles::BQ - 1) / Tiles::BQ);
+  dim3 grid(B * H, (L + Tiles::BQ - 1) / Tiles::BQ, DH / Tiles::DV);
   kern<<<grid, kFwdWarps * 32, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
                                                (const T*)bias, kmask, H, L, scale, st, vec_qkv,
                                                vec_bias, (T*)out, lse);
@@ -792,7 +867,7 @@ int bwd(int B, int H, int L, float scale, const void* q, const void* k, const vo
   auto kern = flash_bwd_kernel<T, DH>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (L + kBK - 1) / kBK);
+  dim3 grid(B * H, (L + kBK - 1) / kBK, DH / BwdTiles<T, DH>::DV);
   kern<<<grid, kBwdWarps * 32, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
                                                (const T*)bias, kmask, (const T*)g, lse, delta, H,
                                                L, scale, st, vec_qkv, vec_bias, vec_ds, (T*)ds,
@@ -815,13 +890,15 @@ bool grid_fits(int B, int H, int L) {
     PS_CASE(CALL, 32)     \
     PS_CASE(CALL, 64)     \
     PS_CASE(CALL, 128)    \
+    PS_CASE(CALL, 256)    \
     default: return kErrUnsupported; \
   }
 
 }  // namespace
 
 // dtype 0 = float32, 1 = bfloat16 (q, k, v, bias and out alike); dh 16, 32,
-// 64 or 128.
+// 64, 128 or 256 (ops/flash_attn.py stages any other dh up to 256 into the
+// next of these, zero-padded, with scale 1/sqrt of its own dh).
 // `strides` holds the 16 element strides of Strides (the dO entries are not
 // read).  kmask: contiguous uint8 (B, L).  out: contiguous (B, L, H, dh);
 // lse: contiguous f32 (B, H, L).  Returns cudaGetLastError() (0 = launched)

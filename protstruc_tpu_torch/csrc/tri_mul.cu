@@ -36,6 +36,24 @@
 //                                               width in float32)
 // The backward routes end in the weight-gradient pass and the reductions.
 //
+// Any width C >= 1 (the Pallas kernels take any C as one (C, C) block).  The
+// tiles work on Cp = round_up(C, 16), the width the route is read at: a
+// ragged C comes staged by the wrapper (ops/tri_mul.py) into zero-padded
+// (N, Cp) rows and (Cp, Cp) weights, and the kernels are told C apart
+// (Plan::cl).  Zero columns add nothing to a LayerNorm's sums, to a product
+// or to a column sum, so only the LayerNorms' divisors (forward statistics,
+// the backward's mean(dxh) and mean(dxh xhat)) take C; xhat past C is not
+// zero, but its scale is, so dxh is zero there.  Columns past C of the
+// outputs are left to the wrapper, which cuts them off.  The resident
+// passes with a LayerNorm, and the resident weight-gradient pass, are built
+// twice (kRagged): at a multiple of 16 (Cp = C, no copy) they run the code
+// they ran before ragged widths were taken, the same SASS (one build reading
+// cl at run time moves bf16 K6's registers from 128 to 124, PERF.md); at a
+// ragged width their second build divides by cl (ln_divisor; the
+// weight-gradient pass runs ln_smem_rows over cl).  The wide route's
+// memory-bound LayerNorm kernels take the row width and the divisor as two
+// ints, one build.
+//
 // The resident passes.  One persistent block an SM (8 warps, K4 and K6 16;
 // grid min(tiles / warps, SMs)) copies its weights into shared memory once
 // (cp.async, padded a row: K4 and K5 wag, wap, wbg, wbp, 136 KB in bf16 at
@@ -143,9 +161,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // ---------------------------------------------------------------------------
 
 struct Plan {
-  int N, C;
+  int N, C;                // C: the width the tiles work on, round_up(cl, 16)
   int lds;                 // row stride of the resident weight-gradient pass's rows and s
   int njobs, tiles, chunks, chunk_rows, wg_tile, wg_rows;  // weight-gradient kernel
+  int cl;                  // the logical width: the LayerNorms' divisor (in the padding
+                           // before wg_smem, so Plan keeps its 72 bytes)
   size_t wg_smem;
   int resident, res_grid;  // the resident-weight rows pass (K4-K7) takes this shape
   size_t res_smem;
@@ -165,6 +185,15 @@ struct HostPlan {
   int rtiles;  // wide route: 128-row tiles
   long long off_vpart, off_wpart, off_stats, off_dsrc, off_s;
 };
+
+// The LayerNorms' divisor in a resident pass or the resident weight-gradient
+// pass: the tile width C at a multiple of 16 (the code those widths ran before
+// a ragged width was taken), the logical width cl at a ragged one.
+template <bool kRagged>
+__device__ __forceinline__ int ln_divisor(const Plan& p) {
+  if constexpr (kRagged) return p.cl;
+  else return p.C;
+}
 
 struct Carver {
   uintptr_t base;
@@ -333,8 +362,9 @@ __device__ __forceinline__ void res_load_stage(T* stage, const T* __restrict__ x
 // The forward half of a resident pass, shared by K4, K5 and K7.
 //
 // LayerNorm statistics of rows g, g + 8 of a 16-row tile in a ring stage:
-// f32, fast variance; each row's mean and 1/sigma.
-__device__ __forceinline__ void res_ln_stats(const bf16* xt, int ldx, int C, float (&mu)[2],
+// f32, fast variance; each row's mean and 1/sigma over its cl logical columns
+// (the C - cl columns past them are zero and add nothing).
+__device__ __forceinline__ void res_ln_stats(const bf16* xt, int ldx, int C, int cl, float (&mu)[2],
                                              float (&inv)[2]) {
   constexpr int KMAX = ResMax<bf16>::C / 16;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 16;
@@ -355,13 +385,13 @@ __device__ __forceinline__ void res_ln_stats(const bf16* xt, int ldx, int C, flo
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mu[h] = quad_sum(sum[h]) / C;
-    const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
+    mu[h] = quad_sum(sum[h]) / cl;
+    const float var = quad_sum(sq[h]) / cl - mu[h] * mu[h];
     inv[h] = rsqrtf(var + kEps);
   }
 }
 
-__device__ __forceinline__ void res_ln_stats(const float* xt, int ldx, int C, float (&mu)[2],
+__device__ __forceinline__ void res_ln_stats(const float* xt, int ldx, int C, int cl, float (&mu)[2],
                                              float (&inv)[2]) {
   constexpr int KMAX = ResMax<float>::C / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, nk = C / 8;
@@ -379,8 +409,8 @@ __device__ __forceinline__ void res_ln_stats(const float* xt, int ldx, int C, fl
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mu[h] = quad_sum(sum[h]) / C;
-    const float var = quad_sum(sq[h]) / C - mu[h] * mu[h];
+    mu[h] = quad_sum(sum[h]) / cl;
+    const float var = quad_sum(sq[h]) / cl - mu[h] * mu[h];
     inv[h] = rsqrtf(var + kEps);
   }
 }
@@ -420,9 +450,9 @@ __device__ __forceinline__ void res_ln_frag(const float* xt, int ldx, const floa
 // The tile's statistics and every step's A fragments (bf16), kept in registers.
 template <int KMAX>
 __device__ __forceinline__ void res_ln_frags(const bf16* xt, int ldx, const float* lns,
-                                             const float* lnb, int C, float (&mu)[2],
+                                             const float* lnb, int C, int cl, float (&mu)[2],
                                              float (&inv)[2], uint32_t (&sa)[KMAX][4]) {
-  res_ln_stats(xt, ldx, C, mu, inv);
+  res_ln_stats(xt, ldx, C, cl, mu, inv);
 #pragma unroll
   for (int kk = 0; kk < KMAX; ++kk)
     if (kk < C / 16) res_ln_frag(xt, ldx, lns, lnb, mu, inv, kk, sa[kk]);
@@ -431,10 +461,10 @@ __device__ __forceinline__ void res_ln_frags(const bf16* xt, int ldx, const floa
 // The same in float32 (split tf32 fragments).
 template <int KMAX>
 __device__ __forceinline__ void res_ln_frags(const float* xt, int ldx, const float* lns,
-                                             const float* lnb, int C, float (&mu)[2],
+                                             const float* lnb, int C, int cl, float (&mu)[2],
                                              float (&inv)[2], uint32_t (&sb)[KMAX][4],
                                              uint32_t (&ss)[KMAX][4]) {
-  res_ln_stats(xt, ldx, C, mu, inv);
+  res_ln_stats(xt, ldx, C, cl, mu, inv);
 #pragma unroll
   for (int k = 0; k < KMAX; ++k)
     if (k < C / 8) res_ln_frag(xt, ldx, lns, lnb, mu, inv, k, sb[k], ss[k]);
@@ -538,7 +568,7 @@ __device__ __forceinline__ void res_back_project(float (&ds)[NMAX][4], const flo
 template <int CW, int NMAX, typename T>
 __device__ __forceinline__ void res_ln_backward(const float (&ds)[NMAX][4], const T* xt, int ldx,
                                                 const float* lns, const float (&mu)[2],
-                                                const float (&inv)[2], int64_t r0, int N, int C,
+                                                const float (&inv)[2], int64_t r0, int N, int C, int cl,
                                                 T* __restrict__ dx, float (&vsx)[CW / 4],
                                                 float (&vsb)[CW / 4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -562,8 +592,8 @@ __device__ __forceinline__ void res_ln_backward(const float (&ds)[NMAX][4], cons
   float m1[2], m2[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    m1[rr] = quad_sum(s1[rr]) / C;
-    m2[rr] = quad_sum(s2[rr]) / C;
+    m1[rr] = quad_sum(s1[rr]) / cl;
+    m2[rr] = quad_sum(s2[rr]) / cl;
   }
   constexpr int PER = CW / 8;  // n8 tiles a chunk
 #pragma unroll
@@ -634,7 +664,7 @@ template <> struct ResFrag<bf16> { using type = uint32_t; };
 template <int V, typename T>
 __device__ __forceinline__ void res_backward_rows(const T* d, const T* w, int ldw, const T* xt,
                                                   int ldx, const float* lns, const float (&mu)[2],
-                                                  const float (&inv)[2], int64_t r0, int N, int C,
+                                                  const float (&inv)[2], int64_t r0, int N, int C, int cl,
                                                   T* __restrict__ dx, float (&vsx)[V],
                                                   float (&vsb)[V]) {
   constexpr int CW = 4 * V, NCH = ResMax<T>::C / CW;  // chunk width, chunks at most
@@ -647,7 +677,7 @@ __device__ __forceinline__ void res_backward_rows(const T* d, const T* w, int ld
 #pragma unroll
   for (int nc = 0; nc < NCH; ++nc)
     if (nc < nch) res_back_project(ds, f[nc], w, ldw, C, CW * nc);
-  res_ln_backward<CW>(ds, xt, ldx, lns, mu, inv, r0, N, C, dx, vsx, vsb);
+  res_ln_backward<CW>(ds, xt, ldx, lns, mu, inv, r0, N, C, cl, dx, vsx, vsb);
 }
 
 // K5 rows pass with the four weights resident in shared memory.  Warp w of
@@ -660,17 +690,14 @@ __device__ __forceinline__ void res_backward_rows(const T* d, const T* w, int ld
 // 2t + 8 and 2t + 9: the C fragments of s @ W, which, packed to bf16, are the
 // A fragments of the back-projection, so dpre never leaves the registers
 // before its cast and its store to the scratch.
-template <typename T>
-__global__ void prologue_bwd_resident_kernel(RowArgs<T> a, Plan p);
-
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
+prologue_bwd_resident_kernel(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
   ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kProBwd), res_nsrc(kProBwd), &sm);
   constexpr int KMAX = ResMax<bf16>::C / 16;  // k16 steps, and 16-column chunks, at most
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
@@ -700,7 +727,7 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 
     float mu[2], inv[2], mrow[2];
     uint32_t sa[KMAX][4];
-    res_ln_frags(xt, ldx, lns, lnb, C, mu, inv, sa);
+    res_ln_frags(xt, ldx, lns, lnb, C, cl, mu, inv, sa);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t row = r0 + g + 8 * h;
@@ -795,7 +822,7 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
         }
       }
     }
-    res_ln_backward<16>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs[0], vs[1]);
+    res_ln_backward<16>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, cl, a.out[0], vs[0], vs[1]);
   }
   res_store_partial<16>(sm, vs, C, a.vec_part);
 }
@@ -807,14 +834,14 @@ prologue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 // 2t + 1) is the A fragment of its back-projection when that product runs
 // its k index as (0, 2, 4, 6, 1, 3, 5, 7) on dpre and on W^T alike, so dpre
 // stays in registers.  W's fragments are read by hand from shared memory.
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
+prologue_bwd_resident_kernel(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
   ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kProBwd), res_nsrc(kProBwd), &sm);
   constexpr int KMAX = ResMax<float>::C / 8;  // k8 steps, and 8-column chunks, at most
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
@@ -842,7 +869,7 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 
     float mu[2], inv[2], mrow[2];
     uint32_t sb[KMAX][4], ss[KMAX][4];
-    res_ln_frags(xt, ldx, lns, lnb, C, mu, inv, sb, ss);
+    res_ln_frags(xt, ldx, lns, lnb, C, cl, mu, inv, sb, ss);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t row = r0 + g + 8 * h;
@@ -928,7 +955,7 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
         }
       }
     }
-    res_ln_backward<8>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, a.out[0], vs[0], vs[1]);
+    res_ln_backward<8>(ds, xt, ldx, lns, mu, inv, r0, p.N, C, cl, a.out[0], vs[0], vs[1]);
   }
   res_store_partial<8>(sm, vs, C, a.vec_part);
 }
@@ -940,17 +967,14 @@ prologue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 // registers: 16 warps a block, each loading its tile's rows into a
 // one-stage ring and waiting for them (more warps in flight beat 8 warps
 // with a two-stage ring, PERF.md).
-template <typename T>
-__global__ void prologue_fwd_resident_kernel(RowArgs<T> a, Plan p);
-
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kFwdWarps * 32, 1)
-prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
+prologue_fwd_resident_kernel(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
   ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kProFwd), res_nsrc(kProFwd), &sm);
   constexpr int KMAX = ResMax<bf16>::C / 16;
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
@@ -970,7 +994,7 @@ prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 
     float mu[2], inv[2], mrow[2];
     uint32_t sa[KMAX][4];
-    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu, inv, sa);
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, cl, mu, inv, sa);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t row = r0 + g + 8 * h;
@@ -1004,14 +1028,14 @@ prologue_fwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 
 // The float32 K4, on 3xTF32 over 8-column chunks, a's two products and then
 // b's (as K5's float32 pass).
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kFwdWarps * 32, 1)
-prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
+prologue_fwd_resident_kernel(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
   ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kProFwd), res_nsrc(kProFwd), &sm);
   constexpr int KMAX = ResMax<float>::C / 8;
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
@@ -1031,7 +1055,7 @@ prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 
     float mu[2], inv[2], mrow[2];
     uint32_t sb[KMAX][4], ss[KMAX][4];
-    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu, inv, sb, ss);
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, cl, mu, inv, sb, ss);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t row = r0 + g + 8 * h;
@@ -1072,17 +1096,14 @@ prologue_fwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 // backward (dx), then dt = du @ Wo^T, du read back from the scratch
 // (res_backward_rows; keeping it in registers spilled), and LN2's backward
 // (dp).
-template <typename T>
-__global__ void epilogue_bwd_resident_kernel(RowArgs<T> a, Plan p);
-
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-epilogue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
+epilogue_bwd_resident_kernel(RowArgs<bf16> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<bf16> sm;
   ResSmem<bf16>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiBwd), res_nsrc(kEpiBwd), &sm);
   constexpr int KMAX = ResMax<bf16>::C / 16;
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<bf16>(C), nk = C / 16, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
@@ -1117,8 +1138,8 @@ epilogue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
 
     float mu[2][2], inv[2][2];  // LN1's, LN2's
     uint32_t sa[KMAX][4];       // s, kept; t is rebuilt a step at a time from p's rows
-    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu[0], inv[0], sa);
-    res_ln_stats(pt, ldx, C, mu[1], inv[1]);
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, cl, mu[0], inv[0], sa);
+    res_ln_stats(pt, ldx, C, cl, mu[1], inv[1]);
 
     float ds[2 * KMAX][4] = {};  // dsrc = dpre @ Wog^T, chunk by chunk
     for (int nc = 0; nc < nk; ++nc) {
@@ -1184,22 +1205,22 @@ epilogue_bwd_resident_kernel<bf16>(RowArgs<bf16> a, Plan p) {
           }
         }
     }
-    res_ln_backward<16>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, a.out[0], vs[0], vs[1]);
-    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, a.out[1], vs[3], vs[4]);
+    res_ln_backward<16>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, cl, a.out[0], vs[0], vs[1]);
+    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, cl, a.out[1], vs[3], vs[4]);
   }
   res_store_partial<16>(sm, vs, C, a.vec_part);
 }
 
 // The float32 K7 rows pass, the same walk on 3xTF32 over 8-column chunks;
 // s and t as split tf32 A fragments (big, small), t rebuilt a step at a time.
-template <>
+template <bool kRagged>
 __global__ void __launch_bounds__(kResWarps * 32, 1)
-epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
+epilogue_bwd_resident_kernel(RowArgs<float> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<float> sm;
   ResSmem<float>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiBwd), res_nsrc(kEpiBwd), &sm);
   constexpr int KMAX = ResMax<float>::C / 8;
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8;
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<float>(C), nk = C / 8, cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kResWarps + warp;
@@ -1232,8 +1253,8 @@ epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 
     float mu[2][2], inv[2][2];
     uint32_t sb[KMAX][4], ss[KMAX][4];  // s, kept; t rebuilt a step at a time
-    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, mu[0], inv[0], sb, ss);
-    res_ln_stats(pt, ldx, C, mu[1], inv[1]);
+    res_ln_frags(xt, ldx, sm.vec, sm.vec + C, C, cl, mu[0], inv[0], sb, ss);
+    res_ln_stats(pt, ldx, C, cl, mu[1], inv[1]);
 
     float ds[KMAX][4] = {};  // dsrc = dpre @ Wog^T, chunk by chunk
     for (int nc = 0; nc < nk; ++nc) {
@@ -1283,8 +1304,8 @@ epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
       }
       res_back_project(ds, dpre, wog, ldw, C, n0);
     }
-    res_ln_backward<8>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, a.out[0], vs[0], vs[1]);
-    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, a.out[1], vs[3], vs[4]);
+    res_ln_backward<8>(ds, xt, ldx, sm.vec, mu[0], inv[0], r0, p.N, C, cl, a.out[0], vs[0], vs[1]);
+    res_backward_rows(duo, wo, ldw, pt, ldx, sm.vec + 3 * C, mu[1], inv[1], r0, p.N, C, cl, a.out[1], vs[3], vs[4]);
   }
   res_store_partial<8>(sm, vs, C, a.vec_part);
 }
@@ -1294,10 +1315,10 @@ epilogue_bwd_resident_kernel<float>(RowArgs<float> a, Plan p) {
 // column 8k + t + 4 (i >> 1).
 template <int KMAX>
 __device__ __forceinline__ void res_ln_vals(const float* xt, int ldx, const float* lns,
-                                            const float* lnb, int C, float (&v)[KMAX][4]) {
+                                            const float* lnb, int C, int cl, float (&v)[KMAX][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float mu[2], inv[2];
-  res_ln_stats(xt, ldx, C, mu, inv);
+  res_ln_stats(xt, ldx, C, cl, mu, inv);
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
     if (k < C / 8) {
@@ -1322,10 +1343,10 @@ template <> struct EpiFwdFrags<bf16> {
   static constexpr int KMAX = ResMax<bf16>::C / 16;
   uint32_t sa[KMAX][4], ta[KMAX][4];
 
-  __device__ __forceinline__ void build(const bf16* xt, int ldx, const float* vec, int C) {
+  __device__ __forceinline__ void build(const bf16* xt, int ldx, const float* vec, int C, int cl) {
     float mu[2], inv[2];
-    res_ln_frags(xt, ldx, vec, vec + C, C, mu, inv, sa);
-    res_ln_frags(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, mu, inv, ta);
+    res_ln_frags(xt, ldx, vec, vec + C, C, cl, mu, inv, sa);
+    res_ln_frags(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, cl, mu, inv, ta);
   }
 
   __device__ __forceinline__ void products(const bf16* w, int ldw, int C, int n0,
@@ -1356,9 +1377,9 @@ template <> struct EpiFwdFrags<float> {
   static constexpr int KMAX = ResMax<float>::C / 8;
   float sa[KMAX][4], ta[KMAX][4];
 
-  __device__ __forceinline__ void build(const float* xt, int ldx, const float* vec, int C) {
-    res_ln_vals(xt, ldx, vec, vec + C, C, sa);
-    res_ln_vals(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, ta);
+  __device__ __forceinline__ void build(const float* xt, int ldx, const float* vec, int C, int cl) {
+    res_ln_vals(xt, ldx, vec, vec + C, C, cl, sa);
+    res_ln_vals(xt + 16 * ldx, ldx, vec + 3 * C, vec + 4 * C, C, cl, ta);
   }
 
   __device__ __forceinline__ void products(const float* w, int ldw, int C, int n0,
@@ -1397,13 +1418,13 @@ template <> struct EpiFwdFrags<float> {
 // run.  Per 16-column chunk: g's and u's pre-activations (four independent
 // accumulators), out = sigmoid(pre_g + bog) (pre_u + bo) on the C fragments
 // (rows g, g + 8, columns n0 + 8j + 2t, + 1), stored as pairs below N.
-template <typename T>
+template <typename T, bool kRagged>
 __global__ void __launch_bounds__(kFwdWarps * 32, 1)
 epilogue_fwd_resident_kernel(RowArgs<T> a, Plan p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ResSmem<T> sm;
   ResSmem<T>::carve((uintptr_t)smem_raw, p.C, res_nw(kEpiFwd), res_nsrc(kEpiFwd), &sm);
-  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<T>(C);
+  const int C = p.C, ldw = res_ldw(C), ldx = res_ldx<T>(C), cl = ln_divisor<kRagged>(p);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int64_t ntiles = ((int64_t)p.N + 15) / 16;
   const int64_t first = (int64_t)blockIdx.x * kFwdWarps + warp;
@@ -1421,7 +1442,7 @@ epilogue_fwd_resident_kernel(RowArgs<T> a, Plan p) {
     cp_async_wait_all();
     __syncwarp();  // this tile's rows landed
     EpiFwdFrags<T> f;
-    f.build(xt, ldx, sm.vec, C);
+    f.build(xt, ldx, sm.vec, C, cl);
     __syncwarp();  // every lane has read the stage: the next tile's rows may land in it
     if (tile + stride < ntiles) res_load_stage(xt, a.x, a.aux, (tile + stride) * 16, p.N, C, ldx);
     const int64_t r0 = tile * 16;
@@ -1668,7 +1689,7 @@ __device__ void ln_smem_rows(const T* x, int R, int C, const T* __restrict__ sc,
   }
 }
 
-template <typename T, bool kFromS>
+template <typename T, bool kFromS, bool kRagged = false>
 __device__ __forceinline__ void wgrad_body(const WgradArgs<T>& a, const Plan& p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   WgradSmem<T> sm;
@@ -1712,7 +1733,10 @@ __device__ __forceinline__ void wgrad_body(const WgradArgs<T>& a, const Plan& p)
     if constexpr (kFromS) {
       wgrad_products<true>(acc, sm.x + st * R * lds, lds, sm.d + st * R * ldd, ldd, 0, mt, R);
     } else {
-      ln_smem_rows<T>(sm.x + st * R * lds, R, C, a.sc[job], a.bi[job], sm.s, lds);
+      // a ragged width's LayerNorm runs over its logical width cl (the rows
+      // are zero past it); the columns of s past cl's last 16-byte piece stay
+      // unwritten and reach only the rows of dW past cl, which are cut off
+      ln_smem_rows<T>(sm.x + st * R * lds, R, ln_divisor<kRagged>(p), a.sc[job], a.bi[job], sm.s, lds);
       __syncthreads();
       wgrad_products<false>(acc, sm.s, lds, sm.d + st * R * ldd, ldd, m0, mt, R);
     }
@@ -1737,6 +1761,12 @@ __device__ __forceinline__ void wgrad_body(const WgradArgs<T>& a, const Plan& p)
 template <typename T, bool kFromS>
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(WgradArgs<T> a, Plan p) {
   wgrad_body<T, kFromS>(a, p);
+}
+
+// The resident route's pass at a ragged width (its LayerNorm divides by cl).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wgrad_ragged_kernel(WgradArgs<T> a, Plan p) {
+  wgrad_body<T, false, true>(a, p);
 }
 
 // The wide route's float32 pass at two blocks an SM: 128 registers (with
@@ -2043,7 +2073,8 @@ __device__ __forceinline__ void wide_copy(T* dst, int ldd, const T* __restrict__
 }
 
 // Step 1: the LayerNorm of job blockIdx.y's rows into a plane in T, and each
-// row's mean and 1/sigma: one warp a row, the row read in pairs.
+// row's mean and 1/sigma: one warp a row, the row read in pairs.  Rows are C
+// wide (the tile width); the statistics divide by the logical width cl.
 template <typename T>
 struct WideLnArgs {
   const T* src[2];
@@ -2055,7 +2086,7 @@ struct WideLnArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs<T> a, int N, int C) {
+__global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs<T> a, int N, int C, int cl) {
   const int job = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const T* __restrict__ sc = a.sc[job];
   const T* __restrict__ bi = a.bi[job];
@@ -2069,8 +2100,8 @@ __global__ void __launch_bounds__(kWideLnRows * 32) wide_ln_kernel(WideLnArgs<T>
       sum += v0 + v1;
       sq += v0 * v0 + v1 * v1;
     }
-    const float mu = warp_sum(sum) / C;
-    const float inv = rsqrtf(warp_sum(sq) / C - mu * mu + kEps);
+    const float mu = warp_sum(sum) / cl;
+    const float inv = rsqrtf(warp_sum(sq) / cl - mu * mu + kEps);
     T* s = a.s[job] + row * C;
     for (int c = 2 * lane; c < C; c += 64) {
       float v0, v1, s0, s1, b0, b1;
@@ -2144,7 +2175,8 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_gate_kernel(WideGateArgs
   auto epilogue = [&](int64_t tile, const WideAcc<false>& acc) {
     const int nt = (int)(tile % nct), job = (int)((tile / nct) % a.njobs);
     const int64_t mt = tile / ((int64_t)nct * a.njobs);
-    // this warp's 16 columns: all past C, or none (C % 16 == 0)
+    // this warp's 16 columns: all past C, or none (C is a multiple of 16: a
+    // ragged width comes staged to round_up(cl, 16), zero past cl)
     const int n0 = nt * kWideGateN + 16 * wn;
     if constexpr (kFwd) {  // the gates
       if (n0 >= C) return;
@@ -2288,7 +2320,8 @@ __global__ void __launch_bounds__(kWideThreads, 2) wide_back_kernel(WideBackArgs
 // mean(dxh) - xhat mean(dxh xhat)), dxh = dsrc scale.  The warps take rows
 // for the two row means; then each thread owns column pairs and walks the
 // tile's rows in order for dx and the tile's column sums of dsrc * xhat and
-// dsrc (slots va, vb of the vector partials).
+// dsrc (slots va, vb of the vector partials).  Rows C wide, the means over
+// the logical width cl.
 template <typename T>
 struct WideLnBwdArgs {
   const float* dsrc;
@@ -2302,7 +2335,7 @@ struct WideLnBwdArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs<T> a, int N, int C) {
+__global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs<T> a, int N, int C, int cl) {
   __shared__ float rmu[kWideBM], rinv[kWideBM], rm1[kWideBM], rm2[kWideBM];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t tile = blockIdx.x, r0 = tile * kWideBM;
@@ -2325,8 +2358,8 @@ __global__ void __launch_bounds__(kWideThreads) wide_ln_bwd_kernel(WideLnBwdArgs
     if (lane == 0) {
       rmu[r] = mu;
       rinv[r] = inv;
-      rm1[r] = s1 / C;
-      rm2[r] = s2 / C;
+      rm1[r] = s1 / cl;
+      rm2[r] = s2 / cl;
     }
   }
   __syncthreads();
@@ -2374,17 +2407,21 @@ bool aligned16(const void* const (&ptrs)[K]) {
 }
 
 // Tiles, grids and scratch for one call.  Deterministic for a given device,
-// kind, dtype, N and C, so the launch recomputes what the workspace query
-// returned.  The route is a function of kind, dtype and C alone (the table
-// at the top).  Returns kErrUnsupportedC when C is not a multiple of 16 or
-// its tiles do not fit in shared memory.
+// kind, dtype, N and the logical width cl, so the launch recomputes what the
+// workspace query returned.  The tiles work on C = round_up(cl, 16): the
+// caller's tensors are that wide, zero past cl (ops/tri_mul.py stages a
+// ragged width so), and only the LayerNorms divide by cl.  The route is a
+// function of kind, dtype and C alone (the table at the top).  Returns
+// kErrUnsupportedC when cl < 1 or the tiles do not fit in shared memory.
 template <typename T>
-int make_plan(int device, int kind, int N, int C, Plan* out, HostPlan* host) {
-  if (C < 16 || C % 16 != 0 || N < 0) return kErrUnsupportedC;
+int make_plan(int device, int kind, int N, int cl, Plan* out, HostPlan* host) {
+  if (cl < 1 || N < 0) return kErrUnsupportedC;
+  const int C = (cl + 15) / 16 * 16;
   Plan p{};
   HostPlan h{};
   p.N = N;
   p.C = C;
+  p.cl = cl;
   p.lds = C + kPadT;
   p.res_smem = ResSmem<T>::carve(0, C, res_nw(kind), res_nsrc(kind), nullptr);
   p.resident = C <= ResMax<T>::C && p.res_smem <= kSmemLimit;
@@ -2487,7 +2524,7 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T*
   }
   const long long ln_need = ((long long)N + kWideLnRows - 1) / kWideLnRows;
   const int ln_grid = (int)(ln_need < 64LL * h.nsm ? ln_need : 64LL * h.nsm);
-  wide_ln_kernel<T><<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C);
+  wide_ln_kernel<T><<<dim3(ln_grid, nln), kWideLnRows * 32, 0, st>>>(ln, N, C, p.cl);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 2. the gate products, then the gates (forward: a and b, or out) or the
   // gate backward (dpre planes, column sums)
@@ -2539,7 +2576,7 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T*
     lb.vpart = vpart;
     lb.va = 3 * j;
     lb.vb = 3 * j + 1;
-    wide_ln_bwd_kernel<T><<<h.rtiles, kWideThreads, 0, st>>>(lb, N, C);
+    wide_ln_bwd_kernel<T><<<h.rtiles, kWideThreads, 0, st>>>(lb, N, C, p.cl);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   // 5. weight gradients from the LayerNorm planes
@@ -2560,14 +2597,62 @@ int run_wide(const Plan& p, const HostPlan& h, int kind, const RowArgs<T>& a, T*
   return (int)cudaGetLastError();
 }
 
-// Launch the rows kernel of `kind` (the wide route: its chain), then
-// (backward) the weight-gradient pass and the two reductions.  ptrs follow
-// the C entry points' order after the dtype, N and C arguments.
+// A resident rows pass: the kernels of both dtypes are overloads on RowArgs<T>,
+// picked by the pointer's type.
+template <typename T> using RowsKernel = void (*)(RowArgs<T>, Plan);
+
 template <typename T>
-int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) {
+int launch_rows(RowsKernel<T> kernel, int warps, const Plan& p, const RowArgs<T>& a, cudaStream_t st) {
+  const cudaError_t err = set_smem(kernel, p.res_smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<p.res_grid, warps * 32, p.res_smem, st>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+// The resident route of `kind`: its rows pass, then (backward) the
+// weight-gradient pass and the two reductions; kRagged when the logical
+// width is not the tile width (ln_divisor).
+template <typename T, bool kRagged>
+int run_resident(const Plan& p, int kind, const RowArgs<T>& a, T* dvec, T* dmat, float* work,
+                 cudaStream_t st) {
+  if (kind == kEpiFwd) return launch_rows<T>(epilogue_fwd_resident_kernel<T, kRagged>, kFwdWarps, p, a, st);
+  if (kind == kProFwd) return launch_rows<T>(prologue_fwd_resident_kernel<kRagged>, kFwdWarps, p, a, st);
+  const bool pro = kind == kProBwd;
+  int rc = pro ? launch_rows<T>(prologue_bwd_resident_kernel<kRagged>, kResWarps, p, a, st)
+               : launch_rows<T>(epilogue_bwd_resident_kernel<kRagged>, kResWarps, p, a, st);
+  if (rc != 0) return rc;
+
+  const int N = p.N, C = p.C;
+  cudaError_t err;
+  WgradArgs<T> g{};
+  for (int j = 0; j < p.njobs; ++j) {
+    const bool second = !pro && j == 1;  // epilogue: dWo from LN2(prod)
+    g.src[j] = second ? a.aux : a.x;
+    g.sc[j] = second ? a.vec[3] : a.vec[0];
+    g.bi[j] = second ? a.vec[4] : a.vec[1];
+    g.d[j] = a.dpre + (size_t)j * N * C;
+  }
+  g.part = work + (size_t)p.res_grid * 6 * C;
+  const auto wgrad = kRagged ? wgrad_ragged_kernel<T> : wgrad_kernel<T, false>;
+  if ((err = set_smem(wgrad, p.wg_smem)) != cudaSuccess) return (int)err;
+  wgrad<<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
+  reduce_kernel<T><<<(int)((mv + 255) / 256), 256, 0, st>>>(work, p.res_grid, mv, dvec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  reduce_kernel<T><<<(int)((mm + 255) / 256), 256, 0, st>>>(g.part, p.chunks, mm, dmat);
+  return (int)cudaGetLastError();
+}
+
+// Launch kernel `kind`: the wide route's chain, or the resident route's
+// passes.  ptrs follow the C entry points' order after the dtype, N and C
+// arguments.
+template <typename T>
+int run(int device, int kind, int N, int cl, void* const* ptrs, cudaStream_t st) {
   Plan p;
   HostPlan h;
-  int rc = make_plan<T>(device, kind, N, C, &p, &h);
+  int rc = make_plan<T>(device, kind, N, cl, &p, &h);
   if (rc != 0) return rc;
   if (N == 0) return 0;
   const bool pro = kind <= kProBwd;
@@ -2583,75 +2668,45 @@ int run(int device, int kind, int N, int C, void* const* ptrs, cudaStream_t st) 
   for (int i = 0; i < 6; ++i) a.vec[i] = (const T*)w[pro ? kProVec[i] : kEpiVec[i]];
   for (int i = 0; i < (pro ? 4 : 2); ++i) a.mat[i] = (const T*)w[pro ? kProMat[i] : kEpiMat[i]];
   void* const* rest = ptrs + 2 + nw;
-  cudaError_t err;
+  T* dvec = nullptr;
+  T* dmat = nullptr;
+  float* work;
   // the resident passes and the weight-gradient pass copy rows and weights
   // in 16-byte pieces (cp.async), and read cotangents and write outputs in
   // pairs: the wrappers hand all of them over 16-byte aligned
-  // forward: the outputs, then the f32 workspace (the wide route's)
-  if (kind == kEpiFwd) {
+  if (kind == kEpiFwd) {  // forward: the outputs, then the f32 workspace (the wide route's)
     a.out[0] = (T*)rest[0];
+    work = (float*)rest[1];
     const void* need[] = {a.x, a.aux, a.mat[0], a.mat[1], a.out[0]};
     if (!aligned16(need)) return kErrBadArgs;
-    if (!p.resident) return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[1], st);
-    if ((err = set_smem(epilogue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-    epilogue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
-    return (int)cudaGetLastError();
-  }
-  if (kind == kProFwd) {
+  } else if (kind == kProFwd) {
     a.out[0] = (T*)rest[0];
     a.out[1] = (T*)rest[1];
+    work = (float*)rest[2];
     const void* need[] = {a.x, a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.out[1]};
     if (!aligned16(need)) return kErrBadArgs;
-    if (!p.resident) return run_wide<T>(p, h, kind, a, nullptr, nullptr, (float*)rest[2], st);
-    if ((err = set_smem(prologue_fwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-    prologue_fwd_resident_kernel<T><<<p.res_grid, kFwdWarps * 32, p.res_smem, st>>>(a, p);
-    return (int)cudaGetLastError();
-  }
-  // backward: cotangents, grads of the rows, dvec (6, C), dmat (njobs, C, C),
-  // dpre scratch (njobs, N, C), f32 workspace
-  const int nct = pro ? 2 : 1, nout = pro ? 1 : 2;
-  for (int i = 0; i < nct; ++i) a.ct[i] = (const T*)rest[i];
-  for (int i = 0; i < nout; ++i) a.out[i] = (T*)rest[nct + i];
-  T* dvec = (T*)rest[nct + nout];
-  T* dmat = (T*)rest[nct + nout + 1];
-  a.dpre = (T*)rest[nct + nout + 2];
-  float* work = (float*)rest[nct + nout + 3];
-  a.vec_part = work;
-  if (pro) {
-    const void* need[] = {a.x, a.ct[0], a.ct[1], a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.dpre};
-    if (!aligned16(need)) return kErrBadArgs;
   } else {
-    const void* need[] = {a.x, a.aux, a.ct[0], a.mat[0], a.mat[1], a.out[0], a.out[1], a.dpre};
-    if (!aligned16(need)) return kErrBadArgs;
+    // backward: cotangents, grads of the rows, dvec (6, C), dmat (njobs, C,
+    // C), dpre scratch (njobs, N, C), f32 workspace
+    const int nct = pro ? 2 : 1, nout = pro ? 1 : 2;
+    for (int i = 0; i < nct; ++i) a.ct[i] = (const T*)rest[i];
+    for (int i = 0; i < nout; ++i) a.out[i] = (T*)rest[nct + i];
+    dvec = (T*)rest[nct + nout];
+    dmat = (T*)rest[nct + nout + 1];
+    a.dpre = (T*)rest[nct + nout + 2];
+    work = (float*)rest[nct + nout + 3];
+    a.vec_part = work;
+    if (pro) {
+      const void* need[] = {a.x, a.ct[0], a.ct[1], a.mat[0], a.mat[1], a.mat[2], a.mat[3], a.out[0], a.dpre};
+      if (!aligned16(need)) return kErrBadArgs;
+    } else {
+      const void* need[] = {a.x, a.aux, a.ct[0], a.mat[0], a.mat[1], a.out[0], a.out[1], a.dpre};
+      if (!aligned16(need)) return kErrBadArgs;
+    }
   }
   if (h.route == kRouteWide) return run_wide<T>(p, h, kind, a, dvec, dmat, work, st);
-  if (pro) {
-    if ((err = set_smem(prologue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-    prologue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-  } else {
-    if ((err = set_smem(epilogue_bwd_resident_kernel<T>, p.res_smem)) != cudaSuccess) return (int)err;
-    epilogue_bwd_resident_kernel<T><<<p.res_grid, kResWarps * 32, p.res_smem, st>>>(a, p);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  WgradArgs<T> g{};
-  for (int j = 0; j < p.njobs; ++j) {
-    const bool second = !pro && j == 1;  // epilogue: dWo from LN2(prod)
-    g.src[j] = second ? a.aux : a.x;
-    g.sc[j] = second ? a.vec[3] : a.vec[0];
-    g.bi[j] = second ? a.vec[4] : a.vec[1];
-    g.d[j] = a.dpre + (size_t)j * N * C;
-  }
-  g.part = work + (size_t)p.res_grid * 6 * C;
-  if ((err = set_smem(wgrad_kernel<T, false>, p.wg_smem)) != cudaSuccess) return (int)err;
-  wgrad_kernel<T, false><<<p.chunks * p.njobs * p.tiles, kThreads, p.wg_smem, st>>>(g, p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int64_t mv = 6LL * C, mm = (int64_t)p.njobs * C * C;
-  reduce_kernel<T><<<(int)((mv + 255) / 256), 256, 0, st>>>(work, p.res_grid, mv, dvec);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_kernel<T><<<(int)((mm + 255) / 256), 256, 0, st>>>(g.part, p.chunks, mm, dmat);
-  return (int)cudaGetLastError();
+  return p.cl == p.C ? run_resident<T, false>(p, kind, a, dvec, dmat, work, st)
+                     : run_resident<T, true>(p, kind, a, dvec, dmat, work, st);
 }
 
 int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, void* stream) {
@@ -2666,9 +2721,9 @@ int dispatch(int device, int kind, int dtype, int N, int C, void* const* ptrs, v
 }  // namespace
 
 // Scratch that `kind` (0 K4, 1 K5, 2 K6, 3 K7) needs, in floats, for dtype
-// (0 f32, 1 bf16) at N rows of width C: every backward's, and the wide
-// route's forward (its LayerNorm planes and statistics; 0 on the resident
-// route).  Returns 0, or -1 when C is not supported.
+// (0 f32, 1 bf16) at N rows of logical width C: every backward's, and the
+// wide route's forward (its LayerNorm planes and statistics; 0 on the
+// resident route).  Returns 0, or -1 when C is not supported.
 extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
                                 long long* work_floats) {
   Plan p;
@@ -2679,8 +2734,8 @@ extern "C" int ps_tri_workspace(int device, int kind, int dtype, int N, int C,
 }
 
 // The rows pass that `kind` (0 K4, 1 K5, 2 K6, 3 K7) takes for dtype (0 f32,
-// 1 bf16) at width C, into *route: 0 resident, 1 wide (the
-// table at the top; N does not change it).  Returns 0, -1 when C is not
+// 1 bf16) at logical width C, into *route: 0 resident, 1 wide (the table at
+// the top, read at round_up(C, 16); N does not change it).  Returns 0, -1 when C is not
 // supported, or a CUDA error code.
 extern "C" int ps_tri_route(int device, int kind, int dtype, int N, int C, int* route) {
   Plan p;
@@ -2691,8 +2746,11 @@ extern "C" int ps_tri_route(int device, int kind, int dtype, int N, int C, int* 
   return rc;
 }
 
-// All tensors are contiguous, on `device`, in the stream dtype (0 f32, 1 bf16):
-// rows (N, C), the mask (N,), vectors (C,), matrices (C, C) stored (in, out);
+// C is the logical width (any C >= 1) and Cp = round_up(C, 16) the width of
+// every tensor: all are contiguous, on `device`, in the stream dtype (0 f32,
+// 1 bf16), zero in every column at or past C: rows (N, Cp), the mask (N,),
+// vectors (Cp,), matrices (Cp, Cp) stored (in, out); the outputs are as
+// wide, their columns past C left unspecified.  At a multiple of 16, Cp = C.
 // work holds ps_tri_workspace floats of kind.  Each launches on `stream` and
 // returns 0 or a CUDA error code (-1: C not supported).
 
@@ -2708,8 +2766,8 @@ extern "C" int ps_tri_prologue_fwd(int device, int dtype, int N, int C, const vo
   return dispatch(device, kProFwd, dtype, N, C, ptrs, stream);
 }
 
-// dvec (6, C): lns, lnb, bag, bap, bbg, bbp; dmat (4, C, C): wag, wap, wbg,
-// wbp; dpre: (4, N, C) scratch; work: ps_tri_workspace floats.
+// dvec (6, Cp): lns, lnb, bag, bap, bbg, bbp; dmat (4, Cp, Cp): wag, wap,
+// wbg, wbp; dpre: (4, N, Cp) scratch; work: ps_tri_workspace floats.
 extern "C" int ps_tri_prologue_bwd(int device, int dtype, int N, int C, const void* x,
                                    const void* m, const void* lns, const void* lnb,
                                    const void* wag, const void* bag, const void* wap,
@@ -2733,8 +2791,8 @@ extern "C" int ps_tri_epilogue_fwd(int device, int dtype, int N, int C, const vo
   return dispatch(device, kEpiFwd, dtype, N, C, ptrs, stream);
 }
 
-// dvec (6, C): ln1s, ln1b, bog, ln2s, ln2b, bo; dmat (2, C, C): wog, wo;
-// dpre: (2, N, C) scratch; work: ps_tri_workspace floats.
+// dvec (6, Cp): ln1s, ln1b, bog, ln2s, ln2b, bo; dmat (2, Cp, Cp): wog, wo;
+// dpre: (2, N, Cp) scratch; work: ps_tri_workspace floats.
 extern "C" int ps_tri_epilogue_bwd(int device, int dtype, int N, int C, const void* x,
                                    const void* p, const void* ln1s, const void* ln1b,
                                    const void* wog, const void* bog, const void* ln2s,

@@ -7,7 +7,7 @@ sources under ``protstruc_tpu_torch/csrc/`` at first use, and bound with
 and flags, so an edited source rebuilds and an unchanged one is reused.  Each
 library names its own flags (:data:`NVCC_FLAGS` or :data:`NVCC_FLAGS_FMA`).
 The compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
-kept beside the library as ``<name>.log``.
+kept beside the library as ``<name>.log``; :func:`ptxas_lines` reads it.
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, Optional, Sequence
 
-__all__ = ["NVCC_FLAGS", "NVCC_FLAGS_FMA", "CSRC", "BUILD_DIR", "find_nvcc", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "NVCC_FLAGS_FMA", "CSRC", "BUILD_DIR", "find_nvcc", "library_path", "load",
+           "nested_name", "ptxas_lines"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
@@ -96,3 +98,43 @@ def load(stem: str, sources: Sequence[str],
     lib = ctypes.CDLL(str(out))
     _LIBS[stem] = lib
     return lib
+
+
+def nested_name(mangled):
+    """The last name of a mangled ``_ZN<len><name>...E...`` entry (a kernel in
+    an anonymous namespace), else ``mangled``."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
+def ptxas_lines(log_path):
+    """One line per kernel from an ``nvcc -Xptxas -v`` log: its (demangled
+    enough) name, registers, stack and spills."""
+    if not log_path.is_file():
+        return []
+    out, name = [], None
+    for ln in log_path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            spill = ""
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", m.group(1))
+            args = [{"f": "float", "13__nv_bfloat16": "bf16", "Lb1E": "true", "Lb0E": "false"}.get(a, a[2:-1])
+                    for a in re.findall(r"f|13__nv_bfloat16|L[ib]\d+E", k.group(2))] if k else []
+            row = re.search(r"RowArgsI(f|13__nv_bfloat16)E", m.group(1))  # an overload on the rows' dtype
+            if k and row and all(a in ("true", "false") for a in args):
+                args = [{"f": "float"}.get(row.group(1), "bf16"), *args]
+            name = f"{k.group(1)}<{', '.join(args)}>" if k else nested_name(m.group(1))
+        elif "spill" in ln and name:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out

@@ -32,7 +32,15 @@ which K9 takes only for a dense layout.
 two kernels: it also returns the logsumexp (``-inf`` on a row with no allowed
 key), differentiable for cotangents of both outputs; ring attention
 (``ops/ring_attn.py``) merges its partial results.  The kernels mask ragged L themselves:
-the wrapper pads and copies nothing.
+the wrapper pads and copies nothing for it.
+
+Head dims: the kernels are built for dh 16, 32, 64, 128 and 256 and take any
+dh up to 256 (:data:`MAX_HEAD_DIM`), as the Pallas kernels take any dh as one
+block.  A dh between those runs the next one up (:func:`kernel_head_dim`):
+the wrappers stage q, k, v (and dO) into zero-padded contiguous copies that
+wide, pass ``scale = 1 / sqrt(dh)`` of the logical dh, and cut out, dk and dv
+back to dh; zero columns add nothing to q k^T or dO v^T, and their columns of
+the outputs are zero.  The built widths read their strided views in place.
 
 The wrappers :func:`flash_fwd` and :func:`flash_bwd` dispatch on the tensor's
 device and nothing else: a CUDA tensor launches ``csrc/flash_attn.cu`` (or
@@ -52,11 +60,12 @@ from protstruc_tpu_torch.ops import cuda_lib
 
 __all__ = ["flash_pair_bias_attention", "flash_pair_bias_attention_lse",
            "pair_bias_attention_reference", "flash_fwd", "flash_bwd", "dq_from_ds",
-           "load_library", "library_path", "LAUNCHES"]
+           "kernel_head_dim", "load_library", "library_path", "LAUNCHES", "MAX_HEAD_DIM"]
 
 _SOURCES = ("flash_attn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
+_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
+MAX_HEAD_DIM = _HEAD_DIMS[-1]
 NEG = -1e30          # masked-logit sentinel
 LSE_MASKED = 1e30    # logsumexp pin of a query row with no allowed key
 
@@ -66,6 +75,28 @@ LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0}
 
 def _scale(dh: int) -> float:
     return 1.0 / math.sqrt(dh)
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The built head dim that runs ``dh``: the smallest of 16, 32, 64, 128
+    and 256 at or above it; raises past :data:`MAX_HEAD_DIM`."""
+    for width in _HEAD_DIMS:
+        if 1 <= dh <= width:
+            return width
+    raise ValueError(f"flash attention kernels take a head dim from 1 to {MAX_HEAD_DIM}, got {dh}")
+
+
+def _staged(width, *ts):
+    """``ts`` as the kernels read them at built head dim ``width``: as they
+    are where it is their own, else zero-padded contiguous copies that wide."""
+    if ts[0].shape[-1] == width:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in ts)
+
+
+def _cut(t, dh):
+    """The first ``dh`` head-dim columns of a kernel output, contiguous."""
+    return t if t.shape[-1] == dh else t[..., :dh].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -160,8 +191,7 @@ def _check(q, k, v, bias, kmask, *extra):
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, got {q.dtype}")
     B, L, H, dh = q.shape
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take dh in {_HEAD_DIMS}, got {dh}")
+    kernel_head_dim(dh)
     for name, t in (("k", k), ("v", v), *extra):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
@@ -187,21 +217,29 @@ def _strides(q, k, v, g, bias):
 def _flash_fwd_cuda(q, k, v, bias, kmask):
     _check(q, k, v, bias, kmask)
     B, L, H, dh = q.shape
-    out = torch.empty((B, L, H, dh), dtype=q.dtype, device=q.device)
+    width = kernel_head_dim(dh)
+    out = torch.empty((B, L, H, width), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
     if B == 0 or L == 0 or H == 0:
-        return out, lse
+        return _cut(out, dh), lse
+    _launch_fwd(*_staged(width, q, k, v), bias, kmask, _scale(dh), out, lse)
+    return _cut(out, dh), lse
+
+
+def _launch_fwd(q, k, v, bias, kmask, scale, out, lse):
+    """K8 on q's stream: q, k, v at a built head dim (their last dim), the
+    logical dh's ``scale``."""
+    B, L, H, width = q.shape
     lib = load_library()
     km = kmask.contiguous().view(torch.uint8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.ps_flash_fwd(q.device.index, _DTYPES[q.dtype], B, H, L, dh, _scale(dh),
+    rc = lib.ps_flash_fwd(q.device.index, _DTYPES[q.dtype], B, H, L, width, scale,
                           q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                           km.data_ptr(), _strides(q, k, v, q, bias), out.data_ptr(),
                           lse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed with code {rc}")
     LAUNCHES["fwd"] += 1
-    return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, bias, kmask, do, lse, delta):
@@ -213,14 +251,23 @@ def _flash_bwd_cuda(q, k, v, bias, kmask, do, lse, delta):
     ds = torch.empty_like(bias)  # the bias's strides (dense layouts keep them)
     if ds.stride() != bias.stride():
         raise ValueError(f"bias strides {bias.stride()} are not a dense layout")
-    dk = torch.empty((B, L, H, dh), dtype=q.dtype, device=q.device)
+    width = kernel_head_dim(dh)
+    dk = torch.empty((B, L, H, width), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if B == 0 or L == 0 or H == 0:
-        return ds, dk, dv
+        return ds, _cut(dk, dh), _cut(dv, dh)
+    q, k, v, do = _staged(width, q, k, v, do)
+    _launch_bwd(q, k, v, bias, kmask, do, lse, delta, _scale(dh), ds, dk, dv)
+    return ds, _cut(dk, dh), _cut(dv, dh)
+
+
+def _launch_bwd(q, k, v, bias, kmask, do, lse, delta, scale, ds, dk, dv):
+    """K9 on q's stream, its head dims as :func:`_launch_fwd`'s."""
+    B, L, H, width = q.shape
     lib = load_library()
     km = kmask.contiguous().view(torch.uint8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.ps_flash_bwd(q.device.index, _DTYPES[q.dtype], B, H, L, dh, _scale(dh),
+    rc = lib.ps_flash_bwd(q.device.index, _DTYPES[q.dtype], B, H, L, width, scale,
                           q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                           km.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                           _strides(q, k, v, do, bias), ds.data_ptr(), dk.data_ptr(),
@@ -228,7 +275,6 @@ def _flash_bwd_cuda(q, k, v, bias, kmask, do, lse, delta):
     if rc != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed with code {rc}")
     LAUNCHES["bwd"] += 1
-    return ds, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -301,10 +347,11 @@ class _FlashAttention(torch.autograd.Function):
 def flash_pair_bias_attention(q, k, v, bias, kmask):
     """Fused attention with additive pair bias and key masking.
 
-    q, k, v: ``(B, L, H, dh)`` float32 or bfloat16 (strided views allowed,
-    head dim contiguous); bias: ``(B, H, L, L)`` of the same dtype, any dense
-    strides; kmask: ``(B, L)`` bool.  Returns ``(B, L, H, dh)`` in q's dtype,
-    differentiable in q, k, v and bias through K9.
+    q, k, v: ``(B, L, H, dh)`` float32 or bfloat16, dh from 1 to 256
+    (strided views allowed, head dim contiguous); bias: ``(B, H, L, L)`` of
+    the same dtype, any dense strides; kmask: ``(B, L)`` bool.  Returns
+    ``(B, L, H, dh)`` in q's dtype, differentiable in q, k, v and bias
+    through K9.
     """
     return _FlashAttention.apply(q, k, v, bias, kmask)[0]
 

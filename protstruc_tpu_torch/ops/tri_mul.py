@@ -23,6 +23,12 @@ in f32, the backward's ``dpre`` cast to the stream dtype before the
 back-projection and the weight-gradient product, weight gradients summed in
 f32 and then cast to the weight dtype).  The plain backward is written out in
 formulas, not taken by autograd of the forward.
+
+The kernels take any width C >= 1, as the Pallas kernels do.  Their tiles
+work on ``padded_width(C) = round_up(C, 16)``: at a ragged C the CUDA wrappers
+stage the rows, weights and cotangents into zero-padded copies that wide,
+pass the logical C (the LayerNorms' divisor) to the library, and cut the
+outputs back to C; at a multiple of 16 they pass the tensors as they are.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from protstruc_tpu_torch.ops import cuda_lib
 
 __all__ = ["fused_triangle_multiplication", "tri_prod", "in_tri_prod", "prologue_fwd", "prologue_bwd",
            "epilogue_fwd", "epilogue_bwd", "KERNELS", "LAUNCHES", "ROUTE_LAUNCHES", "ROUTES", "route",
-           "load_library", "library_path"]
+           "load_library", "library_path", "padded_width"]
 
 _EPS = 1e-6  # flax.linen.LayerNorm default
 _SOURCES = ("tri_mul.cu",)
@@ -212,9 +218,33 @@ def _check(name, x, tensors, shapes):
 def _rc_check(rc, what, C, dtype):
     if rc == _ERR_UNSUPPORTED_C:
         raise ValueError(f"the tri_mul kernels do not support C={C} in {dtype} "
-                         "(C must be a multiple of 16 whose tiles fit in shared memory)")
+                         "(their tiles do not fit in shared memory)")
     if rc != 0:
         raise RuntimeError(f"{what} failed with code {rc}")
+
+
+def padded_width(C: int) -> int:
+    """The width K4-K7's tiles work on: ``round_up(C, 16)``; the route is
+    read at it (``ps_tri_route``)."""
+    return -(-C // 16) * 16
+
+
+def _staged(t, kind, C):
+    """``t`` zero-padded from width ``C`` to :func:`padded_width`: rows
+    (``kind`` "r", ``(N, C)``) and vectors ("v") in their last dim, matrices
+    ("m", ``(C, C)``) in both; ``t`` itself at a multiple of 16."""
+    pad = padded_width(C) - C
+    if not pad:
+        return t
+    return torch.nn.functional.pad(t, (0, pad, 0, pad) if kind == "m" else (0, pad))
+
+
+def _cut(t, C):
+    """The first ``C`` columns of a padded output (rows, vectors) and, of a
+    ``(.., Cp, Cp)`` one, its ``C x C`` corner; ``t`` itself at Cp = C."""
+    if t.shape[-1] == C:
+        return t
+    return t[..., :C, :C] if t.dim() == 3 else t[..., :C]
 
 
 def _workspace(name, x):
@@ -238,7 +268,8 @@ def _workspace_floats(name, dtype, N, C, device_index):
 def route(name, x) -> str:
     """The rows pass kernel ``name`` takes for CUDA rows ``x (N, C)``:
     "resident" or "wide" (``ps_tri_route``: a function of the
-    kernel, the dtype and C, so it is asked once for each)."""
+    kernel, the dtype and C, read at ``padded_width(C)``, so it is asked
+    once for each)."""
     return _route(name, x.dtype, x.shape[1], x.device.index)
 
 
@@ -253,8 +284,10 @@ def _route(name, dtype, C, device_index):
 
 
 def _launch(name, fn, x, *args):
-    """Launch kernel ``name`` on ``x``'s stream (the library checks C first;
-    no kernel starts, and nothing is counted, at N = 0)."""
+    """Launch kernel ``name`` on ``x``'s stream: ``x (N, C)`` the caller's
+    rows, which give N and the logical C; ``args`` the tensors the kernel
+    reads and writes, each :func:`padded_width` wide (the library checks C
+    first; no kernel starts, and nothing is counted, at N = 0)."""
     N, C = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -276,12 +309,12 @@ _EPI_W = "vvmvvvmv"     # ln1s ln1b wog bog ln2s ln2b wo bo
 def _prologue_fwd_cuda(x, m, *w):
     N, C = x.shape
     _check("prologue_fwd", x, [x, m, *w], [(N, C), (N,)] + _weight_shapes(C, _PRO_W))
-    x, w = _aligned16(x), [_aligned16(t) for t in w]
+    (xs,), w = _stage_rows(C, x), _stage_weights(C, w, _PRO_W)
     lib = load_library()
     ws = _workspace("prologue_fwd", x)
-    a, b = torch.empty_like(x), torch.empty_like(x)
-    _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, x, m, *w, a, b, ws)
-    return a, b
+    a, b = torch.empty_like(xs), torch.empty_like(xs)
+    _launch("prologue_fwd", lib.ps_tri_prologue_fwd, x, xs, m, *w, a, b, ws)
+    return _cut(a, C), _cut(b, C)
 
 
 def _aligned16(t):
@@ -291,21 +324,38 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _stage_rows(C, *rows):
+    """Rows (and cotangents) as the kernels take them: 16-byte aligned and,
+    at a ragged C, zero-padded copies :func:`padded_width` wide (fresh, so
+    aligned)."""
+    if C % 16 == 0:
+        return [_aligned16(t) for t in rows]
+    return [_staged(t, "r", C) for t in rows]
+
+
+def _stage_weights(C, w, kinds):
+    if C % 16 == 0:
+        return [_aligned16(t) for t in w]
+    return [_staged(t, k, C) for t, k in zip(w, kinds)]
+
+
 def _prologue_bwd_cuda(x, m, *rest):
     N, C = x.shape
     w, da, db = rest[:10], rest[10], rest[11]
     _check("prologue_bwd", x, [x, m, *w, da, db],
            [(N, C), (N,)] + _weight_shapes(C, _PRO_W) + [(N, C), (N, C)])
-    x, da, db = _aligned16(x), _aligned16(da), _aligned16(db)
-    w = [_aligned16(t) for t in w]
+    xs, da, db = _stage_rows(C, x, da, db)
+    w = _stage_weights(C, w, _PRO_W)
     lib = load_library()
     ws = _workspace("prologue_bwd", x)
-    dx = torch.empty_like(x)
-    dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
-    dmat = torch.zeros((4, C, C), dtype=x.dtype, device=x.device)
-    dpre = torch.empty((4, N, C), dtype=x.dtype, device=x.device)
-    _launch("prologue_bwd", lib.ps_tri_prologue_bwd, x, x, m, *w, da, db,
+    Cp = xs.shape[1]
+    dx = torch.empty_like(xs)
+    dvec = torch.zeros((6, Cp), dtype=x.dtype, device=x.device)
+    dmat = torch.zeros((4, Cp, Cp), dtype=x.dtype, device=x.device)
+    dpre = torch.empty((4, N, Cp), dtype=x.dtype, device=x.device)
+    _launch("prologue_bwd", lib.ps_tri_prologue_bwd, x, xs, m, *w, da, db,
             dx, dvec, dmat, dpre, ws)
+    dx, dvec, dmat = _cut(dx, C), _cut(dvec, C), _cut(dmat, C)
     return (dx, dvec[0], dvec[1], dmat[0], dvec[2], dmat[1], dvec[3],
             dmat[2], dvec[4], dmat[3], dvec[5])
 
@@ -313,12 +363,13 @@ def _prologue_bwd_cuda(x, m, *rest):
 def _epilogue_fwd_cuda(x, p, *w):
     N, C = x.shape
     _check("epilogue_fwd", x, [x, p, *w], [(N, C), (N, C)] + _weight_shapes(C, _EPI_W))
-    x, p, w = _aligned16(x), _aligned16(p), [_aligned16(t) for t in w]
+    xs, p = _stage_rows(C, x, p)
+    w = _stage_weights(C, w, _EPI_W)
     lib = load_library()
     ws = _workspace("epilogue_fwd", x)
-    out = torch.empty_like(x)
-    _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, x, p, *w, out, ws)
-    return out
+    out = torch.empty_like(xs)
+    _launch("epilogue_fwd", lib.ps_tri_epilogue_fwd, x, xs, p, *w, out, ws)
+    return _cut(out, C)
 
 
 def _epilogue_bwd_cuda(x, p, *rest):
@@ -326,16 +377,18 @@ def _epilogue_bwd_cuda(x, p, *rest):
     w, do = rest[:8], rest[8]
     _check("epilogue_bwd", x, [x, p, *w, do],
            [(N, C), (N, C)] + _weight_shapes(C, _EPI_W) + [(N, C)])
-    x, p, do = _aligned16(x), _aligned16(p), _aligned16(do)
-    w = [_aligned16(t) for t in w]
+    xs, p, do = _stage_rows(C, x, p, do)
+    w = _stage_weights(C, w, _EPI_W)
     lib = load_library()
     ws = _workspace("epilogue_bwd", x)
-    dx, dp = torch.empty_like(x), torch.empty_like(x)
-    dvec = torch.zeros((6, C), dtype=x.dtype, device=x.device)
-    dmat = torch.zeros((2, C, C), dtype=x.dtype, device=x.device)
-    dpre = torch.empty((2, N, C), dtype=x.dtype, device=x.device)
-    _launch("epilogue_bwd", lib.ps_tri_epilogue_bwd, x, x, p, *w, do,
+    Cp = xs.shape[1]
+    dx, dp = torch.empty_like(xs), torch.empty_like(xs)
+    dvec = torch.zeros((6, Cp), dtype=x.dtype, device=x.device)
+    dmat = torch.zeros((2, Cp, Cp), dtype=x.dtype, device=x.device)
+    dpre = torch.empty((2, N, Cp), dtype=x.dtype, device=x.device)
+    _launch("epilogue_bwd", lib.ps_tri_epilogue_bwd, x, xs, p, *w, do,
             dx, dp, dvec, dmat, dpre, ws)
+    dx, dp, dvec, dmat = _cut(dx, C), _cut(dp, C), _cut(dvec, C), _cut(dmat, C)
     return (dx, dp, dvec[0], dvec[1], dmat[0], dvec[2], dvec[3], dvec[4],
             dmat[1], dvec[5])
 
