@@ -265,19 +265,25 @@ failure (no CUDA, a kernel that does not build or launch, a disagreement):
     plain version, each call one launch on the route make_plan reads at
     the padded width; the whole op at C = 24 against the plain path on the
     CPU; (b) K8/K9 at dh 8, 12, 24, 48, 96 (staged) and 256 (its own
-    instantiation), f32 and bf16, ragged L 37 and 300 with a fully masked
-    batch row, one launch of each a call, the lse entry at dh 24 and 256,
-    dh 257 refused; (c) TrFold at node 96 over 4 heads (dh 24), pair 40,
-    fused_tri and flash, 3 steps against the einsum step from one init, f32
-    (1e-5) and bf16 (2e-2), the counters reset just before the kernel
-    path's steps; (d) ``[mfu-peak]`` (phase 21e's widths: dh 256) with
-    fused_tri and flash against einsum attention, runs of 3 steps in the
-    order flash, einsum, einsum, flash, the first runs' losses 2e-2,
-    ms/step, peak GiB, K8/K9 launches a step; (e) K8/K9 against their plain
-    versions at ``[mfu-peak]``'s node attention, then K4-K7 at bf16 C = 24
-    on ``[mfu-fused]``'s N = 4*512*512 and K8/K9 at dh 256 on that node
-    attention beside their plain versions, bounds and (K8/K9) SDPA with the
-    float mask, the kernels PyTorch picked named.
+    instantiation) on the whole route, and dh 257, 320, 1000 (staged to
+    384, 384, 1024), 512 and 2048 on the chunked route, f32 and bf16,
+    ragged L 37 and 300 with a fully masked batch row, one launch of each a
+    call on the dh's route, the lse entry at dh 24, 256 and 512; (c) TrFold
+    at node 96 over 4 heads (dh 24), pair 40, fused_tri and flash, 3 steps
+    against the einsum step from one init, f32 (1e-5) and bf16 (2e-2), the
+    counters reset just before the kernel path's steps; (d) ``[mfu-peak]``
+    (phase 21e's widths) over 8 heads (dh 256) and over 4 (dh 512, the
+    chunked route) with fused_tri and flash against einsum attention, runs
+    of 3 steps in the order flash, einsum, einsum, flash, the first runs'
+    losses 2e-2, ms/step, peak GiB, K8/K9 launches a step (6 and 3, all on
+    the dh's route); (e) K4-K7 at bf16 C = 24 on ``[mfu-fused]``'s N =
+    4*512*512, then K8/K9 at ``[mfu-peak]``'s node attention at dh 256, 512
+    (4 heads) and 2048 (1 head), and at its shape at dh 3072 and 4096 (1
+    head), each held to its plain version on the timed inputs, then timed
+    beside its plain version, bound and SDPA with the float mask, the
+    kernels PyTorch picked named (and SDPA's backend; "unknown" where the
+    profiler recorded no kernel, whose device time is then null), and the
+    timed dh at which a plain version was faster listed.
 
 Parity tolerances on the card: K1 bitwise against its plain version (both
 round every operation once; the count of unequal entries is printed and
@@ -313,9 +319,11 @@ point as entries of their own, launches from phase 21 (d); K5's and K7's
 float32 wide route as entries of their own, K4's and K6's too, launches
 from phase 9b's one counted step; every K4-K7 entry's float32 times at C =
 128 and 1024; K4-K7 at a ragged C as entries of their own, launches from
-phase 24 (c)'s f32 run, times at bf16 C = 24; K8/K9 at dh 256 as entries of
-their own, launches from phase 24 (d)'s flash steps, times at its node
-attention),
+phase 24 (c)'s f32 run, times at bf16 C = 24; K8/K9 at dh 256 and on the
+chunked route as entries of their own, launches from phase 24 (d)'s flash
+steps over 8 and 4 heads, times at its node attention at dh 256 and 512, the
+chunked entries' bound with the work counted once and their recompute
+factor beside it),
 largest error, card and plain times, its bound (the larger of the
 bytes it must move, each input it reads once (of xyz, only the atom slots
 K1 and K3 read) and each output once, over 3.35 TB/s, and its operations
@@ -327,8 +335,10 @@ computes the same function, that call's time.  The last line is
 
     python3 chip_smoke.py --flash-timing
 
-runs phases 1 and 13's K8/K9 timings alone (with the device times), after
-the K8/K9 library's ptxas lines, and prints no result line;
+runs phases 1 and 13's K8/K9 timings alone (with the device times), then
+K8/K9 at ``[mfu-peak]``'s node attention at dh 256 and, where the tree has
+the chunked route, at dh 512, 2048, 3072 and 4096, after the K8/K9 library's ptxas
+lines, and prints no result line;
 
     python3 chip_smoke.py --grad-timing
 
@@ -776,7 +786,7 @@ def featurize_timing(torch, xyz, smi, k1_ms):
         f"{B / feat_plain * 1e3:.1f} structures/s (peak {peak['plain']:.2f} GiB) "
         f"(plain/kernel/kernel/plain {', '.join(f'{r:.4f}' for r in rounds)}); "
         f"K1 writes {B * L * L * 24 / k1_ms / 1e6:.1f} GB/s of maps; kernel path device time "
-        f"{dev_kernel:.4f} ms a call (torch.profiler; largest {kernel_name(names[0]) if names else 'none'})")
+        f"{fmt_ms(dev_kernel)} a call (torch.profiler; largest {kernel_name(names[0]) if names else 'none'})")
     return feat_kernel
 
 
@@ -811,7 +821,7 @@ def pair_timing(torch, dev, smi):
         dv, names = device_ms(torch, fn)
         k1_ms = k1_ms or ev
         b_ms, b_by = bound(n_bytes, ops * pairs, torch.float32)
-        say(f"pair timing {name} B={B_FULL} L={L_FULL} [{smi}]: event {ev:.4f} ms, device {dv:.4f} ms "
+        say(f"pair timing {name} B={B_FULL} L={L_FULL} [{smi}]: event {ev:.4f} ms, device {fmt_ms(dv)} "
             f"({kernel_name(names[0]) if names else 'no kernel'}); bound {b_ms:.4f} ms ({b_by}); "
             f"{store_path(L_FULL)} stores")
     featurize_timing(torch, xyz, smi, k1_ms)
@@ -1445,14 +1455,31 @@ def fold_featurize(torch, batch, model, cfg, kernel):
     return feats, crop.xyz
 
 
+#: profiles of one function taken before its device time is given up as not recorded
+PROFILE_ATTEMPTS = 3
+
+
 def device_ms(torch, fn):
     """Device time of one call of ``fn``: the self device time of every
     kernel under torch.profiler over ITERS calls (after WARMUP), per call;
-    and the names of the kernels that took it, largest first."""
+    and the names of the three kernels that took most of it, largest first.
+    A profile is whole when it holds a kernel and each kernel's calls are a
+    multiple of ITERS (``fn`` launches the same kernels every call); one
+    that is not (the profiler lost records) is taken again, up to
+    PROFILE_ATTEMPTS in all, and if none is whole the result is (None, []):
+    no record, never a time of 0 or of part of the calls."""
     for _ in range(WARMUP):
         fn()
-    _, busy, top = device_profile(torch, lambda: [fn() for _ in range(ITERS)], top=3)
-    return busy / ITERS, [name for name, _, _ in top]
+    for _ in range(PROFILE_ATTEMPTS):
+        _, busy, kernels = device_profile(torch, lambda: [fn() for _ in range(ITERS)], top=None)
+        if kernels and all(calls % ITERS == 0 for _, _, calls in kernels):
+            return busy / ITERS, [name for name, _, _ in kernels[:3]]
+    return None, []
+
+
+def fmt_ms(ms):
+    """A device time from device_ms for a log line."""
+    return "not recorded (no torch.profiler record)" if ms is None else f"{ms:.4f} ms"
 
 
 def flash_timings(torch, dev, fa, label, dtype, B, H, dh, L):
@@ -1524,7 +1551,7 @@ def flash_phase13(torch, dev, fa, smi):
                 f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
         for name, (ev, dv, names) in times.items():
             say(f"phase 13 device time {name} {label} [{smi}]: CUDA events {ev:.4f} ms, torch.profiler "
-                f"{dv:.4f} ms a call ({'; '.join(kernel_name(n)[:60] for n in names)})")
+                f"{fmt_ms(dv)} a call ({'; '.join(kernel_name(n)[:60] for n in names)})")
     return flash_ms
 
 # -- K2 and the K1 probes ------------------------------------------------------
@@ -1688,7 +1715,7 @@ def grad_timing(torch, dev, smi):
                        K2_OPS_PER_PAIR * B_FULL * L_FULL ** 2, torch.float32)
     ev = cuda_time_ms(lambda: pm.maps_bwd(xyz, g_full))
     dv, names = device_ms(torch, lambda: pm.maps_bwd(xyz, g_full))
-    say(f"grad timing K2 B={B_FULL} L={L_FULL} six maps [{smi}]: event {ev:.4f} ms, device {dv:.4f} ms "
+    say(f"grad timing K2 B={B_FULL} L={L_FULL} six maps [{smi}]: event {ev:.4f} ms, device {fmt_ms(dv)} "
         f"({'; '.join(kernel_name(n) for n in names)}); bound {b_ms:.4f} ms ({b_by})")
     mix = sass_loop_mix(pm.bwd_library_path(), "pair_maps_bwd_kernel")
     if mix:
@@ -4071,9 +4098,12 @@ def fold_step_timing(torch, smi, sb, fold_models_, fold_init, crop_len):
 WIDTH_TRI = tuple((dt, C, 2, 37) for dt in ("float32", "bfloat16") for C in (7, 8, 24, 40)) + (
     ("bfloat16", 200, 2, 37), ("float32", 72, 2, 37), ("float32", 100, 3, 10))
 WIDTH_TRI_OFF = 24            # the case run again on operands off a 16-byte boundary
-#: K8/K9 head dims other than 16, 32, 64 and 128: 256 its own
-#: instantiation, the others staged to the next built width (16, 32, 64, 128, 256)
-WIDTH_DH = (8, 12, 24, 48, 96, 256)
+#: K8/K9 head dims other than 16, 32, 64 and 128: up to 256 the whole route
+#: (256 its own instantiation, the others staged to the next built width:
+#: 16, 32, 64, 128, 256), above it the chunked route (512 and 2048 at their own
+#: width, the others staged to the next multiple of 128)
+WIDTH_DH = (8, 12, 24, 48, 96, 256, 257, 320, 512, 1000, 2048)
+WIDTH_LSE_DH = (24, 256, 512)  # the lse entry (the ring's local step) held at these
 WIDTH_FLASH = ((2, 4, 37), (2, 2, 300))   # (B, H, L): L ragged against 64; batch row 1 fully masked
 #: the small ragged TrFold step: node 96 over 4 heads (dh 24), pair 40
 WIDTH_TRFOLD = dict(node_dim=96, pair_dim=40, n_heads=4, n_blocks=2, pair_update="triangle",
@@ -4141,29 +4171,41 @@ def width_tri_parity(torch, dev, tri_mul):
     return worst
 
 
+def flash_route_launches(fa):
+    """{(part, route): K8/K9 launches} so far, the routes that launched."""
+    return {(part, r): n for part, c in fa.ROUTE_LAUNCHES.items() for r, n in c.items() if n}
+
+
 def width_flash_parity(torch, dev, fa, ring_attn):
     """Phase 24 (b): K8/K9 at every WIDTH_DH, f32 and bf16, on WIDTH_FLASH
     (ragged L, batch row 1 fully masked) against their plain versions
     (flash_vs_plain: out, lse, ds, dk, dv, dq); each pair of calls must add
-    one K8 and one K9 launch.  At dh 24 and 256 the lse entry (the ring's
-    local step) against the plain local attention too.  dh 257 must be
-    refused.  Returns ({fwd, bwd: the largest error}, the same at dh 256
+    one K8 and one K9 launch, on the route ``head_dim_route`` names (above
+    256 the chunked one).  At WIDTH_LSE_DH the lse entry (the ring's local
+    step) against the plain local attention too.  Returns ({fwd, bwd: the
+    largest error}, the same at dh 256 alone, the same on the chunked route
     alone)."""
-    worst, worst256 = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+    worst, worst256, worst_chunked = ({"fwd": 0.0, "bwd": 0.0} for _ in range(3))
     for dtype in (torch.float32, torch.bfloat16):
         for dh in WIDTH_DH:
+            route = fa.head_dim_route(dh)
             for B, H, L in WIDTH_FLASH:
                 args = flash_inputs(torch, dev, dtype, "ragged", B, H, dh, L, seed=dh + L)
-                before = dict(fa.LAUNCHES)
+                before, before_routes = dict(fa.LAUNCHES), flash_route_launches(fa)
                 errs = flash_vs_plain(torch, fa, args, f"{str(dtype)[6:]} B={B} H={H} dh={dh} "
-                                                       f"(built {fa.kernel_head_dim(dh)}) L={L}")
+                                                       f"({route} at {fa.kernel_head_dim(dh)}) L={L}")
                 check({k: n - before[k] for k, n in fa.LAUNCHES.items()} == {"fwd": 1, "bwd": 1},
                       f"flash dh={dh}: launches {fa.LAUNCHES} from {before}")
+                took = {k: n - before_routes.get(k, 0) for k, n in flash_route_launches(fa).items()
+                        if n > before_routes.get(k, 0)}
+                check(took == {("fwd", route): 1, ("bwd", route): 1}, f"flash dh={dh}: launches by route {took}")
                 for key in worst:
                     worst[key] = max(worst[key], errs[key])
                     if dh == 256:
                         worst256[key] = max(worst256[key], errs[key])
-            if dh in (24, 256):
+                    if route == "chunked":
+                        worst_chunked[key] = max(worst_chunked[key], errs[key])
+            if dh in WIDTH_LSE_DH:
                 q, k, v, bias, kmask, _ = flash_inputs(torch, dev, dtype, "ragged", 2, 4, dh, 37, seed=dh)
                 with torch.no_grad():
                     got = fa.flash_pair_bias_attention_lse(q, k, v, bias, kmask)
@@ -4175,28 +4217,23 @@ def width_flash_parity(torch, dev, fa, ring_attn):
                 worst["fwd"] = max(worst["fwd"], err, lse_err)
                 if dh == 256:
                     worst256["fwd"] = max(worst256["fwd"], err, lse_err)
+                if route == "chunked":
+                    worst_chunked["fwd"] = max(worst_chunked["fwd"], err, lse_err)
                 say(f"  flash lse entry {str(dtype)[6:]} dh={dh}: out {err:.2e}, lse {lse_err:.2e}")
             torch.cuda.empty_cache()
-    q = torch.zeros((1, 4, 1, 257), device=dev)
-    try:
-        fa.flash_fwd(q, q, q, torch.zeros((1, 1, 4, 4), device=dev), torch.ones((1, 4), dtype=torch.bool, device=dev))
-    except ValueError as e:
-        check("256" in str(e), f"dh=257 refused without naming the limit: {e}")
-    else:
-        check(False, "dh=257 was not refused")
-    return worst, worst256
+    return worst, worst256, worst_chunked
 
 
 def counted_steps(torch, feats, entry, n, tri_mul, fa):
     """``n`` train steps with every K4-K7 and K8/K9 counter reset just before
     and read just after: (losses, ms of each step (host clock to a
     synchronize), (peak GiB, GiB held just before the steps), K4-K7 launches
-    by route, K8/K9 launches)."""
+    by route, K8/K9 launches, K8/K9 launches by route)."""
     from protstruc_tpu_torch.models.trfold import train_step
 
     model, params, opt_state, tx = entry
     reset_launches(tri_mul, fa)
-    for counts in tri_mul.ROUTE_LAUNCHES.values():
+    for counts in (*tri_mul.ROUTE_LAUNCHES.values(), *fa.ROUTE_LAUNCHES.values()):
         counts.update(dict.fromkeys(counts, 0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4209,7 +4246,8 @@ def counted_steps(torch, feats, entry, n, tri_mul, fa):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     routes = {k: {r: c for r, c in v.items() if c} for k, v in tri_mul.ROUTE_LAUNCHES.items()}
-    return losses, ms, (torch.cuda.max_memory_allocated() / 2**30, base), routes, dict(fa.LAUNCHES)
+    return (losses, ms, (torch.cuda.max_memory_allocated() / 2**30, base), routes, dict(fa.LAUNCHES),
+            flash_route_launches(fa))
 
 
 def width_trfold_step(torch, np, dev, smi, tri_mul, fa):
@@ -4225,13 +4263,13 @@ def width_trfold_step(torch, np, dev, smi, tri_mul, fa):
         feats, models, _ = seeded_models(torch, dev, dict(WIDTH_TRFOLD, dtype=dtype), xyz, {
             "kernels": dict(fused_tri=True, use_flash_attn=True),
             "einsum": dict(fused_tri=False, use_flash_attn=False)})
-        losses, ms, _, routes, flash_n = counted_steps(torch, feats, models["kernels"], WIDTH_STEPS, tri_mul, fa)
+        losses, ms, _, routes, flash_n, _ = counted_steps(torch, feats, models["kernels"], WIDTH_STEPS, tri_mul, fa)
         tri_n = dict(tri_mul.LAUNCHES)
         check(all(math.isfinite(x) for x in losses), f"ragged TrFold {dtype}: losses {losses}")
         for name in TRI_KERNELS:
             check(list(routes[name]) == ["resident"], f"ragged TrFold {dtype}: {name} routes {routes[name]}")
         check(all(n > 0 for n in flash_n.values()), f"ragged TrFold {dtype}: K8/K9 launches {flash_n}")
-        plain, _, _, _, plain_flash = counted_steps(torch, feats, models["einsum"], WIDTH_STEPS, tri_mul, fa)
+        plain, _, _, _, plain_flash, _ = counted_steps(torch, feats, models["einsum"], WIDTH_STEPS, tri_mul, fa)
         check(sum(tri_mul.LAUNCHES.values()) == 0 and sum(plain_flash.values()) == 0,
               "the einsum step launched a kernel")
         compare_losses(losses, plain, rtol, f"ragged TrFold {dtype}")
@@ -4245,49 +4283,62 @@ def width_trfold_step(torch, np, dev, smi, tri_mul, fa):
     return launches
 
 
-def peak_flash_step(torch, np, dev, smi, tri_mul, fa):
-    """Phase 24 (d): ``[mfu-peak]`` (PEAK_WIDTH: node 2048 over 8 heads, so
-    dh 256) with fused_tri and flash against fused_tri on einsum attention,
-    from one init, bf16, B=PEAK_B, L=PEAK_L, in four runs of PEAK_STEPS steps
-    in the order flash, einsum, einsum, flash (each model goes on from its
-    own state; the counters reset just before a run, read just after):
-    the first runs' losses within 2e-2 relative, ms/step over the steps of
-    both runs but the first (both models are held throughout, and from the
+#: [mfu-peak] over 4 heads (dh 512): the chunked route in the model
+PEAK_CHUNKED_HEADS = 4
+
+
+def peak_flash_step(torch, np, dev, smi, tri_mul, fa, heads):
+    """Phase 24 (d): ``[mfu-peak]`` (PEAK_WIDTH: node 2048) over ``heads``
+    heads (8: dh 256 on the whole route; 4: dh 512 on the chunked route)
+    with fused_tri and flash against fused_tri on einsum attention, from one
+    init, bf16, B=PEAK_B, L=PEAK_L, in four runs of PEAK_STEPS steps in the
+    order flash, einsum, einsum, flash (each model goes on from its own
+    state; the counters reset just before a run, read just after): the
+    first runs' losses within 2e-2 relative, ms/step over the steps of both
+    runs but the first (both models are held throughout, and from the
     second run on both optimizer states), the peak and the peak above what
     was held just before a run (the larger of the two runs), K8/K9 launches
-    a step, the same in both flash runs.  Returns {label: (ms/step, peak
-    GiB, K8/K9 launches a step, peak GiB above the memory held before the
-    steps)}."""
+    a step: 2 K8 (the forward and its recompute under remat) and 1 K9 a
+    block, all on the dh's route, the same in both flash runs.  Returns
+    {label: (ms/step, peak GiB, K8/K9 launches a step, peak GiB above the
+    memory held before the steps)}."""
+    width = dict(PEAK_WIDTH, n_heads=heads)
+    dh = width["node_dim"] // heads
+    route = fa.head_dim_route(dh)
+    per_step = {"fwd": 2 * width["n_blocks"], "bwd": width["n_blocks"]}
+    tag = f"[mfu-peak] over {heads} heads (dh {dh}, {route} route)"
     xyz = np.random.RandomState(0).randn(PEAK_B, PEAK_L, 15, 3).astype(np.float32) * 5.0
-    feats, models, _ = seeded_models(torch, dev, dict(PEAK_WIDTH, dtype=torch.bfloat16), xyz, {
+    feats, models, _ = seeded_models(torch, dev, dict(width, dtype=torch.bfloat16), xyz, {
         "flash": dict(fused_tri=True, use_flash_attn=True),
         "einsum": dict(fused_tri=True, use_flash_attn=False)})
     runs = {"flash": [], "einsum": []}
     for label in ("flash", "einsum", "einsum", "flash"):
-        losses, ms, (peak, base), routes, flash_n = counted_steps(torch, feats, models[label], PEAK_STEPS,
-                                                                  tri_mul, fa)
-        check(all(math.isfinite(x) for x in losses), f"[mfu-peak] {label}: losses {losses}")
+        losses, ms, (peak, base), routes, flash_n, flash_routes = counted_steps(
+            torch, feats, models[label], PEAK_STEPS, tri_mul, fa)
+        check(all(math.isfinite(x) for x in losses), f"{tag} {label}: losses {losses}")
         for name in TRI_KERNELS:
-            check(list(routes[name]) == ["wide"], f"[mfu-peak] {label}: {name} routes {routes[name]}")
+            check(list(routes[name]) == ["wide"], f"{tag} {label}: {name} routes {routes[name]}")
         if label == "flash":
-            check(all(n > 0 for n in flash_n.values()), f"[mfu-peak] flash: K8/K9 launches {flash_n}")
+            check(flash_n == {k: n * PEAK_STEPS for k, n in per_step.items()}
+                  and flash_routes == {(k, route): n for k, n in flash_n.items()},
+                  f"{tag} flash: K8/K9 launches {flash_n}, by route {flash_routes}")
         else:
-            check(sum(flash_n.values()) == 0, f"[mfu-peak] einsum: K8/K9 launches {flash_n}")
+            check(sum(flash_n.values()) == 0, f"{tag} einsum: K8/K9 launches {flash_n}")
         runs[label].append((losses, ms, peak, base, flash_n))
-        say(f"phase 24 (d) [mfu-peak] fused_tri {label} attention bf16 B={PEAK_B} L={PEAK_L} {PEAK_WIDTH} "
+        say(f"phase 24 (d) {tag} fused_tri {label} attention bf16 B={PEAK_B} L={PEAK_L} {width} "
             f"run {len(runs[label])} [{smi}]: steps {', '.join(f'{m:.2f}' for m in ms)} ms, peak {peak:.2f} "
             f"GiB, {peak - base:.2f} above the {base:.2f} held before the steps, losses {losses}, "
-            f"K8/K9 launches {flash_n}")
+            f"K8/K9 launches {flash_n} ({route} route)")
         torch.cuda.empty_cache()
-    compare_losses(runs["flash"][0][0], runs["einsum"][0][0], 2e-2, "[mfu-peak] flash vs einsum")
-    check(runs["flash"][0][4] == runs["flash"][1][4], f"[mfu-peak] flash launches {runs['flash']}")
+    compare_losses(runs["flash"][0][0], runs["einsum"][0][0], 2e-2, f"{tag} flash vs einsum")
+    check(runs["flash"][0][4] == runs["flash"][1][4], f"{tag} flash launches {runs['flash']}")
     res = {}
     for label, (first, second) in runs.items():
         warm = first[1][1:] + second[1]
         res[label] = (sum(warm) / len(warm), max(first[2], second[2]),
                       {k: n / PEAK_STEPS for k, n in first[4].items()},
                       max(first[2] - first[3], second[2] - second[3]))
-        say(f"phase 24 (d) [mfu-peak] fused_tri {label} attention [{smi}]: {res[label][0]:.2f} ms/step over "
+        say(f"phase 24 (d) {tag} fused_tri {label} attention [{smi}]: {res[label][0]:.2f} ms/step over "
             f"{len(warm)} steps, peak {res[label][1]:.2f} GiB ({res[label][3]:.2f} above the start of a run), "
             f"K8/K9 launches a step {res[label][2]}")
     del feats, models
@@ -4295,16 +4346,63 @@ def peak_flash_step(torch, np, dev, smi, tri_mul, fa):
     return res
 
 
+def sdpa_backend(names):
+    """The SDPA backend that ran, read from its kernels' names; unknown
+    where the profiler recorded none."""
+    if not names:
+        return "unknown (no profiler record)"
+    text = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient")):
+        if key in text:
+            return backend
+    return f"math ({'; '.join(kernel_name(n)[:40] for n in names)})"
+
+
+#: K8/K9 on the chunked route timed at [mfu-peak]'s node attention shape
+#: (bf16, B=PEAK_B, L=PEAK_L): (heads, dh).  dh 512 and 2048 are the model's
+#: node 2048 over 4 and 1 heads; 3072 and 4096 (one head of a node that wide)
+#: find where the recomputed q k^T (dh/128 times) lets the plain version pass
+CHUNKED_TIMED = ((4, 512), (1, 2048), (1, 3072), (1, 4096))
+
+
+def node_attention_timing(torch, dev, fa, smi, heads, phase, dh=None):
+    """K8/K9 at ``[mfu-peak]``'s node attention over ``heads`` heads (bf16,
+    its bias in the model's permuted layout; ``dh`` defaults to the model's
+    node 2048 over ``heads``): held to their plain versions on the timed
+    inputs, then timed beside their plain versions, bounds and SDPA with the
+    float mask (flash_timings).  Returns (errors, flash_ms, times, SDPA's
+    backend {forward, backward})."""
+    B, L = PEAK_B, PEAK_L
+    dh = dh or PEAK_WIDTH["node_dim"] // heads
+    errs = flash_vs_plain(torch, fa, flash_inputs(torch, dev, torch.bfloat16, "train", B, heads, dh, L),
+                          f"[mfu-peak] node attention bf16 B={B} H={heads} dh={dh} L={L}")
+    flash_ms, times = flash_timings(torch, dev, fa, "train", torch.bfloat16, B, heads, dh, L)
+    backend = {k: sdpa_backend(times[f"SDPA {k}"][2]) for k in ("forward", "backward")}
+    for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms.items():
+        say(f"{phase} timing K{8 if part == 'fwd' else 9} ({part}) [mfu-peak] node attention bf16 B={B} "
+            f"H={heads} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+            f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms "
+            f"({backend['forward' if part == 'fwd' else 'backward']}); bound {b_ms:.4f} ms ({b_by})")
+    for name, (ev, dv, names) in times.items():
+        say(f"{phase} device time {name} dh={dh} [{smi}]: CUDA events {ev:.4f} ms, torch.profiler "
+            f"{fmt_ms(dv)} a call ({'; '.join(kernel_name(n)[:70] for n in names)})")
+    torch.cuda.empty_cache()
+    return errs, flash_ms, times, backend
+
+
 def width_phase(torch, np, dev, smi):
     """Phase 24: (a) K4-K7 and (b) K8/K9 at the widths the JAX package takes
     beyond the multiples of 16 and the four head dims of the earlier
     phases, against their plain versions; (c) the small ragged
-    TrFold step; (d) ``[mfu-peak]`` with flash; (e) timings: K4-K7 at bf16
-    C = 24 on ``[mfu-fused]``'s rows and K8/K9 at dh 256 on ``[mfu-peak]``'s
-    node attention (its bias in the model's permuted layout), beside their
-    plain versions, bounds and (K8/K9) SDPA with the float mask, K8/K9 held
-    to their plain versions on those inputs first.  Returns the kernels-line
-    numbers (K8/K9's errors those at dh 256 alone)."""
+    TrFold step; (d) ``[mfu-peak]`` with flash over 8 heads (dh 256) and 4
+    (dh 512, the chunked route); (e) timings: K4-K7 at bf16 C = 24 on
+    ``[mfu-fused]``'s rows and K8/K9 on ``[mfu-peak]``'s node attention at
+    dh 256, 512 and 2048, and its shape at dh 3072 and 4096 (one head; the
+    bias in the model's permuted layout), beside their plain versions,
+    bounds and (K8/K9) SDPA with the float mask, K8/K9 held to their plain
+    versions on those inputs first; the timed dh at which a plain version
+    was faster.  Returns the kernels-line numbers."""
     from protstruc_tpu_torch.ops import flash_attn as fa
     from protstruc_tpu_torch.ops import ring_attn, tri_mul
 
@@ -4313,45 +4411,55 @@ def width_phase(torch, np, dev, smi):
     say(f"phase 24 (a) parity K4-K7 at (dtype, C) = "
         f"{', '.join(f'({dt[:4]}, {C})' for dt, C, _, _ in WIDTH_TRI)} and C={WIDTH_TRI_OFF} off "
         f"alignment: ok, every call one launch on its route, max abs err {tri_err}")
-    flash_err, flash_err256 = width_flash_parity(torch, dev, fa, ring_attn)
-    say(f"phase 24 (b) parity K8/K9 at dh = {', '.join(map(str, WIDTH_DH))} (built "
-        f"{', '.join(str(fa.kernel_head_dim(d)) for d in WIDTH_DH)}), (B, H, L) = {WIDTH_FLASH}: ok, "
-        f"max abs err {flash_err}; dh=257 refused")
+    flash_err, flash_err256, flash_err_chunked = width_flash_parity(torch, dev, fa, ring_attn)
+    say(f"phase 24 (b) parity K8/K9 at dh = {', '.join(map(str, WIDTH_DH))} (run at "
+        f"{', '.join(f'{fa.kernel_head_dim(d)} {fa.head_dim_route(d)}' for d in WIDTH_DH)}), (B, H, L) = "
+        f"{WIDTH_FLASH}: ok, every pair of calls one K8 and one K9 launch on its route, max abs err "
+        f"{flash_err}, on the chunked route {flash_err_chunked}")
     tri_launches, flash_launches = width_trfold_step(torch, np, dev, smi, tri_mul, fa)
-    peak = peak_flash_step(torch, np, dev, smi, tri_mul, fa)
+    peak = peak_flash_step(torch, np, dev, smi, tri_mul, fa, PEAK_WIDTH["n_heads"])
+    peak_chunked = peak_flash_step(torch, np, dev, smi, tri_mul, fa, PEAK_CHUNKED_HEADS)
     tri_worst = dict(tri_err)
     tri_ms, tri_split = tri_timings(torch, dev, smi, tri_worst, torch.bfloat16, C=WIDTH_TIMED_C,
                                     phase="phase 24 (e)")
-    B, H, L = PEAK_B, PEAK_WIDTH["n_heads"], PEAK_L
-    dh = PEAK_WIDTH["node_dim"] // H
-    # K8/K9 against their plain versions on the inputs timed below: the main
-    # path's node attention (its bias in the model's permuted layout)
-    errs = flash_vs_plain(torch, fa, flash_inputs(torch, dev, torch.bfloat16, "train", B, H, dh, L),
-                          f"[mfu-peak] node attention bf16 B={B} H={H} dh={dh} L={L}")
+    errs, flash_ms, times, backend256 = node_attention_timing(torch, dev, fa, smi, PEAK_WIDTH["n_heads"],
+                                                              "phase 24 (e)")
     flash_err256 = {k: max(v, errs[k]) for k, v in flash_err256.items()}
-    say(f"phase 24 (e) parity K8/K9 at [mfu-peak]'s node attention: ok, max abs err {errs}; "
-        f"at dh 256 over phase 24 {flash_err256}")
-    flash_ms, times = flash_timings(torch, dev, fa, "train", torch.bfloat16, B, H, dh, L)
-    for part, (k_ms, p_ms, lib_ms, b_ms, b_by) in flash_ms.items():
-        say(f"phase 24 (e) timing K{8 if part == 'fwd' else 9} ({part}) [mfu-peak] node attention bf16 B={B} "
-            f"H={H} dh={dh} L={L} [{smi}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-            f"{'forward' if part == 'fwd' else 'backward'} {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-    for name, (ev, dv, names) in times.items():
-        say(f"phase 24 (e) device time {name} dh={dh} [{smi}]: CUDA events {ev:.4f} ms, torch.profiler "
-            f"{dv:.4f} ms a call ({'; '.join(kernel_name(n)[:70] for n in names)})")
-    torch.cuda.empty_cache()
+    chunked = {}
+    for heads, dh in CHUNKED_TIMED:
+        c_errs, c_ms, c_times, backend = node_attention_timing(torch, dev, fa, smi, heads, "phase 24 (e)", dh)
+        flash_err_chunked = {k: max(v, c_errs[k]) for k, v in flash_err_chunked.items()}
+        chunked[dh] = {"heads": heads, "flash_ms": c_ms, "sdpa_backend": backend,
+                       "device_ms": {name: {"events": ev, "profiler": dv} for name, (ev, dv, _) in c_times.items()}}
+    say(f"phase 24 (e) parity K8/K9 at [mfu-peak]'s node attention: ok; max abs err at dh 256 over phase 24 "
+        f"{flash_err256}, on the chunked route {flash_err_chunked}")
+    for part in ("fwd", "bwd"):
+        say(f"phase 24 (e) K{8 if part == 'fwd' else 9} on the chunked route against its plain version "
+            f"[{smi}]: " + ", ".join(f"dh {dh} {c['flash_ms'][part][0]:.4f} / {c['flash_ms'][part][1]:.4f} ms"
+                                     for dh, c in chunked.items())
+            + f"; the plain version faster at dh {plain_faster(chunked, part) or 'none of these'}")
     say(f"phase 24 every width: ok in {time.perf_counter() - t0:.2f} s")
     return {"tri_err": tri_worst, "flash_err": flash_err256, "tri_launches": tri_launches,
             "flash_launches": flash_launches, "peak": peak, "tri_ms": tri_ms, "tri_split": tri_split,
-            "flash_ms": flash_ms, "sdpa_kernels": {k: times[f"SDPA {k}"][2] for k in ("forward", "backward")}}
+            "flash_ms": flash_ms, "sdpa_kernels": {k: times[f"SDPA {k}"][2] for k in ("forward", "backward")},
+            "sdpa_backend": backend256,
+            "peak_chunked": peak_chunked, "chunked": chunked, "flash_err_chunked": flash_err_chunked}
+
+
+def plain_faster(chunked, part):
+    """The timed dh at which K8 (``part`` fwd) or K9 (bwd) on the chunked
+    route took longer than its plain version."""
+    return [dh for dh, c in chunked.items() if c["flash_ms"][part][0] > c["flash_ms"][part][1]]
 
 
 def width_entries(entry, widths):
     """Phase 24's entries of the kernels line from ``width_phase``'s
     numbers: K4-K7 at a ragged width (launches in the ragged TrFold step's
-    f32 run, times at bf16 C = 24 on ``[mfu-fused]``'s rows) and K8/K9 at
-    dh 256 (launches in the ``[mfu-peak]`` flash steps, times at its node
-    attention); ``entry`` builds one entry as main's does."""
+    f32 run, times at bf16 C = 24 on ``[mfu-fused]``'s rows), K8/K9 at
+    dh 256 (launches in the ``[mfu-peak]`` flash steps over 8 heads, times
+    at its node attention) and on the chunked route (launches in the
+    ``[mfu-peak]`` flash steps over 4 heads, times at its node attention,
+    dh 512); ``entry`` builds one entry as main's does."""
     kernels = []
     for name in TRI_KERNELS:
         kernels.append(dict(entry(f"tri_mul_{name}_ragged_c", "tri_mul.cu", TRI_REPLACES[name],
@@ -4362,7 +4470,8 @@ def width_entries(entry, widths):
                                  "alignment; launches in the ragged TrFold step (pair 40, f32, 3 steps)",
                             shape=f"N=4*512*512 C={WIDTH_TIMED_C} bf16, [mfu-fused]'s pair rows",
                             device_ms_by_kernel=dict(widths["tri_split"][name])))
-    peak_flash = widths["peak"]
+    peak_flash, peak_chunked = widths["peak"], widths["peak_chunked"]
+    timed_heads, timed_dh = CHUNKED_TIMED[0]
     for part, replaces in (("fwd", "protstruc_tpu/ops/flash_attn.py:79"),
                            ("bwd", "protstruc_tpu/ops/flash_attn.py:184")):
         k_ms, p_ms, lib_ms, b_ms, b_by = widths["flash_ms"][part]
@@ -4375,10 +4484,34 @@ def width_entries(entry, widths):
                                  f"{PEAK_STEPS} [mfu-peak] flash steps",
                             shape=f"bf16 B={PEAK_B} H={PEAK_WIDTH['n_heads']} dh=256 L={PEAK_L}, "
                                   "[mfu-peak]'s node attention",
-                            library=f"SDPA with the float mask: {widths['sdpa_kernels']}",
+                            library=f"SDPA with the float mask, backend {widths['sdpa_backend']}: {widths['sdpa_kernels']}",
                             mfu_peak_step={k: {"ms": v[0], "peak_gib": v[1], "launches_per_step": v[2],
                                                "step_peak_gib": v[3]} for k, v in peak_flash.items()},
                             ragged_trfold_launches=widths["flash_launches"][part]))
+        timed = widths["chunked"][timed_dh]
+        k_ms, p_ms, lib_ms, b_ms, b_by = timed["flash_ms"][part]
+        kernels.append(dict(entry(f"flash_attn_{part}_chunked", "flash_attn.cu", replaces,
+                                  round(peak_chunked["flash"][2][part] * PEAK_STEPS),
+                                  widths["flash_err_chunked"][part], k_ms, p_ms, b_ms, b_by, lib_ms),
+                            mode="chunked route: dh > 256 at round_up(dh, 128), head-dim chunks of 128 "
+                                 "bytes through a cp.async ring, each block owning 128 output columns "
+                                 "(q k^T recomputed dh_p/128 times); parity at dh 257, 320, 512, 1000, "
+                                 "2048, f32 and bf16, and at [mfu-peak]'s node attention at dh 512 and "
+                                 f"2048; launches in {PEAK_STEPS} [mfu-peak] flash steps over "
+                                 f"{PEAK_CHUNKED_HEADS} heads",
+                            shape=f"bf16 B={PEAK_B} H={timed_heads} dh={timed_dh} L={PEAK_L}, "
+                                  f"[mfu-peak]'s node attention over {timed_heads} heads",
+                            bound_count="the work counted once: 2 (K8) or 4 (K9) products over the logical dh",
+                            recompute_factor={dh: -(-dh // 128) for dh in widths["chunked"]},
+                            plain_faster_at_dh=plain_faster(widths["chunked"], part),
+                            library=f"SDPA with the float mask, backend {timed['sdpa_backend']}",
+                            timed_dh={dh: {"heads": c["heads"], "ms": c["flash_ms"][part][0],
+                                           "plain_ms": c["flash_ms"][part][1], "library_ms": c["flash_ms"][part][2],
+                                           "bound_ms": c["flash_ms"][part][3], "sdpa_backend": c["sdpa_backend"],
+                                           "device_ms": c["device_ms"]}
+                                      for dh, c in widths["chunked"].items()},
+                            mfu_peak_step={k: {"ms": v[0], "peak_gib": v[1], "launches_per_step": v[2],
+                                               "step_peak_gib": v[3]} for k, v in peak_chunked.items()}))
     return kernels
 
 
@@ -4429,6 +4562,12 @@ def main():
         for ln in cuda_lib.ptxas_lines(flash_attn.library_path().with_suffix(".log")):
             say(f"  ptxas: {ln}")
         flash_phase13(torch, dev, flash_attn, smi)
+        # [mfu-peak]'s node attention: dh 256, and in a tree with the chunked
+        # route CHUNKED_TIMED
+        node_attention_timing(torch, dev, flash_attn, smi, PEAK_WIDTH["n_heads"], "flash timing")
+        if hasattr(flash_attn, "head_dim_route"):
+            for heads, dh in CHUNKED_TIMED:
+                node_attention_timing(torch, dev, flash_attn, smi, heads, "flash timing", dh)
         return 0
     if sys.argv[1:] == ["--pair-timing"]:
         pair_timing(torch, dev, smi)

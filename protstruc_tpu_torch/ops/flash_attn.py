@@ -34,13 +34,18 @@ key), differentiable for cotangents of both outputs; ring attention
 (``ops/ring_attn.py``) merges its partial results.  The kernels mask ragged L themselves:
 the wrapper pads and copies nothing for it.
 
-Head dims: the kernels are built for dh 16, 32, 64, 128 and 256 and take any
-dh up to 256 (:data:`MAX_HEAD_DIM`), as the Pallas kernels take any dh as one
-block.  A dh between those runs the next one up (:func:`kernel_head_dim`):
-the wrappers stage q, k, v (and dO) into zero-padded contiguous copies that
+Head dims: the kernels take any dh >= 1, as the Pallas kernels take any dh
+as one block, on two routes (:func:`head_dim_route`).  "whole": dh up to 256
+on the kernels built for dh 16, 32, 64, 128 and 256, whole-dh rows in shared
+memory.  "chunked": dh above 256 on the chunked kernels, which take any
+multiple of 128 and stream the products over the head dim in chunks, each
+block owning 128 output columns.  :func:`kernel_head_dim` gives the width a
+dh runs at (the next built width, or dh rounded up to 128); at another dh the
+wrappers stage q, k, v (and dO) into zero-padded contiguous copies that
 wide, pass ``scale = 1 / sqrt(dh)`` of the logical dh, and cut out, dk and dv
 back to dh; zero columns add nothing to q k^T or dO v^T, and their columns of
-the outputs are zero.  The built widths read their strided views in place.
+the outputs are zero.  At a width of its own a dh's strided views are read in
+place.
 
 The wrappers :func:`flash_fwd` and :func:`flash_bwd` dispatch on the tensor's
 device and nothing else: a CUDA tensor launches ``csrc/flash_attn.cu`` (or
@@ -60,17 +65,21 @@ from protstruc_tpu_torch.ops import cuda_lib
 
 __all__ = ["flash_pair_bias_attention", "flash_pair_bias_attention_lse",
            "pair_bias_attention_reference", "flash_fwd", "flash_bwd", "dq_from_ds",
-           "kernel_head_dim", "load_library", "library_path", "LAUNCHES", "MAX_HEAD_DIM"]
+           "kernel_head_dim", "head_dim_route", "load_library", "library_path", "LAUNCHES",
+           "ROUTES", "ROUTE_LAUNCHES"]
 
 _SOURCES = ("flash_attn.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations (csrc/flash_attn.cu PS_DISPATCH)
-MAX_HEAD_DIM = _HEAD_DIMS[-1]
+_HEAD_DIMS = (16, 32, 64, 128, 256)  # the whole route's instantiations (csrc/flash_attn.cu PS_DISPATCH)
+_CHUNKED_STEP = 128  # the chunked route's widths: multiples of this (the columns a block owns)
 NEG = -1e30          # masked-logit sentinel
 LSE_MASKED = 1e30    # logsumexp pin of a query row with no allowed key
+ROUTES = ("whole", "chunked")
 
 #: Kernel launches made by the CUDA wrappers in this process (K8 fwd, K9 bwd).
 LAUNCHES: Dict[str, int] = {"fwd": 0, "bwd": 0}
+#: The same launches by route (:func:`head_dim_route`).
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {part: dict.fromkeys(ROUTES, 0) for part in LAUNCHES}
 
 
 def _scale(dh: int) -> float:
@@ -78,16 +87,25 @@ def _scale(dh: int) -> float:
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The built head dim that runs ``dh``: the smallest of 16, 32, 64, 128
-    and 256 at or above it; raises past :data:`MAX_HEAD_DIM`."""
+    """The width the kernels run ``dh`` at: the smallest of 16, 32, 64, 128
+    and 256 at or above it, above 256 ``dh`` rounded up to a multiple of
+    128; raises for dh < 1."""
+    if dh < 1:
+        raise ValueError(f"flash attention kernels take a head dim of 1 or more, got {dh}")
     for width in _HEAD_DIMS:
-        if 1 <= dh <= width:
+        if dh <= width:
             return width
-    raise ValueError(f"flash attention kernels take a head dim from 1 to {MAX_HEAD_DIM}, got {dh}")
+    return -(-dh // _CHUNKED_STEP) * _CHUNKED_STEP
+
+
+def head_dim_route(dh: int) -> str:
+    """The route of the kernels that runs ``dh``: "whole" up to 256,
+    "chunked" above."""
+    return ROUTES[kernel_head_dim(dh) > _HEAD_DIMS[-1]]
 
 
 def _staged(width, *ts):
-    """``ts`` as the kernels read them at built head dim ``width``: as they
+    """``ts`` as the kernels read them at head dim ``width``: as they
     are where it is their own, else zero-padded contiguous copies that wide."""
     if ts[0].shape[-1] == width:
         return ts
@@ -227,8 +245,8 @@ def _flash_fwd_cuda(q, k, v, bias, kmask):
 
 
 def _launch_fwd(q, k, v, bias, kmask, scale, out, lse):
-    """K8 on q's stream: q, k, v at a built head dim (their last dim), the
-    logical dh's ``scale``."""
+    """K8 on q's stream: q, k, v at the width :func:`kernel_head_dim` gives
+    (their last dim), the logical dh's ``scale``."""
     B, L, H, width = q.shape
     lib = load_library()
     km = kmask.contiguous().view(torch.uint8)
@@ -240,6 +258,7 @@ def _launch_fwd(q, k, v, bias, kmask, scale, out, lse):
     if rc != 0:
         raise RuntimeError(f"flash attention forward kernel launch failed with code {rc}")
     LAUNCHES["fwd"] += 1
+    ROUTE_LAUNCHES["fwd"][head_dim_route(width)] += 1
 
 
 def _flash_bwd_cuda(q, k, v, bias, kmask, do, lse, delta):
@@ -275,6 +294,7 @@ def _launch_bwd(q, k, v, bias, kmask, do, lse, delta, scale, ds, dk, dv):
     if rc != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed with code {rc}")
     LAUNCHES["bwd"] += 1
+    ROUTE_LAUNCHES["bwd"][head_dim_route(width)] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +367,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_pair_bias_attention(q, k, v, bias, kmask):
     """Fused attention with additive pair bias and key masking.
 
-    q, k, v: ``(B, L, H, dh)`` float32 or bfloat16, dh from 1 to 256
+    q, k, v: ``(B, L, H, dh)`` float32 or bfloat16, any dh >= 1
     (strided views allowed, head dim contiguous); bias: ``(B, H, L, L)`` of
     the same dtype, any dense strides; kmask: ``(B, L)`` bool.  Returns
     ``(B, L, H, dh)`` in q's dtype, differentiable in q, k, v and bias
